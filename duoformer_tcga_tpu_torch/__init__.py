@@ -1,0 +1,48 @@
+"""duoformer_tcga_tpu_torch — the DuoFormer serving path in PyTorch, with
+hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
+
+A port of duoformer_tcga_tpu (JAX/Pallas), which stays the reference the
+port is tested against. This package imports neither JAX nor anything of
+duoformer_tcga_tpu. What it covers so far: the release 2-scale DuoFormer
+forward (ResNet-50 pyramid -> projections -> regroup -> 12 ScaleBlocks ->
+12 PatchBlocks -> head) served by `inference.Predictor`, with the two fused
+transformer kernels in csrc/.
+
+Entry points run on the card unless the caller passes device="cpu";
+without a CUDA device and without that request they raise.
+"""
+
+__version__ = "0.1.0"
+
+import torch
+
+from ._device import resolve_device
+from .models.duoformer import DuoFormer, count_parameters, fold_for_inference  # noqa: F401
+
+
+def build_model_no_extra_params(
+    depth=12, embed_dim=768, num_heads=12, num_classes=2, num_layers=2,
+    num_patches=49, proj_dim=768, mlp_ratio=4.0, attn_drop_rate=0.0,
+    proj_drop_rate=0.0, freeze_backbone=True, backbone="r50",
+    scale_token="random", patch_attn=True, remat=False,
+    apply_fc_norm=False, dtype=torch.float32, device=None, seed=0,
+):
+    """Release-variant DuoFormer (reference build_model_no_extra_params),
+    initialised from torch.Generator(seed) on the CPU, in eval mode, moved
+    to `device` (None -> the card) and cast to `dtype`. Options of the JAX
+    factory that this slice does not cover raise NotImplementedError."""
+    if remat:
+        raise NotImplementedError(
+            "remat is a training option; training is not ported to the "
+            "PyTorch package yet")
+    device = resolve_device(device)
+    model = DuoFormer(
+        depth=depth, embed_dim=embed_dim, num_heads=num_heads,
+        num_classes=num_classes, num_layers=num_layers,
+        num_patches=num_patches, mlp_ratio=mlp_ratio,
+        attn_drop_rate=attn_drop_rate, proj_drop_rate=proj_drop_rate,
+        proj_dim=proj_dim, freeze_backbone=freeze_backbone,
+        backbone=backbone, scale_token=scale_token, patch_attn=patch_attn,
+        apply_fc_norm=apply_fc_norm,
+        generator=torch.Generator().manual_seed(seed))
+    return model.eval().to(device=device, dtype=dtype)

@@ -1,0 +1,75 @@
+"""Multi-head attention of the port (counterpart of
+duoformer_tcga_tpu/ops/attention.py).
+
+`multihead_attention` is the bare attention of the PatchBlocks: qkv ->
+softmax(q k^T * scale) v per head -> proj, with no LayerNorm and no
+residual. It runs as the bare form of the fused attention kernel
+(ops/fused_attention.py), which replaces attention.py:174-239. `_qkv_heads`
+and `_sdpa` are the unfused composition (attention.py:52-71), kept for
+the tests only.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from . import nn as ops
+from .fused_attention import fused_attention_residual
+
+
+class Attention(nn.Module):
+    """One attention parameter set: qkv (dim -> 3*dim) and proj, timm ViT
+    init. Q/k norms (created by the reference only when attn_drop > 0,
+    quirk Q9) are a later slice."""
+
+    def __init__(self, dim, num_heads, qkv_bias=True, generator=None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.qkv = ops.Linear(dim, 3 * dim, qkv_bias, "vit", generator)
+        self.proj = ops.Linear(dim, dim, True, "vit", generator)
+
+
+def _bias(linear: ops.Linear, width, like):
+    if linear.b is not None:
+        return linear.b
+    return like.new_zeros(width, dtype=torch.float32)
+
+
+def multihead_attention(attn: Attention, x, num_heads, scale=None):
+    """Bare MHSA over the second-to-last axis: x [..., S, C] -> same."""
+    *lead, S, C = x.shape
+    if scale is None:
+        scale = (C // num_heads) ** -0.5
+    zeros = x.new_zeros(C, dtype=torch.float32)
+    out = fused_attention_residual(
+        x.reshape(-1, S, C), zeros, zeros, attn.qkv.w,
+        _bias(attn.qkv, 3 * C, x), attn.proj.w, _bias(attn.proj, C, x),
+        num_heads, S, float(scale), 1e-6, use_ln=False, use_residual=False)
+    return out.reshape(*lead, S, C)
+
+
+def _qkv_heads(attn: Attention, x, num_heads):
+    """x [..., S, C] -> q, k, v each [..., H, S, D] (torch head layout)."""
+    *lead, S, C = x.shape
+    D = C // num_heads
+    qkv = attn.qkv(x).reshape(*lead, S, 3, num_heads, D)
+    qkv = torch.movedim(qkv, (-3, -2), (0, -3))          # [3, ..., H, S, D]
+    return qkv[0], qkv[1], qkv[2]
+
+
+def _sdpa(q, k, v, scale):
+    """softmax(q k^T * scale) v over the last two axes, float32 softmax."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    p = torch.softmax(s, dim=-1)
+    return torch.matmul(p.to(v.dtype).float(), v.float()).to(v.dtype)
+
+
+def multihead_attention_unfused(attn: Attention, x, num_heads, scale=None):
+    """The unfused composition of `multihead_attention` (tests only)."""
+    *lead, S, C = x.shape
+    if scale is None:
+        scale = (C // num_heads) ** -0.5
+    q, k, v = _qkv_heads(attn, x, num_heads)
+    out = torch.movedim(_sdpa(q, k, v, scale), -3, -2).reshape(*lead, S, C)
+    return attn.proj(out)
