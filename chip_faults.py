@@ -1,0 +1,118 @@
+#!/usr/bin/env python3
+"""Plant faults in copies of the port's CUDA kernels and show that the
+kernel checks of chip_smoke.py fail on each.
+
+    python3 chip_faults.py
+
+For each fault in FAULTS, copies chip_smoke.py and duoformer_tcga_tpu_torch/
+(without its build directory) into duoformer_tcga_tpu_torch/_build/faults/
+<name>/, changes one line of one kernel source there, and runs
+chip_smoke.kernel_checks (untimed, TF32 off) from that copy in a process of
+its own; all copies build and run at once. The fault "none" changes nothing
+and is the control. Prints, per fault and case, whether the case passed,
+its branch relative L2 error, and whether the elementwise atol = rtol =
+0.08 bar alone passed it. Exits non-zero when the control fails a case or
+a fault passes every case of its kernel. Needs one CUDA device and nvcc;
+imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+PKG = "duoformer_tcga_tpu_torch"
+WORK = os.path.join(HERE, PKG, "_build", "faults")
+ATTN = f"{PKG}/csrc/fused_attention_residual.cu"
+MLP = f"{PKG}/csrc/fused_mlp_residual.cu"
+
+# name: (file, text, replacement, kernel whose cases must fail)
+FAULTS = {
+    "none": (None, None, None, None),
+    "uniform softmax": (
+        ATTN, "e[u] = in[u] ? expf(sv[u] - mx) : 0.f;",
+        "e[u] = in[u] ? 1.f : 0.f;", "fused_attention_residual"),
+    "scores not scaled": (
+        ATTN, "sS[r * Sh::S_LD + c] * scale", "sS[r * Sh::S_LD + c]",
+        "fused_attention_residual"),
+    "mask spans the block": (
+        ATTN, "in[u] = live && c >= c0 && c < c0 + S;", "in[u] = c < R;",
+        "fused_attention_residual"),
+    "last head skipped": (
+        ATTN, "    } else {\n      // ---- 6.",
+        "    } else if (h != Sh::H - 1) {\n      // ---- 6.",
+        "fused_attention_residual"),
+    "relu for gelu": (
+        MLP, "z0 = 0.5f * z0 * (1.f + erff(z0 * 0.70710678118654752f));",
+        "z0 = fmaxf(z0, 0.f);", "fused_mlp_residual"),
+    "last hidden chunk skipped": (
+        MLP, "    } else {\n      // ---- 3.",
+        "    } else if (s / S::SLABS != hidden / HC - 1) {\n      // ---- 3.",
+        "fused_mlp_residual"),
+}
+
+CHILD = """
+import json, torch, torch.nn.functional as F
+import chip_smoke
+from duoformer_tcga_tpu_torch.ops import fused_attention as fa
+assert fa.__file__.startswith(chip_smoke.HERE), fa.__file__
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+cases, others = chip_smoke.kernel_checks(torch, F, fa, timed=False)
+print(json.dumps({**cases, **others}))
+"""
+
+
+def plant(name, fault):
+    path, text, repl, _ = fault
+    dst = os.path.join(WORK, name.replace(" ", "_"))
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(os.path.join(HERE, PKG), os.path.join(dst, PKG),
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    shutil.copy(os.path.join(HERE, "chip_smoke.py"), dst)
+    if path:
+        src = open(os.path.join(dst, path)).read()
+        if src.count(text) != 1:
+            raise SystemExit(f"{name}: the text to change occurs "
+                             f"{src.count(text)} times in {path}")
+        with open(os.path.join(dst, path), "w") as f:
+            f.write(src.replace(text, repl))
+    return dst
+
+
+def main() -> int:
+    dirs = {name: plant(name, f) for name, f in FAULTS.items()}
+    procs = {name: subprocess.Popen([sys.executable, "-c", CHILD], cwd=d,
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+             for name, d in dirs.items()}
+    bad = []
+    for name, proc in procs.items():
+        out, err = proc.communicate(timeout=900)
+        if proc.returncode != 0:
+            print(f"{name}: the checks did not run (exit {proc.returncode})"
+                  f"\n{err[-3000:]}", flush=True)
+            bad.append(name)
+            continue
+        results = json.loads(out.strip().splitlines()[-1])
+        kernel = FAULTS[name][3]
+        mine = [c for c in results
+                if kernel and c.split(" ")[0].startswith(kernel)]
+        for case, r in results.items():
+            print(f"{name} | {case}: {'ok' if r['ok'] else 'FAIL'}, branch "
+                  f"rel err {r['rel_err']:.4g}, atol=rtol=0.08 alone "
+                  f"{'passes' if r['close'] else 'fails'}", flush=True)
+        if kernel is None and not all(r["ok"] for r in results.values()):
+            bad.append(name)
+        if kernel and all(results[c]["ok"] for c in mine):
+            bad.append(name)
+    print(json.dumps({"faults_not_caught": bad}))
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

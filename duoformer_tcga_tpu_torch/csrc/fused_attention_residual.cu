@@ -38,12 +38,11 @@
 // flops against 2*rows*C*2 bytes of activations), but this kernel is far
 // from the tensor-core roof: every block re-reads wqkv and wproj (4.7 MB
 // at C=768) from L2, each slab costs two block-wide barriers, and
-// mma.sync reaches only part of what wgmma can. At S=50 and batch 64 one
-// block per segment would leave half of the 132 SMs idle, so there the
-// heads are split over two blocks per segment, which add their partial
-// proj sums in a second, elementwise kernel. The scores run over the whole
-// RT x RT tile though the segments are 6 wide at S=6. wgmma with TMA-fed
-// slabs and multicast of slabs over a cluster are the next steps.
+// mma.sync reaches only part of what wgmma can. At S=50 there is one block
+// per segment, so below 132 segments (batch 132) some SMs stay idle. The
+// scores run over the whole RT x RT tile though the segments are 6 wide at
+// S=6. wgmma with TMA-fed slabs and multicast of slabs over a cluster are
+// the next steps.
 
 #include "tile_ops.cuh"
 
@@ -55,7 +54,6 @@ constexpr int THREADS = WARPS * 32;
 constexpr int QKV_LD = 3 * D + 8;  // one head's q | k | v, padded
 constexpr int O_LD = D + 8;        // bf16 head output
 constexpr int QN = 3 * D / 8 / WARPS;   // qkv n8 tiles per warp (3)
-constexpr int HEAD_GROUPS = 2;     // head split when the grid is small
 
 // RT rows per block; C = 64 * heads.
 template <int RT, int C_>
@@ -116,7 +114,7 @@ fused_attention_kernel(const bf16* __restrict__ x,
                        const float* __restrict__ bqkv,
                        const bf16* __restrict__ wproj,
                        const float* __restrict__ bproj,
-                       bf16* __restrict__ out, float* __restrict__ part,
+                       bf16* __restrict__ out,
                        int n_seg, int S, float scale, float eps, int use_ln,
                        int use_residual) {
   typedef Shape<RT, C> Sh;
@@ -139,11 +137,8 @@ fused_attention_kernel(const bf16* __restrict__ x,
   const int R = min(G, n_seg - seg0) * S;    // live rows of this block
   const long row0 = (long)seg0 * S;
 
-  // gridDim.y > 1 splits the heads over blocks (see launch); each block
-  // then leaves its float32 partial proj sum in part
-  const int heads = Sh::H / gridDim.y, h0 = blockIdx.y * heads;
-  const int total = heads * Sh::PER_HEAD;
-  load_slab<RT, C>(stage0, h0, 0, wqkv, wproj);
+  constexpr int total = Sh::H * Sh::PER_HEAD;
+  load_slab<RT, C>(stage0, 0, 0, wqkv, wproj);
   cp_async_commit();
 
   // ---- 1. LayerNorm (or a plain copy) of the block's rows into sLN ----
@@ -163,13 +158,13 @@ fused_attention_kernel(const bf16* __restrict__ x,
   for (int s = 0; s < total; ++s) {
     if (s + 1 < total)
       load_slab<RT, C>(stage0 + ((s + 1) & 1) * Sh::STAGE,
-                       h0 + (s + 1) / Sh::PER_HEAD, (s + 1) % Sh::PER_HEAD,
+                       (s + 1) / Sh::PER_HEAD, (s + 1) % Sh::PER_HEAD,
                        wqkv, wproj);
     cp_async_commit();
     cp_async_wait_one();
     __syncthreads();
     const bf16* slab = stage0 + (s & 1) * Sh::STAGE;
-    const int h = h0 + s / Sh::PER_HEAD, j = s % Sh::PER_HEAD;
+    const int h = s / Sh::PER_HEAD, j = s % Sh::PER_HEAD;
 
     if (j < Sh::QSLABS) {
       // ---- 2. q | k | v of head h, KQ rows of K at a time ----
@@ -311,40 +306,8 @@ fused_attention_kernel(const bf16* __restrict__ x,
   }
 
   // ---- 7. epilogue: + bproj [+ x], one cast, live rows only ----
-  if (part == nullptr)
-    store_rows<C, MT, NJ>(acc, warp * (C / 8), bproj, x, out, row0, R,
-                          use_residual);
-  else
-    store_partial<C, MT, NJ>(acc, warp * (C / 8),
-                             part + (long)blockIdx.y * n_seg * S * C, row0,
-                             R);
-}
-
-// out = sum of the head groups' partial proj sums + bias [+ x], cast once.
-__global__ void combine_heads_kernel(const float* __restrict__ part,
-                                     int groups, long n, int C,
-                                     const float* __restrict__ bias,
-                                     const bf16* __restrict__ x,
-                                     bf16* __restrict__ out,
-                                     int use_residual) {
-  const long i = 2 * ((long)blockIdx.x * blockDim.x + threadIdx.x);
-  if (i >= n) return;
-  float2 y = *reinterpret_cast<const float2*>(part + i);
-  for (int k = 1; k < groups; ++k) {
-    const float2 p = *reinterpret_cast<const float2*>(part + k * n + i);
-    y.x += p.x;
-    y.y += p.y;
-  }
-  const int col = (int)(i % C);
-  y.x += bias[col];
-  y.y += bias[col + 1];
-  if (use_residual) {
-    const float2 r = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(x + i));
-    y.x += r.x;
-    y.y += r.y;
-  }
-  *reinterpret_cast<__nv_bfloat162*>(out + i) = __floats2bfloat162_rn(y.x, y.y);
+  store_rows<C, MT, NJ>(acc, warp * (C / 8), bproj, x, out, row0, R,
+                        use_residual);
 }
 
 // Rows per block for seg_len S.
@@ -353,9 +316,9 @@ int rows_per_block(int S) { return S <= 48 ? 48 : 64; }
 template <int RT, int C>
 cudaError_t launch(const bf16* x, const float* lns, const float* lnb,
                    const bf16* wqkv, const float* bqkv, const bf16* wproj,
-                   const float* bproj, bf16* out, float* part, int n_seg,
-                   int S, float scale, float eps, int use_ln,
-                   int use_residual, cudaStream_t stream) {
+                   const float* bproj, bf16* out, int n_seg, int S,
+                   float scale, float eps, int use_ln, int use_residual,
+                   cudaStream_t stream) {
   constexpr size_t smem = Shape<RT, C>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
       fused_attention_kernel<RT, C>,
@@ -363,18 +326,9 @@ cudaError_t launch(const bf16* x, const float* lns, const float* lnb,
   if (err != cudaSuccess) return err;
   const int G = RT / S;
   const int blocks = (n_seg + G - 1) / G;
-  const int groups = part ? HEAD_GROUPS : 1;
-  fused_attention_kernel<RT, C><<<dim3(blocks, groups), THREADS, smem,
-                                  stream>>>(
-      x, lns, lnb, wqkv, bqkv, wproj, bproj, out, part, n_seg, S, scale, eps,
+  fused_attention_kernel<RT, C><<<blocks, THREADS, smem, stream>>>(
+      x, lns, lnb, wqkv, bqkv, wproj, bproj, out, n_seg, S, scale, eps,
       use_ln, use_residual);
-  if (part) {
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    const long n = (long)n_seg * S * C;
-    combine_heads_kernel<<<(int)((n / 2 + 255) / 256), 256, 0, stream>>>(
-        part, groups, n, C, bproj, x, out, use_residual);
-  }
   return cudaGetLastError();
 }
 
@@ -382,53 +336,34 @@ template <int C>
 cudaError_t launch_rows(const bf16* x, const float* lns, const float* lnb,
                         const bf16* wqkv, const float* bqkv,
                         const bf16* wproj, const float* bproj, bf16* out,
-                        float* part, int n_seg, int S, float scale, float eps,
-                        int use_ln, int use_residual, cudaStream_t stream) {
+                        int n_seg, int S, float scale, float eps, int use_ln,
+                        int use_residual, cudaStream_t stream) {
   if (rows_per_block(S) == 48)
-    return launch<48, C>(x, lns, lnb, wqkv, bqkv, wproj, bproj, out, part,
-                         n_seg, S, scale, eps, use_ln, use_residual, stream);
-  return launch<64, C>(x, lns, lnb, wqkv, bqkv, wproj, bproj, out, part,
-                       n_seg, S, scale, eps, use_ln, use_residual, stream);
+    return launch<48, C>(x, lns, lnb, wqkv, bqkv, wproj, bproj, out, n_seg,
+                         S, scale, eps, use_ln, use_residual, stream);
+  return launch<64, C>(x, lns, lnb, wqkv, bqkv, wproj, bproj, out, n_seg, S,
+                       scale, eps, use_ln, use_residual, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Bytes of float32 workspace the launch wants for these shapes, 0 for
-// none. When the grid would leave half the SMs idle (S=50 at small batch:
-// one block per segment), the heads are split over HEAD_GROUPS blocks per
-// segment, each leaving a partial proj sum that a second, elementwise
-// kernel adds up with the bias and residual.
-long long fused_attention_workspace_bytes(int n_seg, int S, int C) {
-  if (S < 1 || S > 64) return 0;
-  const int G = rows_per_block(S) / S;
-  const long blocks = (n_seg + G - 1) / G;
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess)
-    return 0;
-  if (HEAD_GROUPS * blocks > sms) return 0;
-  return (long long)HEAD_GROUPS * n_seg * S * C * (long long)sizeof(float);
-}
-
 // Returns the launch's cudaGetLastError() (0 on success). Arguments are
 // checked by the Python wrapper: S in 1..64, C = 64 * num_heads with C in
-// {256, 512, 768}, every pointer 32-byte aligned; part is null or holds
-// fused_attention_workspace_bytes(n_seg, S, C) bytes.
+// {256, 512, 768}, every pointer 32-byte aligned.
 int launch_fused_attention_residual(const void* x, const void* lns,
                                     const void* lnb, const void* wqkv,
                                     const void* bqkv, const void* wproj,
                                     const void* bproj, void* out, int n_seg,
                                     int S, int C, int num_heads, float scale,
                                     float eps, int use_ln, int use_residual,
-                                    void* part, void* stream) {
+                                    void* stream) {
   if (S < 1 || S > 64 || C != num_heads * D) return (int)cudaErrorInvalidValue;
 #define ARGS                                                                \
   (const bf16*)x, (const float*)lns, (const float*)lnb, (const bf16*)wqkv, \
       (const float*)bqkv, (const bf16*)wproj, (const float*)bproj,        \
-      (bf16*)out, (float*)part, n_seg, S, scale, eps, use_ln, use_residual, \
+      (bf16*)out, n_seg, S, scale, eps, use_ln, use_residual,              \
       (cudaStream_t)stream
   switch (C) {
     case 256: return (int)launch_rows<256>(ARGS);

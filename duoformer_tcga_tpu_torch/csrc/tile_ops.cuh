@@ -178,26 +178,4 @@ __device__ __forceinline__ void store_rows(const float (&acc)[MT][NJ][4],
     }
 }
 
-// part[row0 + row, col0 + col] = acc (float32, no bias), for the warp's
-// MT x NJ accumulator tiles; rows at or past R are not written.
-template <int C, int MT, int NJ>
-__device__ __forceinline__ void store_partial(const float (&acc)[MT][NJ][4],
-                                              int col0,
-                                              float* __restrict__ part,
-                                              long row0, int R) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int n = 0; n < NJ; ++n)
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        const int row = m * 16 + g + 8 * hr;
-        if (row >= R) continue;
-        *reinterpret_cast<float2*>(part + (row0 + row) * C + col0 + n * 8 +
-                                   2 * t) =
-            make_float2(acc[m][n][2 * hr], acc[m][n][2 * hr + 1]);
-      }
-}
-
 }  // namespace

@@ -103,7 +103,7 @@ def _check_tensor(name, t, device, dtype, shape):
     _require(tuple(t.shape) == tuple(shape),
              f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     _require(t.is_contiguous(), f"{name} must be contiguous")
-    # wmma fragment loads need 32-byte aligned tile starts
+    # the kernels copy rows in 16-byte cp.async chunks from aligned starts
     _require(t.data_ptr() % 32 == 0, f"{name} must be 32-byte aligned")
 
 
@@ -160,20 +160,13 @@ def fused_attention_residual(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
     lib = _build.load_library("fused_attention_residual")
     fn = lib.launch_fused_attention_residual
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + \
-        [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+        [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    ws = lib.fused_attention_workspace_bytes
-    ws.argtypes, ws.restype = [ctypes.c_int] * 3, ctypes.c_longlong
     with torch.cuda.device(dev):
-        # float32 partial sums when the kernel splits the heads over blocks
-        nbytes = ws(n_seg, S, C)
-        part = (torch.empty(nbytes // 4, dtype=f32, device=dev) if nbytes
-                else None)
         status = fn(_ptr(x), _ptr(ln_scale), _ptr(ln_bias), _ptr(wqkv),
                     _ptr(bqkv), _ptr(wproj), _ptr(bproj), _ptr(out),
                     n_seg, S, C, num_heads, float(scale), float(ln_eps),
-                    int(bool(use_ln)), int(bool(use_residual)),
-                    None if part is None else _ptr(part), _stream(dev))
+                    int(bool(use_ln)), int(bool(use_residual)), _stream(dev))
     _build.check(lib, status, "fused_attention_residual")
     launch_counts["fused_attention_residual" if use_ln
                   else "fused_attention_residual_bare"] += 1

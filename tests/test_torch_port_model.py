@@ -11,6 +11,8 @@ say little. Bar: atol = rtol = 1e-4, the repo's parity bar
 (tests/test_parity.py:19-29).
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -115,14 +117,34 @@ def test_scale_stack_matches_jax(pair):
 
 
 def test_cls_embedding_matches_jax(pair):
-    np.testing.assert_allclose(pair["t_cls"].numpy(),
-                               np.asarray(pair["j_cls"]), **TOL)
+    """At random init the patch chain shrinks the CLS to an RMS of about
+    1e-4, the size of the bar itself, so it is compared in units of its
+    RMS."""
+    _assert_close_in_rms_units(pair["t_cls"].numpy(), np.asarray(pair["j_cls"]))
+
+
+def test_cls_comparison_sees_a_patch_stack_fault(pair):
+    """A 10% error in one patch block's proj, which an absolute 1e-4 bar
+    cannot see at this CLS size, fails the comparison in RMS units."""
+    faulty = copy.deepcopy(pair["tmodel"])
+    with torch.no_grad():
+        faulty.transformer.patch_blocks[0].attn.proj.w.mul_(1.1)
+        _, cls = faulty(pair["pred"].prepare(pair["tiles"]),
+                        with_embedding=True)
+    ref = np.asarray(pair["j_cls"])
+    np.testing.assert_allclose(cls.numpy(), ref, **TOL)
+    with pytest.raises(AssertionError):
+        _assert_close_in_rms_units(cls.numpy(), ref)
 
 
 def test_predictor_logits_match_jax_predictor(pair):
+    """The logits are mostly the head's bias at random init: they are held
+    at the bar, and what the model adds to the bias in units of its RMS."""
     logits = pair["pred"](pair["tiles"])
-    np.testing.assert_allclose(logits.numpy(), np.asarray(pair["j_logits"]),
-                               **TOL)
+    ref = np.asarray(pair["j_logits"])
+    np.testing.assert_allclose(logits.numpy(), ref, **TOL)
+    bias = np.asarray(pair["raw"]["transformer"]["head"]["b"])
+    _assert_close_in_rms_units(logits.numpy() - bias, ref - bias)
     np.testing.assert_allclose(pair["t_logits"].numpy(), logits.numpy(),
                                atol=0, rtol=0)
 
