@@ -6,13 +6,14 @@ kernel checks of chip_smoke.py fail on each.
 
 For each fault in FAULTS, copies chip_smoke.py and duoformer_tcga_tpu_torch/
 (without its build directory) into duoformer_tcga_tpu_torch/_build/faults/
-<name>/, changes one line of one kernel source there, and runs
-chip_smoke.kernel_checks (untimed, TF32 off) from that copy in a process of
-its own; all copies build and run at once. The fault "none" changes nothing
-and is the control. Prints, per fault and case, whether the case passed,
-its branch relative L2 error, and whether the elementwise atol = rtol =
-0.08 bar alone passed it. Exits non-zero when the control fails a case or
-a fault passes every case of its kernel. Needs one CUDA device and nvcc;
+<name>/, changes one place in one kernel source there, and runs
+chip_smoke.kernel_checks (untimed, TF32 off) on the cases of that source's
+kernel forms, from that copy, in a process of its own; all copies build
+and run at once. The fault "none" changes nothing, runs every case and is
+the control. Prints, per fault and case, whether the case passed, its
+relative L2 error, and whether the elementwise atol = rtol = 0.08 bar
+alone passed it. Exits non-zero when the control fails a case or a fault
+passes every case of its kernel form. Needs one CUDA device and nvcc;
 imports nothing of JAX.
 """
 
@@ -29,8 +30,10 @@ PKG = "duoformer_tcga_tpu_torch"
 WORK = os.path.join(HERE, PKG, "_build", "faults")
 ATTN = f"{PKG}/csrc/fused_attention_residual.cu"
 MLP = f"{PKG}/csrc/fused_mlp_residual.cu"
+BWD = f"{PKG}/csrc/fused_attention_residual_bwd.cu"
+DZ = f"{PKG}/csrc/mlp_dz.cu"
 
-# name: (file, text, replacement, kernel whose cases must fail)
+# name: (file, text, replacement, the kernel form whose cases must fail)
 FAULTS = {
     "none": (None, None, None, None),
     "uniform softmax": (
@@ -47,22 +50,53 @@ FAULTS = {
         "    } else if (h != Sh::H - 1) {\n      // ---- 6.",
         "fused_attention_residual"),
     "relu for gelu": (
-        MLP, "z0 = 0.5f * z0 * (1.f + erff(z0 * 0.70710678118654752f));",
-        "z0 = fmaxf(z0, 0.f);", "fused_mlp_residual"),
+        MLP, "a0 = 0.5f * z0 * (1.f + erff(z0 * 0.70710678118654752f));",
+        "a0 = fmaxf(z0, 0.f);", "fused_mlp_residual"),
     "last hidden chunk skipped": (
         MLP, "    } else {\n      // ---- 3.",
         "    } else if (s / S::SLABS != hidden / HC - 1) {\n      // ---- 3.",
         "fused_mlp_residual"),
+    "z written after gelu": (
+        MLP, "zout + (row0 + row) * hidden + c0 + col) =\n"
+             "                    __floats2bfloat162_rn(z0, z1);",
+        "zout + (row0 + row) * hidden + c0 + col) =\n"
+        "                    __floats2bfloat162_rn(a0, a1);",
+        "fused_mlp_residual_z"),
+    "rowsum(dp p) dropped": (
+        BWD, "pv[u] * (dpv[u] - rs) * scale", "pv[u] * dpv[u] * scale",
+        "fused_attention_residual_bwd"),
+    "ds not scaled": (
+        BWD, "pv[u] * (dpv[u] - rs) * scale", "pv[u] * (dpv[u] - rs)",
+        "fused_attention_residual_bwd"),
+    "dq and dk swapped": (
+        BWD, "QKV_LD + which * D +", "QKV_LD + (1 - which) * D +",
+        "fused_attention_residual_bwd"),
+    "LN backward mean terms dropped": (
+        BWD, "istd[m][hr] * (dxh - m1[m][hr] - xh * m2[m][hr])",
+        "istd[m][hr] * dxh", "fused_attention_residual_bwd"),
+    "last head's dqkv skipped": (
+        BWD, "h * D + seg * 8) =\n          *reinterpret_cast<const uint4*>(",
+        "h * D + seg * 8) = h == Sh::H - 1 ? make_uint4(0, 0, 0, 0) :\n"
+        "          *reinterpret_cast<const uint4*>(",
+        "fused_attention_residual_bwd"),
+    "gelu for gelu'": (
+        DZ, "const float d0 = p0 + zf.x * (INV_SQRT_2PI * expf(-0.5f * zf.x "
+            "* zf.x));\n        const float d1 = p1 + zf.y * (INV_SQRT_2PI "
+            "* expf(-0.5f * zf.y * zf.y));",
+        "const float d0 = zf.x * p0;\n        const float d1 = zf.y * p1;",
+        "mlp_dz"),
 }
 
 CHILD = """
-import json, torch, torch.nn.functional as F
+import json, sys, torch, torch.nn.functional as F
 import chip_smoke
 from duoformer_tcga_tpu_torch.ops import fused_attention as fa
 assert fa.__file__.startswith(chip_smoke.HERE), fa.__file__
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
-cases, others = chip_smoke.kernel_checks(torch, F, fa, timed=False)
+source = sys.argv[1] or None
+cases, others = chip_smoke.kernel_checks(torch, F, fa, timed=False,
+                                         source=source)
 print(json.dumps({**cases, **others}))
 """
 
@@ -86,7 +120,8 @@ def plant(name, fault):
 
 def main() -> int:
     dirs = {name: plant(name, f) for name, f in FAULTS.items()}
-    procs = {name: subprocess.Popen([sys.executable, "-c", CHILD], cwd=d,
+    procs = {name: subprocess.Popen([sys.executable, "-c", CHILD,
+                                     FAULTS[name][0] or ""], cwd=d,
                                     stdout=subprocess.PIPE,
                                     stderr=subprocess.PIPE, text=True)
              for name, d in dirs.items()}
@@ -100,8 +135,7 @@ def main() -> int:
             continue
         results = json.loads(out.strip().splitlines()[-1])
         kernel = FAULTS[name][3]
-        mine = [c for c in results
-                if kernel and c.split(" ")[0].startswith(kernel)]
+        mine = [c for c in results if c.split(" ")[0] == kernel]
         for case, r in results.items():
             print(f"{name} | {case}: {'ok' if r['ok'] else 'FAIL'}, branch "
                   f"rel err {r['rel_err']:.4g}, atol=rtol=0.08 alone "

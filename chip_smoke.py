@@ -3,31 +3,53 @@
 
     python3 chip_smoke.py
 
-1. Builds both CUDA kernels from the checkout's sources (one nvcc each,
+1. Builds the four CUDA kernel sources from the checkout (one nvcc each,
    started together) and prints each kernel's register and spill report.
-2. Holds every kernel against its plain PyTorch version on the card, at
-   the serving path's shapes (C=768, 12 heads, B=64), at the bare form's
-   shape for B=256, and at one small odd shape each: kernel in bf16, plain
-   version on the same inputs upcast to float32. A case passes when both
-   hold: atol = rtol = 0.08 elementwise (the repo's bf16 kernel bar,
-   tests/test_tpu_hw.py:110), and the relative L2 error of the branch (the
-   output less the residual x, where the form adds one) is at most 1e-2,
-   twice what bf16 rounding at the kernels' rounding points gives. The
-   weights are drawn so that the attention scores spread about 2 units and
-   the branch is as large as x, so a wrong score, softmax, mask or head
-   moves the branch by far more than that. Times kernel, plain version and
-   one PyTorch library composition of the same function (a yardstick the
-   port never calls) with CUDA events, median of 20 launches each.
+2. Holds every kernel form against its plain PyTorch version on the card:
+   the serving forms at the serving path's shapes (C=768, 12 heads, B=64),
+   the training forms (the MLP's z form, the attention backward in both
+   forms, the MLP's dz pass) at the training step's (B=128), the bare form
+   also at B=256, and each at one small odd shape: kernel in bf16, plain
+   version on the same inputs upcast to float32. Every output of a case
+   must hold both bars: atol = rtol = 0.08 elementwise (the repo's bf16
+   kernel bar, tests/test_tpu_hw.py:110), and a relative L2 error of at
+   most 1e-2 (of the branch, the output less the residual, where the form
+   adds one), twice what bf16 rounding at the kernels' rounding points
+   gives. A column sum over n rows (dlns, dlnb, dbqkv, dbproj, db1) sums
+   n terms that each carry their own bf16 rounding, so its elementwise
+   atol is 0.08 * sqrt(n), the size of n independent errors of 0.08 (its
+   relative L2 bar stays 1e-2). The weights are drawn so that the
+   attention scores spread about 2 units and the branch is as large as x,
+   so a wrong score, softmax, mask or head moves the branch by far more
+   than that. Times kernel, plain version and one PyTorch library
+   composition of the same function (a yardstick the port never calls)
+   with CUDA events, median of 20 launches each.
 3. Serves the release DuoFormer at full width (768/12/12, depth 12, 2
    scales, bf16, random weights from a fixed seed) through
    build_model_no_extra_params -> Predictor: 3 batches of 64 uint8 tiles.
-   Launch counts are zeroed just before and read just after; each kernel
+   Launch counts are zeroed just before and read just after; each serving
    form must have run exactly 12 times per forward. Checks logits shape
    and finiteness, and embed() on 2 tiles against the same weights run by
    the port on the CPU in float32 (relative L2 error <= 0.05: bf16 weights
    and activations through 53 convolutions and 24 transformer blocks, each
    rounding at 2^-9 relative). Then times the forward at B=64: the
    median, least and greatest of 7 host-clock windows of 5 forwards.
+4. Trains the same model (float32 masters, bf16 compute, frozen backbone,
+   Adam with L2 decay 1e-4, OneCycle at 1e-4 over 1000 steps) through
+   train.make_train_step on 3 batches of 128 uint8 tiles with labels in
+   {0, 1}. One step, counts zeroed just before: each of the six training
+   forms must have run exactly 12 times and the serving MLP form never.
+   Over 3 steps the loss is finite, every trainable tensor the loss
+   reaches changed and every backbone tensor is bit-identical. The
+   gradients of one backward on 2 tiles, on the card in bf16 and by the
+   port on the CPU in float32 from the same weights, must agree to a
+   relative L2 error of 0.05 (the embed() bar) for every tensor of scale
+   blocks 0 and 11, qkv and proj of patch blocks 0 and 11, the head, the
+   tokens, the position embeddings and the projection convs. Then times
+   the step at B=128 (median, least and greatest of 7 host-clock windows
+   of 3 steps), its forward / backward / optimizer split (CUDA events),
+   its peak memory, and one step's device time by kernel
+   (torch.profiler).
 
 Prints the card's name and power limit, one JSON line {"kernels": [...]},
 and as its last line {"ok": true, "device": {...}}. Exits non-zero, with
@@ -37,6 +59,7 @@ this script, or when any phase fails. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -51,11 +74,41 @@ BRANCH_REL_TOL = 1e-2      # relative L2 error of the branch (see above)
 QKV_STD = 1.5              # wqkv std in units of C**-0.5: scores std ~2.3
 EMBED_REL_TOL = 0.05
 SEED = 0
-B = 64
+B = 64                     # serving batch
+B_TRAIN = 128              # training batch (config.py:94)
 C, HEADS, HIDDEN = 768, 12, 3072
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 REPEATS = 20
+GRAD_REL_TOL = 0.05        # card (bf16) vs CPU (float32) gradients
+CSRC = "duoformer_tcga_tpu_torch/csrc/"
+PALLAS = "duoformer_tcga_tpu/ops/pallas_attention.py:"
+# kernel form -> its CUDA source; REPLACES: -> the TPU kernel it replaces
+SOURCES = {
+    "fused_attention_residual": CSRC + "fused_attention_residual.cu",
+    "fused_attention_residual_bare": CSRC + "fused_attention_residual.cu",
+    "fused_mlp_residual": CSRC + "fused_mlp_residual.cu",
+    "fused_mlp_residual_z": CSRC + "fused_mlp_residual.cu",
+    "fused_attention_residual_bwd": CSRC + "fused_attention_residual_bwd.cu",
+    "fused_attention_residual_bwd_bare":
+        CSRC + "fused_attention_residual_bwd.cu",
+    "mlp_dz": CSRC + "mlp_dz.cu",
+}
+REPLACES = {
+    "fused_attention_residual": PALLAS + "311",
+    "fused_attention_residual_bare": PALLAS + "311",
+    "fused_mlp_residual": PALLAS + "1306",
+    "fused_mlp_residual_z": PALLAS + "1350",
+    "fused_attention_residual_bwd": PALLAS + "723",
+    "fused_attention_residual_bwd_bare": PALLAS + "723",
+    "mlp_dz": PALLAS + "1727",
+}
+SERVING_FORMS = ("fused_attention_residual", "fused_attention_residual_bare",
+                 "fused_mlp_residual")
+# each runs 12 times in one training step; the serving MLP form none
+TRAINING_FORMS = ("fused_attention_residual", "fused_attention_residual_bare",
+                  "fused_mlp_residual_z", "fused_attention_residual_bwd",
+                  "fused_attention_residual_bwd_bare", "mlp_dz")
 
 
 def log(*a):
@@ -94,17 +147,33 @@ def bound(flops, nbytes):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def compare(torch, out, ref, residual):
+def compare(torch, out, ref, residual, n_summed=1):
     """out (kernel, bf16) against ref (plain, float32): max |out - ref|, the
-    relative L2 error of the branch ref - residual, and both bars."""
+    relative L2 error of the branch ref - residual, and both bars. A column
+    sum over n_summed rows is held at atol = 0.08 * sqrt(n_summed): each
+    row's term carries its own bf16 rounding, and n independent errors
+    add up to sqrt(n) times one."""
     torch.cuda.synchronize()
     out = out.float()
     branch = ref if residual is None else ref - residual.float()
     rel = ((out - ref).norm() / branch.norm().clamp_min(1e-30)).item()
-    close = bool(torch.allclose(out, ref, atol=TOL, rtol=TOL))
+    close = bool(torch.allclose(out, ref, atol=TOL * n_summed ** 0.5,
+                                rtol=TOL))
     return dict(max_abs_err=(out - ref).abs().max().item(), rel_err=rel,
                 branch_rms=branch.pow(2).mean().sqrt().item(), close=close,
                 ok=close and rel <= BRANCH_REL_TOL)
+
+
+def compare_all(torch, outputs):
+    """{output: (kernel, plain, residual[, n_summed])} -> the worst of
+    each output's compare(), with every output's own result under "outputs";
+    the case passes when every output passes both bars."""
+    each = {k: compare(torch, *v) for k, v in outputs.items()}
+    return dict(max_abs_err=max(r["max_abs_err"] for r in each.values()),
+                rel_err=max(r["rel_err"] for r in each.values()),
+                branch_rms=min(r["branch_rms"] for r in each.values()),
+                close=all(r["close"] for r in each.values()),
+                ok=all(r["ok"] for r in each.values()), outputs=each)
 
 
 def attention_case(torch, F, fa, gen, n_seg, S, c, heads, bare, timed):
@@ -164,7 +233,8 @@ def attention_case(torch, F, fa, gen, n_seg, S, c, heads, bare, timed):
     return res
 
 
-def mlp_case(torch, F, fa, gen, rows, c, hidden, timed):
+def mlp_case(torch, F, fa, gen, rows, c, hidden, timed, z_form=False):
+    """The MLP kernel: the branch (out less x); the z form also z."""
     dev, bf16 = "cuda", torch.bfloat16
 
     def rnd(*shape, std=1.0, mean=0.0):
@@ -178,27 +248,34 @@ def mlp_case(torch, F, fa, gen, rows, c, hidden, timed):
     b2 = rnd(c, std=0.01).cuda()
 
     def kernel():
-        return fa.fused_mlp_residual(x, lns, lnb, w1, b1, w2, b2)
+        return fa.fused_mlp_residual(x, lns, lnb, w1, b1, w2, b2,
+                                     return_hidden=z_form)
 
     f32 = [t.float() for t in (x, w1, w2)]
 
     def plain():
         return fa.fused_mlp_residual_plain(f32[0], lns, lnb, f32[1], b1,
-                                           f32[2], b2)
+                                           f32[2], b2, return_hidden=z_form)
 
-    res = compare(torch, kernel(), plain(), x)
+    if z_form:
+        (out, z), (ref, zref) = kernel(), plain()
+        res = compare_all(torch, {"out": (out, ref, x), "z": (z, zref, None)})
+    else:
+        res = compare(torch, kernel(), plain(), x)
     if not timed:
         return res
     w1_t, w2_t = w1.t().contiguous(), w2.t().contiguous()
     b1_b, b2_b, lns_b, lnb_b = (t.to(bf16) for t in (b1, b2, lns, lnb))
 
     def library():
-        h = F.layer_norm(x, (c,), lns_b, lnb_b, 1e-6)
-        h = F.gelu(F.linear(h, w1_t, b1_b))
-        return F.linear(h, w2_t, b2_b) + x
+        zz = F.linear(F.layer_norm(x, (c,), lns_b, lnb_b, 1e-6), w1_t, b1_b)
+        y = F.linear(F.gelu(zz), w2_t, b2_b) + x
+        return (y, zz) if z_form else y
 
     flops = 4 * rows * c * hidden
-    nbytes = 2 * (2 * rows * c + 2 * c * hidden) + 4 * (3 * c + hidden)
+    nbytes = (2 * (2 * rows * c + 2 * c * hidden
+                   + (rows * hidden if z_form else 0))
+              + 4 * (3 * c + hidden))
     bound_ms, bound_by = bound(flops, nbytes)
     res.update(ms=median_ms(kernel, torch), plain_ms=median_ms(plain, torch),
                library_ms=median_ms(library, torch), bound_ms=bound_ms,
@@ -206,34 +283,344 @@ def mlp_case(torch, F, fa, gen, rows, c, hidden, timed):
     return res
 
 
-def kernel_checks(torch, F, fa, timed):
-    """-> (the serving path's cases by kernel name, the other cases by
-    description); `timed` adds the times and bounds."""
-    gen = torch.Generator().manual_seed(SEED)
-    cases = {
-        "fused_attention_residual": attention_case(
-            torch, F, fa, gen, B * 49, 6, C, HEADS, False, timed),
-        "fused_attention_residual_bare": attention_case(
-            torch, F, fa, gen, B, 50, C, HEADS, True, timed),
-        "fused_mlp_residual": mlp_case(torch, F, fa, gen, B * 49 * 6, C,
-                                       HIDDEN, timed),
-    }
-    others = {
-        "fused_attention_residual_bare n_seg=256 S=50 (B=256)":
-            attention_case(torch, F, fa, gen, 256, 50, C, HEADS, True, timed),
-        "fused_attention_residual n_seg=13 S=6 C=256 H=4": attention_case(
-            torch, F, fa, gen, 13, 6, 256, 4, False, False),
-        "fused_attention_residual_bare n_seg=3 S=50 C=256 H=4":
-            attention_case(torch, F, fa, gen, 3, 50, 256, 4, True, False),
-        "fused_mlp_residual rows=222 C=256 hidden=1024": mlp_case(
-            torch, F, fa, gen, 222, 256, 1024, False),
-    }
+def attention_bwd_case(torch, F, fa, gen, n_seg, S, c, heads, bare, timed):
+    """The attention backward kernel: dx less the residual g, ln (full
+    form), attn, dqkv and the column sums, each against the plain version
+    on the same bf16 inputs upcast to float32."""
+    dev, bf16 = "cuda", torch.bfloat16
+
+    def rnd(*shape, std=1.0, mean=0.0):
+        return torch.randn(*shape, generator=gen) * std + mean
+
+    x = rnd(n_seg, S, c).to(dev, bf16)
+    g = rnd(n_seg, S, c).to(dev, bf16)
+    if bare:
+        lns = torch.zeros(c, device=dev)
+        lnb = torch.zeros(c, device=dev)
+    else:
+        lns, lnb = rnd(c, std=0.1, mean=1.0).cuda(), rnd(c, std=0.1).cuda()
+    wqkv = rnd(c, 3 * c, std=QKV_STD * c ** -0.5).to(dev, bf16)
+    bqkv = rnd(3 * c, std=0.01).cuda()
+    wproj = rnd(c, c, std=c ** -0.5).to(dev, bf16)
+    bproj = rnd(c, std=0.01).cuda()
+    scale = (c // heads) ** -0.5
+    flags = dict(use_ln=not bare, use_residual=not bare)
+
+    def kernel():
+        return fa.fused_attention_residual_bwd(x, g, lns, lnb, wqkv, bqkv,
+                                               wproj, heads, S, scale,
+                                               **flags)
+
+    f32 = [t.float() for t in (x, g, wqkv, wproj)]
+
+    def plain():
+        return fa.fused_attention_residual_bwd_plain(
+            f32[0], f32[1], lns, lnb, f32[2], bqkv, f32[3], heads, S, scale,
+            **flags)
+
+    out, ref = kernel(), plain()
+    names = ("dx", "ln", "attn", "dqkv", "dlns", "dlnb", "dbqkv", "dbproj")
+    rows = n_seg * S
+    pairs = {k: (o, r, None) if o.dim() > 1 else (o, r, None, rows)
+             for k, o, r in zip(names, out, ref)
+             if not (bare and k in ("ln", "dlns", "dlnb"))}
+    if not bare:
+        pairs["dx"] = (out[0], ref[0], g)
+    res = compare_all(torch, pairs)
+    if not timed:
+        return res
+    D = c // heads
+    leaves = [t.detach().clone().requires_grad_(True) for t in (
+        x, lns.to(bf16), lnb.to(bf16), wqkv.t().contiguous(), bqkv.to(bf16),
+        wproj.t().contiguous(), bproj.to(bf16))]
+
+    def library():
+        xx, ls, lb, wq, bq, wp, bp = leaves
+        h = xx if bare else F.layer_norm(xx, (c,), ls, lb, 1e-6)
+        qkv = F.linear(h, wq, bq).view(n_seg, S, 3, heads, D)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4)
+        o = F.scaled_dot_product_attention(q, k, v, scale=scale)
+        y = F.linear(o.transpose(1, 2).reshape(n_seg, S, c), wp, bp)
+        y = y if bare else y + xx
+        return torch.autograd.grad(y, leaves, g, allow_unused=bare)
+
+    flops = 2 * rows * c * 7 * c + 12 * n_seg * S * S * c
+    nbytes = (2 * (rows * c * (3 + (0 if bare else 1) + 1 + 3) + 4 * c * c)
+              + 4 * (2 * c + 3 * c + 6 * c))
+    bound_ms, bound_by = bound(flops, nbytes)
+    res.update(ms=median_ms(kernel, torch), plain_ms=median_ms(plain, torch),
+               library_ms=median_ms(library, torch), bound_ms=bound_ms,
+               bound_by=bound_by, flops=flops, bytes=nbytes)
+    return res
+
+
+def mlp_dz_case(torch, F, fa, gen, rows, c, hidden, timed):
+    """The dz kernel: dz and db1."""
+    dev, bf16 = "cuda", torch.bfloat16
+
+    def rnd(*shape, std=1.0):
+        return torch.randn(*shape, generator=gen) * std
+
+    g = rnd(rows, c).to(dev, bf16)
+    z = rnd(rows, hidden).to(dev, bf16)
+    w2 = rnd(hidden, c, std=hidden ** -0.5).to(dev, bf16)
+
+    def kernel():
+        return fa.mlp_dz(g, z, w2)
+
+    f32 = [t.float() for t in (g, z, w2)]
+
+    def plain():
+        return fa.mlp_dz_plain(*f32)
+
+    (dz, db1), (dzr, db1r) = kernel(), plain()
+    res = compare_all(torch, {"dz": (dz, dzr, None),
+                              "db1": (db1, db1r, None, rows)})
+    if not timed:
+        return res
+    w2_t = w2.t()
+
+    def library():
+        d = torch.ops.aten.gelu_backward(torch.matmul(g, w2_t), z)
+        return d, d.float().sum(0)
+
+    flops = 2 * rows * c * hidden
+    nbytes = 2 * (rows * c + 2 * rows * hidden + hidden * c) + 4 * hidden
+    bound_ms, bound_by = bound(flops, nbytes)
+    res.update(ms=median_ms(kernel, torch), plain_ms=median_ms(plain, torch),
+               library_ms=median_ms(library, torch), bound_ms=bound_ms,
+               bound_by=bound_by, flops=flops, bytes=nbytes)
+    return res
+
+
+def _case_specs(torch, F, fa, timed):
+    """[(label, kernel form, run(generator))]: each form at its main path's
+    shape (label = the form), then the other shapes."""
+    rows_s, rows_t = B * 49 * 6, B_TRAIN * 49 * 6
+    att, mlp = attention_case, mlp_case
+    mlp_z = functools.partial(mlp_case, z_form=True)
+    bwd, dz = attention_bwd_case, mlp_dz_case
+    specs = [
+        # the serving path's forms (B=64)
+        ("fused_attention_residual", B * 49, 6, C, HEADS, False, att, timed),
+        ("fused_attention_residual_bare", B, 50, C, HEADS, True, att, timed),
+        ("fused_mlp_residual", rows_s, C, HIDDEN, mlp, timed),
+        # the training step's forms (B=128)
+        ("fused_mlp_residual_z", rows_t, C, HIDDEN, mlp_z, timed),
+        ("fused_attention_residual_bwd", B_TRAIN * 49, 6, C, HEADS, False,
+         bwd, timed),
+        ("fused_attention_residual_bwd_bare", B_TRAIN, 50, C, HEADS, True,
+         bwd, timed),
+        ("mlp_dz", rows_t, C, HIDDEN, dz, timed),
+        # other shapes
+        ("fused_attention_residual_bare n_seg=256 S=50 (B=256)", 256, 50, C,
+         HEADS, True, att, timed),
+        ("fused_attention_residual n_seg=13 S=6 C=256 H=4", 13, 6, 256, 4,
+         False, att, False),
+        ("fused_attention_residual_bare n_seg=3 S=50 C=256 H=4", 3, 50, 256,
+         4, True, att, False),
+        ("fused_mlp_residual rows=222 C=256 hidden=1024", 222, 256, 1024,
+         mlp, False),
+        ("fused_mlp_residual_z rows=222 C=256 hidden=1024", 222, 256, 1024,
+         mlp_z, False),
+        ("fused_attention_residual_bwd n_seg=13 S=6 C=256 H=4", 13, 6, 256,
+         4, False, bwd, False),
+        ("fused_attention_residual_bwd_bare n_seg=3 S=50 C=256 H=4", 3, 50,
+         256, 4, True, bwd, False),
+        ("mlp_dz rows=222 C=256 hidden=1024", 222, 256, 1024, dz, False),
+    ]
+    out = []
+    for label, *args in specs:
+        *shape, case, t = args
+        out.append((label, label.split(" ")[0],
+                    lambda gen, case=case, shape=shape, t=t:
+                    case(torch, F, fa, gen, *shape, t)))
+    return out
+
+
+def kernel_checks(torch, F, fa, timed, source=None):
+    """-> (the main paths' cases by kernel form, the other cases by
+    description); `timed` adds the times and bounds. The serving forms run
+    at the serving shapes (B=64), the training forms at the training step's
+    (B_TRAIN=128). source: a kernel source (a value of SOURCES) to run
+    only the cases of its forms. Each case draws its inputs from a
+    generator of its own, seeded by its place in the list."""
+    cases, others = {}, {}
+    for i, (label, form, run) in enumerate(_case_specs(torch, F, fa, timed)):
+        if source is not None and SOURCES[form] != source:
+            continue
+        res = run(torch.Generator().manual_seed(SEED + i))
+        (cases if label == form else others)[label] = res
     return cases, others
 
 
 def rel_err(a, b):
     a, b = a.float().cpu(), b.float().cpu()
     return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+def grad_check_names(model):
+    """The tensors whose card-vs-CPU gradients are compared: every tensor
+    of scale blocks 0 and 11, qkv and proj of patch blocks 0 and 11, the
+    head, the tokens and position embeddings, the projection convs."""
+    last = len(model.transformer.scale_blocks) - 1
+    keep = [f"transformer.scale_blocks.{i}." for i in (0, last)]
+    keep += [f"transformer.patch_blocks.{i}.attn." for i in (0, last)]
+    keep += ["transformer.head.", "transformer.pos_embed",
+             "transformer.cls_token", "scale_token", "projection."]
+    return [n for n, p in model.named_parameters()
+            if p.requires_grad and any(n.startswith(k) for k in keep)]
+
+
+def train_phase(torch, port, fa, failures, card):
+    """Phase 4: the release training step at full width on the card.
+    -> the launch counts of one counted step."""
+    from duoformer_tcga_tpu_torch import train as train_lib
+    from duoformer_tcga_tpu_torch.data import pipeline as data_lib
+
+    def setup(device, dtype):
+        model = port.build_model_no_extra_params(
+            num_layers=2, embed_dim=C, proj_dim=C, num_heads=HEADS, depth=12,
+            device=device, seed=SEED)
+        opt = train_lib.make_optimizer(
+            model, train_lib.onecycle_schedule(1e-4, 1000), weight_decay=1e-4,
+            frozen_label_fn=train_lib.backbone_frozen_labels)
+        state = train_lib.init_train_state(model, opt)
+        return model, state, train_lib.make_train_step(model, dtype=dtype)
+
+    t0 = time.perf_counter()
+    model, state, step = setup("cuda", torch.bfloat16)
+    trainable = {n for n, p in model.named_parameters() if p.requires_grad}
+    before = {n: t.detach().clone() for n, t in model.state_dict().items()}
+    log(f"train: model and step set up in {time.perf_counter() - t0:.1f} s; "
+        f"{sum(p.numel() for p in state['optimizer'].param_groups[0]['params']) / 1e6:.2f} "
+        f"M trainable elements")
+    rng = np.random.default_rng(SEED + 1)
+    batches = [{"image": rng.integers(0, 256, (B_TRAIN, 224, 224, 3),
+                                      dtype=np.uint8),
+                "label": rng.integers(0, 2, (B_TRAIN,))} for _ in range(3)]
+
+    # ---- gradients on 2 tiles: card (bf16) vs the port on the CPU (f32) ----
+    t0 = time.perf_counter()
+    cpu_model, _, _ = setup("cpu", torch.float32)
+    names = grad_check_names(model)
+
+    def grads(m, device, dtype):
+        """Both tiles take label 0: at random init the CLS hardly depends
+        on the tile, so with opposite labels the two tiles' gradients all
+        but cancel and their difference measures the cancellation."""
+        x = data_lib.preprocess_tiles(
+            torch.as_tensor(batches[0]["image"][:2]).to(device), dtype=dtype)
+        labels = torch.zeros(2, dtype=torch.long).to(device)
+        params = dict(m.named_parameters())
+        loss = train_lib.cross_entropy(m(x), labels)
+        return torch.autograd.grad(loss, [params[n] for n in names])
+
+    errs = {n: rel_err(a, b) for n, a, b in zip(
+        names, grads(model, "cuda", torch.bfloat16),
+        grads(cpu_model, "cpu", torch.float32))}
+    del cpu_model
+    worst = max(errs, key=errs.get)
+    log(f"train: gradients card bf16 vs CPU float32 on 2 tiles "
+        f"({time.perf_counter() - t0:.1f} s), rel L2 err of {len(errs)} "
+        f"tensors (tolerance {GRAD_REL_TOL}), worst {worst} "
+        f"{errs[worst]:.3e}:")
+    for n, e in errs.items():
+        log(f"  {n}: {e:.3e}")
+    failures += [f"gradient of {n}: rel err {e:.3e}" for n, e in errs.items()
+                 if not e <= GRAD_REL_TOL]
+
+    # ---- one counted step, then two more ----
+    fa.reset_launch_counts()
+    state, m = step(state, batches[0])
+    torch.cuda.synchronize()
+    launches = dict(fa.launch_counts)
+    losses = [float(m["loss"])]
+    for b in batches[1:]:
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+    log(f"train: one step at B={B_TRAIN}, launches {launches}; losses of 3 "
+        f"steps {losses}")
+    for name in TRAINING_FORMS:
+        if launches.get(name, 0) != 12:
+            failures.append(f"train step: {launches.get(name, 0)} launches "
+                            f"of {name}, expected 12")
+    if launches.get("fused_mlp_residual", 0) != 0:
+        failures.append(f"train step: {launches['fused_mlp_residual']} "
+                        f"launches of the serving MLP form, expected 0")
+    if not all(np.isfinite(losses)):
+        failures.append(f"train losses {losses}")
+    after = model.state_dict()
+    unused = ("transformer.fc_norm.",)     # quirk Q7: the head reads raw CLS
+    same = [n for n in trainable if not n.startswith(unused)
+            and torch.equal(after[n], before[n])]
+    moved = [n for n in before if n.startswith("backbone.")
+             and not torch.equal(after[n], before[n])]
+    log(f"train: {len(trainable)} trainable tensors, unchanged after 3 "
+        f"steps: {same}; backbone tensors changed: {moved}")
+    if same:
+        failures.append(f"trainable tensors unchanged: {same[:5]}")
+    if moved:
+        failures.append(f"backbone tensors changed: {moved[:5]}")
+    del before
+
+    # ---- the step's time: 7 host-clock windows of 3 steps ----
+    n, windows = 3, []
+    for i in range(7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for j in range(n):
+            state, _ = step(state, batches[j])
+        torch.cuda.synchronize()
+        windows.append((time.perf_counter() - t0) / n)
+    dt = float(np.median(windows))
+
+    # forward / backward / optimizer split (CUDA events, median of 5) and
+    # the peak memory of one step
+    x = data_lib.preprocess_tiles(
+        torch.as_tensor(batches[0]["image"]).cuda(), dtype=torch.bfloat16)
+    labels = torch.as_tensor(batches[0]["label"]).cuda()
+    split = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(5):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        state["optimizer"].zero_grad(set_to_none=True)
+        ev[0].record()
+        loss = train_lib.cross_entropy(model(x), labels)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        train_lib.apply_update(state)
+        ev[3].record()
+        ev[3].synchronize()
+        split.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+    fwd, bwd, opt = np.median(np.array(split), axis=0)
+
+    # where one step's device time goes (torch.profiler, CUPTI)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(state, batches[0])
+        torch.cuda.synchronize()
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0), reverse=True)
+    busy = sum(r[0] for r in rows)
+    log(f"train profile of one step: device busy {busy:.2f} ms "
+        f"({busy / (dt * 1e3):.1%} of the {dt * 1e3:.2f} ms step); by "
+        f"kernel (ms, launches):" if rows else
+        "train profile: the profiler saw no device time (not measured)")
+    for ms, count, key in rows[:16]:
+        log(f"  {ms:8.3f} {count:5d}  {key[:90]}")
+    log(f"train throughput: {B_TRAIN / dt:.1f} tiles/s at B={B_TRAIN}, "
+        f"median of 7 windows of {n} steps (least {B_TRAIN / max(windows):.1f}"
+        f", greatest {B_TRAIN / min(windows):.1f}; step {dt * 1e3:.2f} ms); "
+        f"forward {fwd:.2f} ms, backward {bwd:.2f} ms, optimizer {opt:.2f} "
+        f"ms (CUDA events, median of 5 steps); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; on {card}")
+    return launches
 
 
 def main() -> int:
@@ -287,6 +674,9 @@ def main() -> int:
                f"ms, library {res['library_ms']:.4f} ms, bound "
                f"{res['bound_ms']:.4f} ms ({res['bound_by']})"
                if "ms" in res else ""))
+        for out, r in res.get("outputs", {}).items():
+            log(f"  {out}: max_abs_err {r['max_abs_err']:.6g}, rel L2 err "
+                f"{r['rel_err']:.4g} {'ok' if r['ok'] else 'FAIL'}")
         if not res["ok"]:
             failures.append(f"kernel check {name}")
 
@@ -307,9 +697,10 @@ def main() -> int:
     launches = dict(fa.launch_counts)
     log(f"serving: 3 batches of {B}; launches {launches}")
     for name in cases:
-        if launches.get(name, 0) != 12 * len(batches):
+        want = 12 * len(batches) if name in SERVING_FORMS else 0
+        if launches.get(name, 0) != want:
             failures.append(f"{name}: {launches.get(name, 0)} launches, "
-                            f"expected {12 * len(batches)}")
+                            f"expected {want}")
     for i, lg in enumerate(outs):
         if tuple(lg.shape) != (B, 2) or not bool(torch.isfinite(lg).all()):
             failures.append(f"batch {i}: logits {tuple(lg.shape)}, finite="
@@ -358,7 +749,7 @@ def main() -> int:
         torch.cuda.synchronize()
         windows.append((time.perf_counter() - t0) / n)
     dt = float(np.median(windows))
-    kernel_ms = sum(12 * cases[k]["ms"] for k in cases)
+    kernel_ms = sum(12 * cases[k]["ms"] for k in SERVING_FORMS)
     log(f"throughput: {B / dt:.1f} tiles/s at B={B}, median of 7 windows "
         f"of {n} forwards (least {B / max(windows):.1f}, greatest "
         f"{B / min(windows):.1f}; forward {dt * 1e3:.2f} ms, of which the "
@@ -366,24 +757,20 @@ def main() -> int:
         f"{card}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-    replaces = {
-        "fused_attention_residual":
-            "duoformer_tcga_tpu/ops/pallas_attention.py:311",
-        "fused_attention_residual_bare":
-            "duoformer_tcga_tpu/ops/pallas_attention.py:311",
-        "fused_mlp_residual":
-            "duoformer_tcga_tpu/ops/pallas_attention.py:1306",
-    }
-    sources = {
-        "fused_attention_residual":
-            "duoformer_tcga_tpu_torch/csrc/fused_attention_residual.cu",
-        "fused_attention_residual_bare":
-            "duoformer_tcga_tpu_torch/csrc/fused_attention_residual.cu",
-        "fused_mlp_residual":
-            "duoformer_tcga_tpu_torch/csrc/fused_mlp_residual.cu",
-    }
-    kernels = [dict(name=name, route="cuda", source=sources[name],
-                    replaces=replaces[name], launches=launches.get(name, 0),
+    del pred, ref_pred, m, x, feats, toks, sc, cls, outs
+    torch.cuda.empty_cache()
+
+    # ---- 4. the training step ----
+    train_launches = train_phase(torch, port, fa, failures, card)
+
+    kernels = [dict(name=name, route="cuda", source=SOURCES[name],
+                    replaces=REPLACES[name],
+                    launches=launches.get(name, 0)
+                    + train_launches.get(name, 0),
+                    launches_by_path={
+                        f"serve ({len(batches)} forwards)":
+                            launches.get(name, 0),
+                        "train (1 step)": train_launches.get(name, 0)},
                     max_abs_err=res["max_abs_err"], ms=res["ms"],
                     plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
                     bound_by=res["bound_by"], library_ms=res["library_ms"])

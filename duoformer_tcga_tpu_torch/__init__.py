@@ -1,12 +1,13 @@
-"""duoformer_tcga_tpu_torch — the DuoFormer serving path in PyTorch, with
-hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
+"""duoformer_tcga_tpu_torch — DuoFormer serving and training in PyTorch,
+with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 A port of duoformer_tcga_tpu (JAX/Pallas), which stays the reference the
 port is tested against. This package imports neither JAX nor anything of
 duoformer_tcga_tpu. What it covers so far: the release 2-scale DuoFormer
 forward (ResNet-50 pyramid -> projections -> regroup -> 12 ScaleBlocks ->
-12 PatchBlocks -> head) served by `inference.Predictor`, with the two fused
-transformer kernels in csrc/.
+12 PatchBlocks -> head) served by `inference.Predictor`, and its training
+step with a frozen backbone (`train.py`), with the fused transformer
+kernels and their backward kernels in csrc/.
 
 Entry points run on the card unless the caller passes device="cpu";
 without a CUDA device and without that request they raise.
@@ -33,7 +34,7 @@ def build_model_no_extra_params(
     factory that this slice does not cover raise NotImplementedError."""
     if remat:
         raise NotImplementedError(
-            "remat is a training option; training is not ported to the "
+            "remat (activation rematerialization) is not ported to the "
             "PyTorch package yet")
     device = resolve_device(device)
     model = DuoFormer(

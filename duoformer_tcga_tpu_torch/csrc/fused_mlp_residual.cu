@@ -7,8 +7,14 @@
 // float32.
 //
 // Replaces: duoformer_tcga_tpu/ops/pallas_attention.py, _fused_mlp_kernel
-// (inert instantiation, without the saved hidden z), driven by
-// _fused_mlp_impl. It runs once in every ScaleBlock of the serving path.
+// (inert instantiation) and _fused_mlp_kernel_z (the same forward that also
+// writes the pre-GELU hidden z [rows, H] in bf16 for the save-hidden
+// backward), both driven by _fused_mlp_impl. The serving form runs once in
+// every ScaleBlock of the serving path, the z form once in every ScaleBlock
+// of a training step. The z form writes z from the fc1 accumulator
+// fragments as they are, before GELU: 4 threads store 16 contiguous bytes
+// of a row, so the write is not fully coalesced (rows * H * 2 bytes, 231 MB
+// per block at B=128).
 //
 // Rounding points are the TPU kernel's: LN output cast to bf16, fc1 + b1
 // and the exact GELU in float32, the post-GELU hidden cast to bf16, fc2 +
@@ -97,7 +103,8 @@ fused_mlp_kernel(const bf16* __restrict__ x, const float* __restrict__ lns,
                  const float* __restrict__ lnb, const bf16* __restrict__ w1,
                  const float* __restrict__ b1, const bf16* __restrict__ w2,
                  const float* __restrict__ b2, bf16* __restrict__ out,
-                 int rows, int hidden, float eps, int use_residual) {
+                 bf16* __restrict__ zout, int rows, int hidden, float eps,
+                 int use_residual) {
   typedef Shape<C> S;
   constexpr int NJ = S::NJ;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -160,7 +167,8 @@ fused_mlp_kernel(const bf16* __restrict__ x, const float* __restrict__ lns,
         }
       }
       if (j == S::SLABS1 - 1) {
-        // bias + exact GELU in float32, hidden chunk to bf16
+        // bias + exact GELU in float32, hidden chunk to bf16; the z form
+        // also stores the pre-GELU z = fc1 + b1 in bf16
         const int c0 = (s / S::SLABS) * HC;
 #pragma unroll
         for (int m = 0; m < MT; ++m)
@@ -170,12 +178,17 @@ fused_mlp_kernel(const bf16* __restrict__ x, const float* __restrict__ lns,
             const float bb0 = b1[c0 + col], bb1 = b1[c0 + col + 1];
 #pragma unroll
             for (int hr = 0; hr < 2; ++hr) {
-              float z0 = h1[m][n][2 * hr] + bb0, z1 = h1[m][n][2 * hr + 1] + bb1;
-              z0 = 0.5f * z0 * (1.f + erff(z0 * 0.70710678118654752f));
-              z1 = 0.5f * z1 * (1.f + erff(z1 * 0.70710678118654752f));
-              *reinterpret_cast<__nv_bfloat162*>(
-                  sH + (m * 16 + g + 8 * hr) * H_LD + col) =
-                  __floats2bfloat162_rn(z0, z1);
+              const int row = m * 16 + g + 8 * hr;
+              const float z0 = h1[m][n][2 * hr] + bb0;
+              const float z1 = h1[m][n][2 * hr + 1] + bb1;
+              const float a0 = 0.5f * z0 * (1.f + erff(z0 * 0.70710678118654752f));
+              const float a1 = 0.5f * z1 * (1.f + erff(z1 * 0.70710678118654752f));
+              if (zout != nullptr && row < R)
+                *reinterpret_cast<__nv_bfloat162*>(
+                    zout + (row0 + row) * hidden + c0 + col) =
+                    __floats2bfloat162_rn(z0, z1);
+              *reinterpret_cast<__nv_bfloat162*>(sH + row * H_LD + col) =
+                  __floats2bfloat162_rn(a0, a1);
             }
           }
       }
@@ -212,8 +225,9 @@ fused_mlp_kernel(const bf16* __restrict__ x, const float* __restrict__ lns,
 template <int C>
 cudaError_t launch(const bf16* x, const float* lns, const float* lnb,
                    const bf16* w1, const float* b1, const bf16* w2,
-                   const float* b2, bf16* out, int rows, int hidden,
-                   float eps, int use_residual, cudaStream_t stream) {
+                   const float* b2, bf16* out, bf16* zout, int rows,
+                   int hidden, float eps, int use_residual,
+                   cudaStream_t stream) {
   constexpr size_t smem = Shape<C>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
       fused_mlp_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -221,7 +235,8 @@ cudaError_t launch(const bf16* x, const float* lns, const float* lnb,
   if (err != cudaSuccess) return err;
   const int blocks = (rows + RT - 1) / RT;
   fused_mlp_kernel<C><<<blocks, THREADS, smem, stream>>>(
-      x, lns, lnb, w1, b1, w2, b2, out, rows, hidden, eps, use_residual);
+      x, lns, lnb, w1, b1, w2, b2, out, zout, rows, hidden, eps,
+      use_residual);
   return cudaGetLastError();
 }
 
@@ -231,17 +246,18 @@ extern "C" {
 
 // Returns the launch's cudaGetLastError() (0 on success). Arguments are
 // checked by the Python wrapper: C in {256, 512, 768}, hidden a positive
-// multiple of 128, every pointer 32-byte aligned.
+// multiple of 128, every pointer 32-byte aligned. z: null (the serving
+// form), or [rows, hidden] bf16 for the pre-GELU hidden (the z form).
 int launch_fused_mlp_residual(const void* x, const void* lns, const void* lnb,
                               const void* w1, const void* b1, const void* w2,
-                              const void* b2, void* out, int rows, int C,
-                              int hidden, float eps, int use_residual,
+                              const void* b2, void* out, void* z, int rows,
+                              int C, int hidden, float eps, int use_residual,
                               void* stream) {
   if (hidden <= 0 || hidden % HC != 0) return (int)cudaErrorInvalidValue;
 #define ARGS                                                              \
   (const bf16*)x, (const float*)lns, (const float*)lnb, (const bf16*)w1, \
       (const float*)b1, (const bf16*)w2, (const float*)b2, (bf16*)out,   \
-      rows, hidden, eps, use_residual, (cudaStream_t)stream
+      (bf16*)z, rows, hidden, eps, use_residual, (cudaStream_t)stream
   switch (C) {
     case 256: return (int)launch<256>(ARGS);
     case 512: return (int)launch<512>(ARGS);

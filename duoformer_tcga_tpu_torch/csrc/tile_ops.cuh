@@ -85,6 +85,28 @@ __device__ __forceinline__ void ldsm_bt2(unsigned (&b)[4], const bf16* p,
                : "r"(smem_addr(q)));
 }
 
+// A fragment of a 16x16 tile of A = M^T for a row-major [K, ld] matrix M
+// at p (k16 rows of M, m16 columns).
+__device__ __forceinline__ void ldsm_at(unsigned (&a)[4], const bf16* p,
+                                        int ld, int lane) {
+  const bf16* q = p + ((lane & 7) + ((lane >> 4) << 3)) * ld +
+                  ((lane >> 3) & 1) * 8;
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(smem_addr(q)));
+}
+
+// B fragment of one n8 tile of B = M^T for a row-major [N, ld] matrix M at
+// p (n8 rows of M, k16 columns).
+__device__ __forceinline__ void ldsm_bt1(unsigned (&b)[2], const bf16* p,
+                                         int ld, int lane) {
+  const bf16* q = p + (lane & 7) * ld + ((lane >> 3) & 1) * 8;
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(b[0]), "=r"(b[1])
+               : "r"(smem_addr(q)));
+}
+
 __device__ __forceinline__ void mma16816(float (&d)[4], const unsigned (&a)[4],
                                          unsigned b0, unsigned b1) {
   asm volatile(
@@ -97,12 +119,14 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const unsigned (&a)[4],
 // Rows [0, RT) of the block into dst (row stride ld) as bf16: LayerNorm
 // with float32 statistics (two-pass variance) when use_ln, else a copy of
 // x. Rows at or past R (the ragged tail) are zeros. One warp per row.
+// stats, when given, receives each live row's mean and 1/sqrt(var + eps)
+// (stats[2r], stats[2r + 1]) under use_ln.
 template <int C, int RT, int WARPS>
 __device__ __forceinline__ void ln_rows(const bf16* __restrict__ x, long row0,
                                         int R, const float* __restrict__ lns,
                                         const float* __restrict__ lnb,
                                         float eps, bool use_ln, bf16* dst0,
-                                        int ld) {
+                                        int ld, float* stats = nullptr) {
   constexpr int NT = C / 64;       // bf16 pairs per lane in a row
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int r = warp; r < RT; r += WARPS) {
@@ -129,6 +153,10 @@ __device__ __forceinline__ void ln_rows(const bf16* __restrict__ x, long row0,
         sq += a * a + b * b;
       }
       const float inv = rsqrtf(warp_sum(sq) / C + eps);
+      if (stats != nullptr && lane == 0) {
+        stats[2 * r] = mean;
+        stats[2 * r + 1] = inv;
+      }
 #pragma unroll
       for (int i = 0; i < NT; ++i) {
         const int c = 2 * (lane + 32 * i);

@@ -13,24 +13,7 @@ import torch
 from ._device import resolve_device
 from .data import pipeline as data_lib
 from .models.duoformer import fold_for_inference
-from .ops.nn import Conv2d
-
-
-def _prepare_model(model, device, dtype):
-    """In place: weights (every tensor of 2 or more dims) to `dtype`,
-    vectors (biases, norms, folded BN) kept float32, as the JAX serving
-    path reads them; conv weights channels_last on the card."""
-    model.to(device)
-    with torch.no_grad():
-        for p in model.parameters():
-            if p.dim() >= 2:
-                p.data = p.data.to(dtype)
-        if device.type == "cuda":
-            for m in model.modules():
-                if isinstance(m, Conv2d):
-                    m.w.data = m.w.data.contiguous(
-                        memory_format=torch.channels_last)
-    return model
+from .ops.nn import cast_weights_
 
 
 class Predictor:
@@ -46,7 +29,7 @@ class Predictor:
         model.eval()
         if fold:
             fold_for_inference(model)
-        self.model = _prepare_model(model, self.device, dtype)
+        self.model = cast_weights_(model.to(self.device), dtype)
 
     def prepare(self, tiles):
         """tiles -> the model's input: on the Predictor's device, normalised

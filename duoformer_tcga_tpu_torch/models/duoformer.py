@@ -21,11 +21,16 @@ from .transformer import MultiscaleFormer
 
 
 class DuoFormer(nn.Module):
-    """Release-variant DuoFormer (MyModel_no_extra_params twin), inference
-    forward. What the slice does not cover raises NotImplementedError: the
-    channel scale token, q/k norms (attn_drop_rate > 0, quirk Q9),
-    LayerScale, r18, scale counts other than 2, and any forward in
-    training mode that would differ from eval (dropout, batch-stat BN)."""
+    """Release-variant DuoFormer (MyModel_no_extra_params twin). What the
+    slice does not cover raises NotImplementedError: the channel scale
+    token, q/k norms (attn_drop_rate > 0, quirk Q9), LayerScale, r18,
+    scale counts other than 2, and training with an unfrozen backbone
+    (batch-stat BN) or with dropout.
+
+    freeze_backbone (every release preset) is the JAX package's frozen
+    pyramid (duoformer.py:83-99): the backbone's parameters do not require
+    grad, its BNs stay on running statistics in training mode, and its
+    pyramid carries no gradient."""
 
     def __init__(self, depth=12, embed_dim=768, num_heads=12, num_classes=2,
                  num_layers=2, num_patches=49, mlp_ratio=4.0,
@@ -53,6 +58,8 @@ class DuoFormer(nn.Module):
         self.freeze_backbone = freeze_backbone
         self.proj_drop_rate = proj_drop_rate
         self.backbone = ResNetBackbone(50, generator)
+        if freeze_backbone:
+            self.backbone.requires_grad_(False)
         self.projection = Projection(num_layers, proj_dim, backbone, generator)
         self.transformer = MultiscaleFormer(
             depth=depth, scales=num_layers, num_heads=num_heads,
@@ -65,8 +72,18 @@ class DuoFormer(nn.Module):
         self.scale_token = nn.Parameter(
             init.normal((1, 1, 1, proj_dim), 0.036, generator))
 
+    def train(self, mode: bool = True):
+        super().train(mode)
+        if self.freeze_backbone:
+            self.backbone.eval()      # BN on running statistics
+        return self
+
     def features(self, x):
-        """x: [B, 224, 224, 3] NHWC -> backbone pyramid {stage: NCHW}."""
+        """x: [B, 224, 224, 3] NHWC -> backbone pyramid {stage: NCHW};
+        with a frozen backbone it carries no gradient (stop_gradient)."""
+        if self.freeze_backbone:
+            with torch.no_grad():
+                return self.backbone(x.permute(0, 3, 1, 2))
         return self.backbone(x.permute(0, 3, 1, 2))
 
     def tokens(self, feats):
@@ -85,8 +102,8 @@ class DuoFormer(nn.Module):
         if self.training and (not self.freeze_backbone
                               or self.proj_drop_rate > 0.0):
             raise NotImplementedError(
-                "training-mode BN and dropout are not ported to the PyTorch "
-                "package yet: call model.eval()")
+                "training with an unfrozen backbone (batch-stat BN) or with "
+                "dropout is not ported to the PyTorch package yet")
         return self.transformer(self.tokens(self.features(x)),
                                 with_embedding=with_embedding)
 

@@ -5,7 +5,11 @@ PatchBlock, MultiscaleFormer; transformer.py:58-72, 192-358, 430-594).
 The JAX package stacks each depth's params and runs them with lax.scan;
 here each stack is a ModuleList of `depth` blocks run in a Python loop.
 Every ScaleBlock runs the two fused kernels (attention branch, then MLP
-branch); every PatchBlock runs the bare form of the attention kernel.
+branch); every PatchBlock runs the bare form of the attention kernel. Both
+go through the kernels' autograd functions, so the same forward trains.
+Every weight and embedding is cast to the activations' dtype where it is
+used, as the JAX package's `.astype(x.dtype)`: float32 master parameters
+train through bf16 kernels; vectors (norms, biases) stay float32.
 
 Reference quirks kept:
   * Q7: the head reads the raw CLS; fc_norm exists (and loads from
@@ -22,7 +26,7 @@ from torch import nn
 from ..ops import initializers as init
 from ..ops import nn as ops
 from ..ops.attention import Attention, multihead_attention
-from ..ops.fused_attention import fused_attention_residual, fused_mlp_residual
+from ..ops.fused_attention import attention_residual, mlp_residual
 
 
 def num_scale_tokens(scales: int) -> int:
@@ -53,16 +57,18 @@ class ScaleBlock(nn.Module):
 
     def forward(self, x):
         *lead, S, C = x.shape
+        dt = x.dtype
         qkv, proj = self.attn.qkv, self.attn.proj
+        fc1, fc2 = self.mlp.fc1, self.mlp.fc2
         bqkv = (qkv.b if qkv.b is not None
                 else x.new_zeros(3 * C, dtype=torch.float32))
-        x = fused_attention_residual(
-            x.reshape(-1, S, C), self.norm1.scale, self.norm1.bias, qkv.w,
-            bqkv, proj.w, proj.b, self.num_heads, S,
+        x = attention_residual(
+            x.reshape(-1, S, C), self.norm1.scale, self.norm1.bias,
+            qkv.w.to(dt), bqkv, proj.w.to(dt), proj.b, self.num_heads, S,
             (C // self.num_heads) ** -0.5, self.ln_eps)
-        x = fused_mlp_residual(
-            x, self.norm2.scale, self.norm2.bias, self.mlp.fc1.w,
-            self.mlp.fc1.b, self.mlp.fc2.w, self.mlp.fc2.b, self.ln_eps)
+        x = mlp_residual(
+            x, self.norm2.scale, self.norm2.bias, fc1.w.to(dt), fc1.b,
+            fc2.w.to(dt), fc2.b, self.ln_eps)
         return x.reshape(*lead, S, C)
 
 
@@ -114,7 +120,7 @@ class MultiscaleFormer(nn.Module):
 
     def scale_stack(self, x):
         """[B, 49, S, C] (scale token prepended) -> after the ScaleBlocks."""
-        x = x + self.pos_embed_for_scale
+        x = x + self.pos_embed_for_scale.to(x.dtype)
         for blk in self.scale_blocks:
             x = blk(x)
         return x
@@ -125,9 +131,9 @@ class MultiscaleFormer(nn.Module):
         if not self.patch_attn:
             return x[:, :, 0, :].float().mean(1).to(x.dtype)
         B = x.shape[0]
-        tokens = torch.cat([self.cls_token.expand(B, 1, self.embed_dim),
-                            x[:, :, 0, :]], dim=1)              # [B, 50, C]
-        tokens = tokens + self.pos_embed
+        cls = self.cls_token.to(x.dtype).expand(B, 1, self.embed_dim)
+        tokens = torch.cat([cls, x[:, :, 0, :]], dim=1)          # [B, 50, C]
+        tokens = tokens + self.pos_embed.to(x.dtype)
         for blk in self.patch_blocks:
             tokens = blk(tokens)
         cls = tokens[:, 0, :]

@@ -24,7 +24,8 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-KERNELS = ("fused_attention_residual", "fused_mlp_residual")
+KERNELS = ("fused_attention_residual", "fused_attention_residual_bwd",
+           "fused_mlp_residual", "mlp_dz")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

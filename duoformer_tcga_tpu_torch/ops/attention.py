@@ -3,8 +3,9 @@ duoformer_tcga_tpu/ops/attention.py).
 
 `multihead_attention` is the bare attention of the PatchBlocks: qkv ->
 softmax(q k^T * scale) v per head -> proj, with no LayerNorm and no
-residual. It runs as the bare form of the fused attention kernel
-(ops/fused_attention.py), which replaces attention.py:174-239. `_qkv_heads`
+residual. It runs as the bare form of the fused attention kernel and its
+backward (ops/fused_attention.py), which replace attention.py:174-239;
+the weights are cast to x's dtype where they are used. `_qkv_heads`
 and `_sdpa` are the unfused composition (attention.py:52-71), kept for
 the tests only.
 """
@@ -15,7 +16,7 @@ import torch
 from torch import nn
 
 from . import nn as ops
-from .fused_attention import fused_attention_residual
+from .fused_attention import attention_residual
 
 
 class Attention(nn.Module):
@@ -42,10 +43,11 @@ def multihead_attention(attn: Attention, x, num_heads, scale=None):
     if scale is None:
         scale = (C // num_heads) ** -0.5
     zeros = x.new_zeros(C, dtype=torch.float32)
-    out = fused_attention_residual(
-        x.reshape(-1, S, C), zeros, zeros, attn.qkv.w,
-        _bias(attn.qkv, 3 * C, x), attn.proj.w, _bias(attn.proj, C, x),
-        num_heads, S, float(scale), 1e-6, use_ln=False, use_residual=False)
+    out = attention_residual(
+        x.reshape(-1, S, C), zeros, zeros, attn.qkv.w.to(x.dtype),
+        _bias(attn.qkv, 3 * C, x), attn.proj.w.to(x.dtype),
+        _bias(attn.proj, C, x), num_heads, S, float(scale), 1e-6,
+        use_ln=False, use_residual=False)
     return out.reshape(*lead, S, C)
 
 

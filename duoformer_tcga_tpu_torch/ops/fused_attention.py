@@ -1,11 +1,24 @@
-"""The port's two fused transformer kernels, their plain PyTorch versions
-and their launch counts (counterpart of
-duoformer_tcga_tpu/ops/pallas_attention.py, inert forward forms only).
+"""The port's fused transformer kernels, their plain PyTorch versions,
+their launch counts and the autograd functions built on them (counterpart
+of duoformer_tcga_tpu/ops/pallas_attention.py, inert forms).
 
   fused_attention_residual: y = [x +] proj(block-diag attn(qkv([LN] x)))
     kernel: csrc/fused_attention_residual.cu
-  fused_mlp_residual:       y = [x +] fc2(gelu_erf(fc1(LN x)))
+  fused_attention_residual_bwd: its backward (dx, ln, attn, dqkv and the
+    column sums dlns, dlnb, dbqkv, dbproj), recomputing the forward
+    kernel: csrc/fused_attention_residual_bwd.cu
+  fused_mlp_residual:       y = [x +] fc2(gelu_erf(fc1(LN x))), and with
+    return_hidden=True also the pre-GELU hidden z
     kernel: csrc/fused_mlp_residual.cu
+  mlp_dz:                   dz = (g w2^T) * gelu'(z), db1 = colsum(dz)
+    kernel: csrc/mlp_dz.cu
+
+`attention_residual` and `mlp_residual` are the differentiable entries the
+model calls (the JAX package's custom_vjp entries): the attention backward
+runs its kernel and then the weight-gradient products dwqkv = ln^T dqkv and
+dwproj = attn^T g; the MLP backward is the save-hidden one
+(pallas_attention.py:1802-1852), with the dz pass as a kernel and the four
+large products as plain matmuls, as the JAX package leaves them to XLA.
 
 Dispatch is by the tensor's device and nothing else: a CPU tensor runs the
 plain version; a CUDA tensor launches the kernel or raises (wrong dtype,
@@ -14,10 +27,9 @@ from the kernel to the plain version.
 
 The kernels take bf16 activations and weights (linear weights (in, out),
 as in the JAX package) and float32 vectors (LayerNorm scale/bias, biases),
-the types the JAX serving path feeds its kernels. Both plain versions
-round where the TPU kernels round: LN output, qkv after its bias, softmax
-probabilities, each head's output, the MLP hidden after GELU, and the
-float32 proj/fc2 + residual sum once at the end.
+the types the JAX path feeds its kernels. The plain versions round where
+the TPU kernels round (each function's docstring and kernel source say
+where).
 """
 
 from __future__ import annotations
@@ -73,17 +85,112 @@ def fused_attention_residual_plain(x, ln_scale, ln_bias, wqkv, bqkv, wproj,
 
 
 def fused_mlp_residual_plain(x, ln_scale, ln_bias, w1, b1, w2, b2,
-                             ln_eps=1e-6, use_residual=True):
-    """Plain twin of the MLP kernel (pallas_attention.py:1306-1347):
-    exact-erf GELU in float32, hidden rounded to x's dtype."""
+                             ln_eps=1e-6, use_residual=True,
+                             return_hidden=False):
+    """Plain twin of the MLP kernel (pallas_attention.py:1306-1396):
+    exact-erf GELU in float32 from the unrounded z, hidden rounded to x's
+    dtype. return_hidden=True also returns z = fc1 + b1 [rows, hidden]
+    rounded to x's dtype (_fused_mlp_kernel_z)."""
     dt = x.dtype
     ln = layernorm(x, ln_scale, ln_bias, ln_eps)
-    h = torch.matmul(ln.float(), w1.float()) + b1.float()
-    h = torch.nn.functional.gelu(h, approximate="none").to(dt)
+    z = torch.matmul(ln.float(), w1.float()) + b1.float()
+    h = torch.nn.functional.gelu(z, approximate="none").to(dt)
     y = torch.matmul(h.float(), w2.float()) + b2.float()
     if use_residual:
         y = y + x.float()
+    if return_hidden:
+        return y.to(dt), z.to(dt).reshape(-1, z.shape[-1])
     return y.to(dt)
+
+
+def ln_fwd_f32(xf, ln_scale, ln_bias, ln_eps):
+    """LayerNorm of float32 rows -> (y, xhat, 1/std), float32
+    (pallas_attention.py:694-699)."""
+    mean = xf.mean(-1, keepdim=True)
+    var = (xf - mean).square().mean(-1, keepdim=True)
+    inv = torch.rsqrt(var + ln_eps)
+    xhat = (xf - mean) * inv
+    return xhat * ln_scale.float() + ln_bias.float(), xhat, inv
+
+
+def ln_bwd_f32(dln, ln_scale, xhat, inv):
+    """Cotangent through y = xhat * scale + bias for rows [N, C] -> (dx,
+    column sums of dln * xhat and of dln), float32
+    (pallas_attention.py:702-710)."""
+    dxh = dln * ln_scale.float()
+    m1 = dxh.mean(-1, keepdim=True)
+    m2 = (dxh * xhat).mean(-1, keepdim=True)
+    return (inv * (dxh - m1 - xhat * m2), (dln * xhat).sum(0),
+            dln.sum(0))
+
+
+def fused_attention_residual_bwd_plain(x, g, ln_scale, ln_bias, wqkv, bqkv,
+                                       wproj, num_heads, seg_len, scale,
+                                       ln_eps=1e-6, use_ln=True,
+                                       use_residual=True):
+    """Plain twin of the attention backward kernel
+    (_fused_block_bwd_kernel, dw=False, pallas_attention.py:723-918). x, g
+    [n_seg, seg_len, C] -> (dx [n_seg, seg_len, C], ln [rows, C], attn
+    [rows, C], dqkv [rows, 3C], dlns, dlnb, dbqkv, dbproj); the bare form's
+    ln is x itself and its dlns, dlnb are zeros. Rounds where the kernel
+    does: ln, qkv, p for P.V and dv, o, each head's dattn, ds * scale, dq,
+    dk, dv; p stays float32 in ds, dln float32, dx rounded once."""
+    n_seg, S, C = x.shape
+    if S != seg_len:
+        raise ValueError(f"x has {S} tokens per segment, seg_len={seg_len}")
+    dt = x.dtype
+    H = num_heads
+    D = C // H
+    rows = n_seg * S
+    x2, g2 = x.reshape(rows, C), g.reshape(rows, C)
+    if use_ln:
+        lnf, xhat, inv = ln_fwd_f32(x2.float(), ln_scale, ln_bias, ln_eps)
+        ln = lnf.to(dt)
+    else:
+        ln = x2
+    qkv = (torch.matmul(ln.float(), wqkv.float()) + bqkv.float()).to(dt)
+    q, k, v = (t.float() for t in
+               qkv.view(n_seg, S, 3, H, D).permute(2, 0, 3, 1, 4))
+    p = torch.softmax(torch.matmul(q, k.transpose(-1, -2)) * scale, dim=-1)
+    pb = p.to(dt).float()
+    attn = torch.matmul(pb, v).to(dt).permute(0, 2, 1, 3).reshape(rows, C)
+    dattn = torch.matmul(g2.float(), wproj.float().t()).to(dt)
+    do = dattn.float().view(n_seg, S, H, D).permute(0, 2, 1, 3)
+    dv = torch.matmul(pb.transpose(-1, -2), do)
+    dp = torch.matmul(do, v.transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    ds = (ds * scale).to(dt).float()
+    dq = torch.matmul(ds, k)
+    dk = torch.matmul(ds.transpose(-1, -2), q)
+    dqkv = torch.stack([dq, dk, dv]).to(dt)            # [3, n, H, S, D]
+    dqkv = dqkv.permute(1, 3, 0, 2, 4).reshape(rows, 3 * C)
+    dln = torch.matmul(dqkv.float(), wqkv.float().t())
+    if use_ln:
+        dxf, dlns, dlnb = ln_bwd_f32(dln, ln_scale, xhat, inv)
+    else:
+        dxf = dln
+        dlns = dlnb = torch.zeros(C, dtype=torch.float32, device=x.device)
+    if use_residual:
+        dxf = dxf + g2.float()
+    return (dxf.to(dt).view(n_seg, S, C), ln, attn, dqkv, dlns, dlnb,
+            dqkv.float().sum(0), g2.float().sum(0))
+
+
+_SQRT1_2 = 0.7071067811865476
+_INV_SQRT_2PI = 0.3989422804014327
+
+
+def mlp_dz_plain(g2, z, w2):
+    """Plain twin of the dz kernel (_mlp_dz_kernel, emit_h=False,
+    pallas_attention.py:1727-1748): g2 [rows, C], z [rows, hidden], w2
+    [hidden, C] -> (dz [rows, hidden] in z's dtype, db1 [hidden] float32,
+    the column sums of the rounded dz)."""
+    zf = z.float()
+    phi = 0.5 * (1.0 + torch.erf(zf * _SQRT1_2))
+    dh = torch.matmul(g2.float(), w2.float().t())
+    dgelu = phi + zf * (_INV_SQRT_2PI * torch.exp(-0.5 * zf * zf))
+    dz = (dh * dgelu).to(z.dtype)
+    return dz, dz.float().sum(0)
 
 
 # ---------------------------------------------------------------------------
@@ -174,13 +281,15 @@ def fused_attention_residual(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
 
 
 def fused_mlp_residual(x, ln_scale, ln_bias, w1, b1, w2, b2, ln_eps=1e-6,
-                       use_residual=True):
+                       use_residual=True, return_hidden=False):
     """y = [x +] fc2(gelu(fc1(LN(x)))); x [..., C]. The JAX signature
-    (pallas_attention.py:1696). On the card: bf16 x and weights, float32
-    vectors, hidden a multiple of 128."""
+    (pallas_attention.py:1696). return_hidden=True -> (y, z), z the
+    pre-GELU hidden [rows, hidden] (the z form, _fused_mlp_kernel_z). On
+    the card: bf16 x and weights, float32 vectors, hidden a multiple of
+    128."""
     if x.device.type == "cpu":
         return fused_mlp_residual_plain(x, ln_scale, ln_bias, w1, b1, w2, b2,
-                                        ln_eps, use_residual)
+                                        ln_eps, use_residual, return_hidden)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     C = x.shape[-1]
@@ -198,17 +307,239 @@ def fused_mlp_residual(x, ln_scale, ln_bias, w1, b1, w2, b2, ln_eps=1e-6,
     _check_tensor("w2", w2, dev, bf16, (hidden, C))
     _check_tensor("b2", b2, dev, f32, (C,))
     out = torch.empty_like(x)
+    z = (torch.empty(rows, hidden, dtype=bf16, device=dev) if return_hidden
+         else None)
     if rows == 0:
-        return out
+        return (out, z) if return_hidden else out
     lib = _build.load_library("fused_mlp_residual")
     fn = lib.launch_fused_mlp_residual
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + \
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + \
         [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         status = fn(_ptr(x), _ptr(ln_scale), _ptr(ln_bias), _ptr(w1),
-                    _ptr(b1), _ptr(w2), _ptr(b2), _ptr(out), rows, C, hidden,
+                    _ptr(b1), _ptr(w2), _ptr(b2), _ptr(out),
+                    _ptr(z) if return_hidden else None, rows, C, hidden,
                     float(ln_eps), int(bool(use_residual)), _stream(dev))
-    _build.check(lib, status, "fused_mlp_residual")
-    launch_counts["fused_mlp_residual"] += 1
+    name = "fused_mlp_residual_z" if return_hidden else "fused_mlp_residual"
+    _build.check(lib, status, name)
+    launch_counts[name] += 1
+    return (out, z) if return_hidden else out
+
+
+def fused_attention_residual_bwd(x, g, ln_scale, ln_bias, wqkv, bqkv, wproj,
+                                 num_heads, seg_len, scale, ln_eps=1e-6,
+                                 use_ln=True, use_residual=True):
+    """The attention branch's backward without the weight gradients
+    (_fused_block_bwd_impl, dw=False, pallas_attention.py:921-1049): x, g
+    [n_seg, seg_len, C] -> (dx, ln [rows, C], attn [rows, C], dqkv
+    [rows, 3C], dlns, dlnb, dbqkv, dbproj). The bare form's ln is x
+    itself. On the card: as fused_attention_residual, g bf16 like x."""
+    if x.device.type == "cpu":
+        return fused_attention_residual_bwd_plain(
+            x, g, ln_scale, ln_bias, wqkv, bqkv, wproj, num_heads, seg_len,
+            scale, ln_eps, use_ln, use_residual)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    _require(x.dim() == 3, f"x must be [n_seg, seg_len, C], got "
+             f"{tuple(x.shape)}")
+    n_seg, S, C = x.shape
+    _require(S == seg_len, f"x has {S} tokens per segment, "
+             f"seg_len={seg_len}")
+    _require(1 <= S <= ATTN_MAX_SEG_LEN,
+             f"seg_len {S} outside the kernel's 1..{ATTN_MAX_SEG_LEN}")
+    _require(num_heads * HEAD_DIM == C,
+             f"the kernel needs head width {HEAD_DIM}: C={C}, "
+             f"num_heads={num_heads}")
+    _check_width(C, "fused_attention_residual_bwd")
+    dev, f32, bf16 = x.device, torch.float32, torch.bfloat16
+    _check_tensor("x", x, dev, bf16, (n_seg, S, C))
+    _check_tensor("g", g, dev, bf16, (n_seg, S, C))
+    _check_tensor("ln_scale", ln_scale, dev, f32, (C,))
+    _check_tensor("ln_bias", ln_bias, dev, f32, (C,))
+    _check_tensor("wqkv", wqkv, dev, bf16, (C, 3 * C))
+    _check_tensor("bqkv", bqkv, dev, f32, (3 * C,))
+    _check_tensor("wproj", wproj, dev, bf16, (C, C))
+    rows = n_seg * S
+    dx = torch.empty_like(x)
+    ln = (torch.empty(rows, C, dtype=bf16, device=dev) if use_ln
+          else x.view(rows, C))
+    attn = torch.empty(rows, C, dtype=bf16, device=dev)
+    dqkv = torch.empty(rows, 3 * C, dtype=bf16, device=dev)
+    sums = torch.zeros(6 * C, dtype=f32, device=dev)
+    out = (dx, ln, attn, dqkv, sums[:C], sums[C:2 * C], sums[2 * C:5 * C],
+           sums[5 * C:])
+    if n_seg == 0:
+        return out
+    lib = _build.load_library("fused_attention_residual_bwd")
+    lib.blocks_for.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.blocks_for.restype = ctypes.c_int
+    part = torch.empty(lib.blocks_for(n_seg, S) * 6 * C, dtype=f32,
+                       device=dev)
+    fn = lib.launch_fused_attention_residual_bwd
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + \
+        [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        status = fn(_ptr(x), _ptr(g), _ptr(ln_scale), _ptr(ln_bias),
+                    _ptr(wqkv), _ptr(bqkv), _ptr(wproj), _ptr(dx),
+                    _ptr(ln) if use_ln else None, _ptr(attn), _ptr(dqkv),
+                    _ptr(sums), _ptr(part), n_seg, S, C, num_heads,
+                    float(scale), float(ln_eps), int(bool(use_ln)),
+                    int(bool(use_residual)), _stream(dev))
+    _build.check(lib, status, "fused_attention_residual_bwd")
+    launch_counts["fused_attention_residual_bwd" if use_ln
+                  else "fused_attention_residual_bwd_bare"] += 1
     return out
+
+
+def mlp_dz(g2, z, w2):
+    """dz = (g2 w2^T) * gelu'(z) and db1 = colsum(dz) (_mlp_dz_impl,
+    emit_h=False, pallas_attention.py:1751-1789): g2 [rows, C], z [rows,
+    hidden], w2 [hidden, C] -> (dz [rows, hidden], db1 [hidden] float32).
+    On the card: bf16 g2, z and w2, C a multiple of 64, hidden a multiple
+    of 128."""
+    if g2.device.type == "cpu":
+        return mlp_dz_plain(g2, z, w2)
+    if g2.device.type != "cuda":
+        raise ValueError(f"no kernel for device {g2.device}")
+    _require(g2.dim() == 2 and z.dim() == 2,
+             f"g2 and z must be 2-D, got {tuple(g2.shape)}, "
+             f"{tuple(z.shape)}")
+    rows, C = g2.shape
+    hidden = z.shape[1]
+    _require(C % 64 == 0 and C > 0, f"C={C} must be a multiple of 64")
+    _require(hidden % 128 == 0 and hidden > 0,
+             f"hidden width {hidden} must be a positive multiple of 128")
+    dev, bf16 = g2.device, torch.bfloat16
+    _check_tensor("g2", g2, dev, bf16, (rows, C))
+    _check_tensor("z", z, dev, bf16, (rows, hidden))
+    _check_tensor("w2", w2, dev, bf16, (hidden, C))
+    dz = torch.empty_like(z)
+    db1 = torch.zeros(hidden, dtype=torch.float32, device=dev)
+    if rows == 0:
+        return dz, db1
+    part = torch.empty(-(-rows // 128) * hidden, dtype=torch.float32,
+                       device=dev)
+    lib = _build.load_library("mlp_dz")
+    fn = lib.launch_mlp_dz
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        status = fn(_ptr(g2), _ptr(z), _ptr(w2), _ptr(dz), _ptr(db1),
+                    _ptr(part), rows, C, hidden, _stream(dev))
+    _build.check(lib, status, "mlp_dz")
+    launch_counts["mlp_dz"] += 1
+    return dz, db1
+
+
+# ---------------------------------------------------------------------------
+# Autograd functions (the JAX package's custom_vjp entries)
+# ---------------------------------------------------------------------------
+
+def _wgrad(a, b, dtype):
+    """a^T b, the weight gradient of a linear layer, in `dtype`: float32
+    accumulation rounded once, as JAX's preferred_element_type=float32
+    followed by .astype(w.dtype)."""
+    return torch.matmul(a.t(), b).to(dtype)
+
+
+def _mm_f32(a, b):
+    """a @ b accumulated and returned in float32 (JAX's
+    preferred_element_type=float32); on the card bf16 operands go to a
+    bf16 product with a float32 result."""
+    if a.device.type == "cpu" or a.dtype == torch.float32:
+        return torch.mm(a.float(), b.float())
+    return torch.mm(a, b, out_dtype=torch.float32)
+
+
+class _FusedAttentionResidual(torch.autograd.Function):
+    """fused_attention_residual with the backward of _far_bwd
+    (pallas_attention.py:1068-1113): the forward saves x and the weights
+    and nothing else; the backward kernel recomputes the rest."""
+
+    @staticmethod
+    def forward(ctx, x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
+                num_heads, seg_len, scale, ln_eps, use_ln, use_residual):
+        ctx.save_for_backward(x, ln_scale, ln_bias, wqkv, bqkv, wproj)
+        ctx.cfg = (num_heads, seg_len, scale, ln_eps, use_ln, use_residual)
+        ctx.bproj_dtype = bproj.dtype
+        return fused_attention_residual(x, ln_scale, ln_bias, wqkv, bqkv,
+                                        wproj, bproj, *ctx.cfg)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, ln_scale, ln_bias, wqkv, bqkv, wproj = ctx.saved_tensors
+        dx, ln, attn, dqkv, dlns, dlnb, dbqkv, dbproj = \
+            fused_attention_residual_bwd(x, g.contiguous(), ln_scale,
+                                         ln_bias, wqkv, bqkv, wproj,
+                                         *ctx.cfg)
+        need = ctx.needs_input_grad
+        dwqkv = _wgrad(ln, dqkv, wqkv.dtype) if need[3] else None
+        dwproj = (_wgrad(attn, g.reshape(-1, x.shape[-1]), wproj.dtype)
+                  if need[5] else None)
+        return (dx, dlns.to(ln_scale.dtype), dlnb.to(ln_bias.dtype), dwqkv,
+                dbqkv.to(bqkv.dtype), dwproj, dbproj.to(ctx.bproj_dtype),
+                None, None, None, None, None, None)
+
+
+class _FusedMLPResidual(torch.autograd.Function):
+    """fused_mlp_residual with the save-hidden backward (_fmr_fwd,
+    _fmr_bwd_saved_hidden, pallas_attention.py:1716-1852): the forward
+    runs the z form and saves z; the backward recomputes LN in float32,
+    runs the dz kernel and the four large products as plain matmuls."""
+
+    @staticmethod
+    def forward(ctx, x, ln_scale, ln_bias, w1, b1, w2, b2, ln_eps,
+                use_residual):
+        out, z = fused_mlp_residual(x, ln_scale, ln_bias, w1, b1, w2, b2,
+                                    ln_eps, use_residual, return_hidden=True)
+        ctx.save_for_backward(x, ln_scale, ln_bias, w1, w2, z)
+        ctx.cfg = (ln_eps, use_residual, b1.dtype, b2.dtype)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, ln_scale, ln_bias, w1, w2, z = ctx.saved_tensors
+        ln_eps, use_residual, b1_dtype, b2_dtype = ctx.cfg
+        C = x.shape[-1]
+        x2, g2 = x.reshape(-1, C), g.reshape(-1, C).contiguous()
+        lnf, xhat, inv = ln_fwd_f32(x2.float(), ln_scale, ln_bias, ln_eps)
+        ln = lnf.to(x.dtype)
+        dz, db1 = mlp_dz(g2, z, w2)
+        # h = gelu(z): the exact GELU in float32 from the rounded z, rounded
+        # once to z's dtype (gelu computes bf16 in float32), in one pass
+        h = torch.nn.functional.gelu(z, approximate="none")
+        dw1 = _wgrad(ln, dz, w1.dtype)
+        dw2 = _wgrad(h, g2, w2.dtype)
+        del h
+        dln = _mm_f32(dz, w1.t())
+        dxf, dlns, dlnb = ln_bwd_f32(dln, ln_scale, xhat, inv)
+        if use_residual:
+            dxf += g2                        # float32 += bf16, in place
+        return (dxf.to(x.dtype).view_as(x), dlns.to(ln_scale.dtype),
+                dlnb.to(ln_bias.dtype), dw1, db1.to(b1_dtype), dw2,
+                g2.sum(0, dtype=torch.float32).to(b2_dtype), None, None)
+
+
+def attention_residual(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
+                       num_heads, seg_len, scale, ln_eps=1e-6, use_ln=True,
+                       use_residual=True):
+    """fused_attention_residual, differentiable (pallas_attention.py:1053)."""
+    return _FusedAttentionResidual.apply(
+        x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, num_heads, seg_len,
+        scale, ln_eps, use_ln, use_residual)
+
+
+def mlp_residual(x, ln_scale, ln_bias, w1, b1, w2, b2, ln_eps=1e-6,
+                 use_residual=True):
+    """fused_mlp_residual, differentiable (pallas_attention.py:1696): the z
+    form and its saved hidden only where a gradient will be taken, the
+    serving form otherwise."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, ln_scale, ln_bias, w1, b1, w2, b2)):
+        return _FusedMLPResidual.apply(x, ln_scale, ln_bias, w1, b1, w2, b2,
+                                       ln_eps, use_residual)
+    return fused_mlp_residual(x, ln_scale, ln_bias, w1, b1, w2, b2, ln_eps,
+                              use_residual)

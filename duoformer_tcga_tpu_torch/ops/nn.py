@@ -24,9 +24,9 @@ from . import initializers as init
 # ---------------------------------------------------------------------------
 
 def linear(x, w, b=None):
-    """y = x @ w + b with w (in, out), accumulated in float32 and rounded
-    once to x's dtype (the JAX preferred_element_type semantics)."""
-    y = torch.matmul(x.float(), w.float())
+    """y = x @ w + b with w (in, out) cast to x's dtype, accumulated in
+    float32 and rounded once to x's dtype (nn.py:56-61)."""
+    y = torch.matmul(x.float(), w.to(x.dtype).float())
     if b is not None:
         y = y + b.float()
     return y.to(x.dtype)
@@ -170,7 +170,23 @@ class Conv2d(nn.Module):
                   if bias else None)
 
     def forward(self, x, stride=1, padding="SAME"):
-        return conv2d(x, self.w, self.b, stride, padding)
+        return conv2d(x, self.w.to(x.dtype), self.b, stride, padding)
+
+
+def cast_weights_(module, dtype):
+    """In place: every parameter of 2 or more dims (a weight) under
+    `module` to `dtype`, vectors (biases, norms, BN) kept float32, as the
+    JAX package reads them; on the card conv weights channels_last, the
+    NHWC layout of the JAX package in memory. Returns `module`."""
+    with torch.no_grad():
+        for p in module.parameters():
+            if p.dim() >= 2:
+                p.data = p.data.to(dtype)
+        for m in module.modules():
+            if isinstance(m, Conv2d) and m.w.device.type == "cuda":
+                m.w.data = m.w.data.contiguous(
+                    memory_format=torch.channels_last)
+    return module
 
 
 class BatchNorm(nn.Module):

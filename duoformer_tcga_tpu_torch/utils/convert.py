@@ -1,5 +1,6 @@
-"""Load a JAX DuoFormer param tree into the port (counterpart of
-duoformer_tcga_tpu/utils/torch_convert.py, in the other direction).
+"""Load a JAX DuoFormer param tree into the port, and export the port's
+parameters in that tree's layout (counterpart of
+duoformer_tcga_tpu/utils/torch_convert.py).
 
 The tree is the JAX package's nested dict/list of arrays, handed over as
 numpy arrays. The port's module and parameter names are the tree's keys,
@@ -96,3 +97,52 @@ def load_jax_params(model, tree):
         raise KeyError(f"tensors the tree did not provide: "
                        f"{sorted(missing)[:8]}")
     return model
+
+
+STACKED = ("scale_blocks", "patch_blocks")   # depth-stacked in the JAX tree
+
+
+def _jax_layout(node, lists, prefix=""):
+    """The ModuleLists named in `lists` -> a list, or one depth-stacked
+    subtree under the STACKED names."""
+    if not isinstance(node, dict):
+        return node
+    node = {k: _jax_layout(v, lists, f"{prefix}{k}.")
+            for k, v in node.items()}
+    if prefix[:-1] in lists:
+        items = [node[str(i)] for i in range(len(node))]
+        return (_stack(items) if prefix[:-1].split(".")[-1] in STACKED
+                else items)
+    return node
+
+
+def _stack(items):
+    if isinstance(items[0], dict):
+        return {k: _stack([it[k] for it in items]) for k in items[0]}
+    return np.stack(items)
+
+
+def export_jax_params(model, grads=False):
+    """The model's tensors (every tensor of the state dict) as a JAX-layout
+    tree of float32 numpy arrays: conv weights HWIO, the block stacks
+    stacked over depth, unfolded BN with its running statistics.
+    grads=True exports the parameters' .grad instead (parameters without
+    one are left out)."""
+    if grads:
+        tensors = {n: p.grad for n, p in model.named_parameters()
+                   if p.grad is not None}
+    else:
+        tensors = model.state_dict()
+    tree: dict = {}
+    for name, t in tensors.items():
+        arr = np.array(t.detach().float().cpu())       # a copy
+        *path, leaf = name.split(".")
+        if leaf == "w" and arr.ndim == 4:
+            arr = arr.transpose(2, 3, 1, 0)                 # OIHW -> HWIO
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = arr
+    lists = {n for n, m in model.named_modules()
+             if isinstance(m, nn.ModuleList)}
+    return _jax_layout(tree, lists)

@@ -68,6 +68,10 @@ def test_wrappers_refuse_devices_without_a_kernel():
         fa.fused_attention_residual(x, v, v, x, v, x, v, 2, 6, 0.125)
     with pytest.raises(ValueError, match="no kernel"):
         fa.fused_mlp_residual(x, v, v, x, v, x, v)
+    with pytest.raises(ValueError, match="no kernel"):
+        fa.fused_attention_residual_bwd(x, x, v, v, x, v, x, 2, 6, 0.125)
+    with pytest.raises(ValueError, match="no kernel"):
+        fa.mlp_dz(x, x, x)
     assert sum(fa.launch_counts.values()) == 0
 
 
@@ -79,4 +83,8 @@ def test_plain_path_counts_no_launch():
     fa.fused_attention_residual(x, z, z, torch.zeros(C, 3 * C),
                                 torch.zeros(3 * C), torch.zeros(C, C), z,
                                 2, 6, 0.125)
+    fa.fused_attention_residual_bwd(x, x, z, z, torch.zeros(C, 3 * C),
+                                    torch.zeros(3 * C), torch.zeros(C, C),
+                                    2, 6, 0.125)
+    fa.mlp_dz(x.reshape(-1, C), torch.zeros(18, 256), torch.zeros(256, C))
     assert sum(fa.launch_counts.values()) == 0

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from duoformer_tcga_tpu.models import regroup as jregroup
@@ -207,3 +208,162 @@ def test_multihead_attention_matches_jax_and_unfused():
     _close(out, ref)
     _close(out, tattn.multihead_attention_unfused(
         attn, torch.from_numpy(x), H).detach().numpy())
+
+
+# ---------------------------------------------------------------------------
+# The training slice: backward kernels' plain versions and the autograd
+# functions against the JAX package, which runs its Pallas kernels in
+# interpret mode on the save-hidden path with the dz kernel on.
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def train_env(monkeypatch):
+    monkeypatch.setenv("DUOFORMER_PALLAS_BWD", "1")
+    monkeypatch.setenv("DUOFORMER_MLP_SAVE_HIDDEN", "1")
+    monkeypatch.setenv("DUOFORMER_MLP_DZ", "1")
+
+
+def _attention_inputs(rng, n_seg, S, C, use_ln):
+    """x, g and weights that spread the scores ~2 units (see
+    chip_smoke.py), so the softmax backward is far from uniform."""
+    x, g = _randn(rng, n_seg, S, C), _randn(rng, n_seg, S, C)
+    if use_ln:
+        lns, lnb = _randn(rng, C, std=0.1, mean=1.0), _randn(rng, C, std=0.1)
+    else:
+        lns, lnb = np.zeros(C, np.float32), np.zeros(C, np.float32)
+    return x, g, (lns, lnb, _randn(rng, C, 3 * C, std=1.5 * C ** -0.5),
+                  _randn(rng, 3 * C, std=0.1), _randn(rng, C, C,
+                                                      std=C ** -0.5),
+                  _randn(rng, C, std=0.1))
+
+
+ATTN_SHAPES = [
+    (98, 6, 128, 2, True, True),       # ScaleBlock form, ragged TPU tiles
+    (4, 50, 128, 2, False, False),     # PatchBlock bare form
+    (13, 6, 128, 2, True, True),       # odd segment count
+]
+
+
+@pytest.mark.parametrize("n_seg,S,C,H,use_ln,use_residual", ATTN_SHAPES)
+def test_attention_bwd_plain_matches_pallas(train_env, n_seg, S, C, H,
+                                            use_ln, use_residual):
+    """Each output of the backward kernel's plain version against
+    _fused_block_bwd_impl (dw=False), at 3e-5; the Pallas row tensors carry
+    zero-padded rows past n_seg * S, which are cut off. The four column
+    sums add hundreds of terms of size ~10 in another order, so they are
+    held in units of their RMS."""
+    rng = np.random.default_rng(10)
+    x, g, (lns, lnb, wqkv, bqkv, wproj, _) = _attention_inputs(
+        rng, n_seg, S, C, use_ln)
+    scale = (C // H) ** -0.5
+    ref = pa._fused_block_bwd_impl(*_j(x, g, lns, lnb, wqkv, bqkv, wproj),
+                                   H, S, scale, 1e-6, use_ln, use_residual)
+    out = fa.fused_attention_residual_bwd(
+        *_t(x, g, lns, lnb, wqkv, bqkv, wproj), H, S, scale, 1e-6, use_ln,
+        use_residual)
+    rows = n_seg * S
+    names = ("dx", "ln", "attn", "dqkv", "dlns", "dlnb", "dbqkv", "dbproj")
+    for name, o, r in zip(names, out, ref):
+        r = np.asarray(r)
+        if name in ("ln", "attn", "dqkv"):
+            r = r[:rows]
+        unit = (np.sqrt(np.mean(np.square(r))) or 1.0) if r.ndim == 1 else 1.0
+        np.testing.assert_allclose(o.numpy() / unit, r / unit, err_msg=name,
+                                   **TOL)
+
+
+def test_mlp_dz_and_z_plain_match_pallas(train_env):
+    """The dz kernel's plain version against _mlp_dz_impl, and the z of the
+    MLP kernel's plain version against _fused_mlp_impl(return_hidden=True),
+    at 3e-5 (rows 222 leave the Pallas tiles ragged)."""
+    rng = np.random.default_rng(11)
+    rows, C, hidden = 222, 128, 512
+    g2, z = _randn(rng, rows, C), _randn(rng, rows, hidden)
+    w2 = _randn(rng, hidden, C, std=hidden ** -0.5)
+    ref_dz, ref_db1, _ = pa._mlp_dz_impl(*_j(g2, z, w2), emit_h=False)
+    dz, db1 = fa.mlp_dz(*_t(g2, z, w2))
+    _close(dz, ref_dz)
+    _close(db1, ref_db1)
+    arrays = (_randn(rng, 37, 6, C), _randn(rng, C, std=0.1, mean=1.0),
+              _randn(rng, C, std=0.1), _randn(rng, C, hidden, std=C ** -0.5),
+              _randn(rng, hidden, std=0.1),
+              _randn(rng, hidden, C, std=hidden ** -0.5),
+              _randn(rng, C, std=0.1))
+    ref_out, ref_z = pa._fused_mlp_impl(*_j(*arrays), 1e-6,
+                                        return_hidden=True)
+    out, zt = fa.fused_mlp_residual(*_t(*arrays), 1e-6, return_hidden=True)
+    _close(out, ref_out)
+    _close(zt, np.asarray(ref_z)[:37 * 6])
+
+
+def _close_param_grad(name, out, ref):
+    """dx at the bar as it is; a parameter's cotangent, a sum over every
+    row, in units of its RMS."""
+    ref = np.asarray(ref)
+    unit = 1.0 if name == "dx" else float(np.sqrt(np.mean(np.square(ref))))
+    np.testing.assert_allclose(out.numpy() / unit, ref / unit, err_msg=name,
+                               **TOL)
+
+
+def _port_grads(fn, arrays, g):
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in arrays]
+    fn(*leaves).backward(torch.from_numpy(g))
+    return [t.grad for t in leaves]
+
+
+@pytest.mark.parametrize("n_seg,S,C,H,use_ln,use_residual", ATTN_SHAPES[:2])
+def test_attention_autograd_matches_jax_vjp(train_env, n_seg, S, C, H,
+                                            use_ln, use_residual):
+    """All 7 input cotangents of attention_residual against jax.vjp of
+    pa.fused_attention_residual (its Pallas backward), at 3e-5: dx as it
+    is, the parameter cotangents (sums over all rows, of size ~10-40) in
+    units of their RMS."""
+    rng = np.random.default_rng(12)
+    x, g, weights = _attention_inputs(rng, n_seg, S, C, use_ln)
+    arrays = (x, *weights)
+    scale = (C // H) ** -0.5
+    _, vjp = jax.vjp(lambda *a: pa.fused_attention_residual(
+        *a, H, S, scale, 1e-6, use_ln, use_residual), *_j(*arrays))
+    ref = vjp(jnp.asarray(g))
+    got = _port_grads(lambda *a: fa.attention_residual(
+        *a, H, S, scale, 1e-6, use_ln, use_residual), arrays, g)
+    names = ("dx", "dln_scale", "dln_bias", "dwqkv", "dbqkv", "dwproj",
+             "dbproj")
+    for name, o, r in zip(names, got, ref):
+        _close_param_grad(name, o, r)
+
+
+def test_mlp_autograd_matches_jax_vjp(train_env):
+    """All 7 input cotangents of mlp_residual (z form forward, save-hidden
+    backward with the dz kernel) against jax.vjp of pa.fused_mlp_residual,
+    at 3e-5."""
+    rng = np.random.default_rng(13)
+    C, hidden = 128, 512
+    arrays = (_randn(rng, 37, 6, C), _randn(rng, C, std=0.1, mean=1.0),
+              _randn(rng, C, std=0.1), _randn(rng, C, hidden, std=C ** -0.5),
+              _randn(rng, hidden, std=0.1),
+              _randn(rng, hidden, C, std=hidden ** -0.5),
+              _randn(rng, C, std=0.1))
+    g = _randn(rng, 37, 6, C)
+    _, vjp = jax.vjp(lambda *a: pa.fused_mlp_residual(*a, 1e-6),
+                     *_j(*arrays))
+    ref = vjp(jnp.asarray(g))
+    fa.reset_launch_counts()
+    got = _port_grads(lambda *a: fa.mlp_residual(*a, 1e-6), arrays, g)
+    names = ("dx", "dln_scale", "dln_bias", "dw1", "db1", "dw2", "db2")
+    for name, o, r in zip(names, got, ref):
+        _close_param_grad(name, o, r)
+
+
+def test_mlp_residual_runs_the_z_form_only_for_a_gradient():
+    """Without a gradient to take, mlp_residual is the serving form and
+    saves no hidden."""
+    C = 128
+    x = torch.randn(4, C)
+    w1, w2 = torch.randn(C, 256) * 0.05, torch.randn(256, C) * 0.05
+    v, h = torch.zeros(C), torch.zeros(256)
+    with torch.no_grad():
+        y = fa.mlp_residual(x, v + 1, v, w1, h, w2, v)
+    assert y.grad_fn is None
+    y = fa.mlp_residual(x, v + 1, v, w1.requires_grad_(True), h, w2, v)
+    assert type(y.grad_fn).__name__ == "_FusedMLPResidualBackward"
