@@ -6,15 +6,17 @@ kernel checks of chip_smoke.py fail on each.
 
 For each fault in FAULTS, copies chip_smoke.py and duoformer_tcga_tpu_torch/
 (without its build directory) into duoformer_tcga_tpu_torch/_build/faults/
-<name>/, changes one place in one kernel source there, and runs
-chip_smoke.kernel_checks (untimed, TF32 off) on the cases of that source's
-kernel forms, from that copy, in a process of its own; all copies build
-and run at once. The fault "none" changes nothing, runs every case and is
-the control. Prints, per fault and case, whether the case passed, its
-relative L2 error, and whether the elementwise atol = rtol = 0.08 bar
-alone passed it. Exits non-zero when the control fails a case or a fault
-passes every case of its kernel form. Needs one CUDA device and nvcc;
-imports nothing of JAX.
+<name>/, changes one place in one kernel source (or the header the
+kernels share) there, and runs chip_smoke.kernel_checks (untimed, TF32
+off) on the cases of the named kernel form's source, from that copy, in
+a process of its own; all copies build and run at once. The fault "none"
+changes nothing, runs every case and is the control. Prints, per fault
+and case, whether the case passed, its relative L2 error, and whether the
+elementwise atol = rtol = 0.08 bar alone passed it. Exits non-zero when
+the control fails a case or a fault passes every case of its kernel form,
+unless the fault names why the checks may pass it (then it is listed
+under "passed_as_allowed"). Needs one CUDA device and nvcc; imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -32,8 +34,12 @@ ATTN = f"{PKG}/csrc/fused_attention_residual.cu"
 MLP = f"{PKG}/csrc/fused_mlp_residual.cu"
 BWD = f"{PKG}/csrc/fused_attention_residual_bwd.cu"
 DZ = f"{PKG}/csrc/mlp_dz.cu"
+ATTN8 = f"{PKG}/csrc/fused_attention_residual_int8.cu"
+MLP8 = f"{PKG}/csrc/fused_mlp_residual_int8.cu"
+TILE = f"{PKG}/csrc/tile_ops.cuh"
 
-# name: (file, text, replacement, the kernel form whose cases must fail)
+# name: (file, text, replacement, the kernel form whose cases must fail
+# [, why the checks may pass it])
 FAULTS = {
     "none": (None, None, None, None),
     "uniform softmax": (
@@ -85,6 +91,30 @@ FAULTS = {
             "* expf(-0.5f * zf.y * zf.y));",
         "const float d0 = zf.x * p0;\n        const float d1 = zf.y * p1;",
         "mlp_dz"),
+    "o row scale from the first head's columns": (
+        ATTN8, "        amax = fmaxf(amax, fmaxf(fabsf(v[i].x), fabsf(v[i].y)));",
+        "        if (i == 0) amax = fmaxf(amax, fmaxf(fabsf(v[i].x), "
+        "fabsf(v[i].y)));", "fused_attention_residual_int8"),
+    "qkv column scale dropped": (
+        ATTN8, "const float cs0 = sqkv[gcol], cs1 = sqkv[gcol + 1];",
+        "const float cs0 = 1.f, cs1 = 1.f;", "fused_attention_residual_int8"),
+    "last head skipped (int8)": (
+        ATTN8, "    if (j == Sh::QSLABS - 1) {",
+        "    if (j == Sh::QSLABS - 1 && h != Sh::H - 1) {",
+        "fused_attention_residual_int8"),
+    "h row scale from the first 128-wide chunk": (
+        MLP8, "amax[m][hr] = fmaxf(amax[m][hr], fmaxf(fabsf(a0), fabsf(a1)));",
+        "if (sl.chunk == 0) amax[m][hr] = fmaxf(amax[m][hr], "
+        "fmaxf(fabsf(a0), fabsf(a1)));", "fused_mlp_residual_int8"),
+    "fc1 column scale dropped": (
+        MLP8, "const float cs0 = s1[c0 + col], cs1 = s1[c0 + col + 1];",
+        "const float cs0 = 1.f, cs1 = 1.f;", "fused_mlp_residual_int8"),
+    "half to even for away from zero (int8)": (
+        TILE, "roundf(v / scale)", "rintf(v / scale)",
+        "fused_mlp_residual_int8",
+        "exact ties k + 0.5 of the row scale are rare in float32 data; "
+        "tests/test_torch_port_int8.py::test_rowquant_matches_jax_bit_for_bit"
+        " guards the rounding on built ties"),
 }
 
 CHILD = """
@@ -94,15 +124,16 @@ from duoformer_tcga_tpu_torch.ops import fused_attention as fa
 assert fa.__file__.startswith(chip_smoke.HERE), fa.__file__
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
-source = sys.argv[1] or None
-cases, others = chip_smoke.kernel_checks(torch, F, fa, timed=False,
-                                         source=source)
+form = sys.argv[1] or None
+cases, others = chip_smoke.kernel_checks(
+    torch, F, fa, timed=False,
+    source=chip_smoke.SOURCES[form] if form else None)
 print(json.dumps({**cases, **others}))
 """
 
 
 def plant(name, fault):
-    path, text, repl, _ = fault
+    path, text, repl = fault[:3]
     dst = os.path.join(WORK, name.replace(" ", "_"))
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(os.path.join(HERE, PKG), os.path.join(dst, PKG),
@@ -121,11 +152,11 @@ def plant(name, fault):
 def main() -> int:
     dirs = {name: plant(name, f) for name, f in FAULTS.items()}
     procs = {name: subprocess.Popen([sys.executable, "-c", CHILD,
-                                     FAULTS[name][0] or ""], cwd=d,
+                                     FAULTS[name][3] or ""], cwd=d,
                                     stdout=subprocess.PIPE,
                                     stderr=subprocess.PIPE, text=True)
              for name, d in dirs.items()}
-    bad = []
+    bad, passed_as_allowed = [], []
     for name, proc in procs.items():
         out, err = proc.communicate(timeout=900)
         if proc.returncode != 0:
@@ -143,8 +174,14 @@ def main() -> int:
         if kernel is None and not all(r["ok"] for r in results.values()):
             bad.append(name)
         if kernel and all(results[c]["ok"] for c in mine):
-            bad.append(name)
-    print(json.dumps({"faults_not_caught": bad}))
+            if len(FAULTS[name]) > 4:
+                print(f"{name}: passed the checks, as it may: "
+                      f"{FAULTS[name][4]}", flush=True)
+                passed_as_allowed.append(name)
+            else:
+                bad.append(name)
+    print(json.dumps({"faults_not_caught": bad,
+                      "passed_as_allowed": passed_as_allowed}))
     return 1 if bad else 0
 
 

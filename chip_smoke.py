@@ -3,14 +3,17 @@
 
     python3 chip_smoke.py
 
-1. Builds the four CUDA kernel sources from the checkout (one nvcc each,
+1. Builds the six CUDA kernel sources from the checkout (one nvcc each,
    started together) and prints each kernel's register and spill report.
 2. Holds every kernel form against its plain PyTorch version on the card:
    the serving forms at the serving path's shapes (C=768, 12 heads, B=64),
    the training forms (the MLP's z form, the attention backward in both
-   forms, the MLP's dz pass) at the training step's (B=128), the bare form
-   also at B=256, and each at one small odd shape: kernel in bf16, plain
-   version on the same inputs upcast to float32. Every output of a case
+   forms, the MLP's dz pass) at the training step's (B=128), the int8
+   forms (attention full and bare, MLP) at the serving shapes, the bare
+   forms also at B=256, and each at one small odd shape: kernel in bf16,
+   plain version on the same inputs upcast to float32 (the int8 forms'
+   plain versions take the same bf16 x and int8 weights, so both round at
+   the same points, with the int8 products exact). Every output of a case
    must hold both bars: atol = rtol = 0.08 elementwise (the repo's bf16
    kernel bar, tests/test_tpu_hw.py:110), and a relative L2 error of at
    most 1e-2 (of the branch, the output less the residual, where the form
@@ -22,8 +25,12 @@
    attention scores spread about 2 units and the branch is as large as x,
    so a wrong score, softmax, mask or head moves the branch by far more
    than that. Times kernel, plain version and one PyTorch library
-   composition of the same function (a yardstick the port never calls)
-   with CUDA events, median of 20 launches each.
+   composition of the same function (a yardstick the port never calls;
+   for the int8 forms F.layer_norm, a torch row quantization,
+   torch._int_mm, SDPA or F.gelu, torch._int_mm and the dequantization)
+   with CUDA events, median of 20 launches each. The bound of an int8
+   form counts its int8 operations at the int8 peak (1979 TOP/s) and its
+   bf16 attention core at the bf16 peak.
 3. Serves the release DuoFormer at full width (768/12/12, depth 12, 2
    scales, bf16, random weights from a fixed seed) through
    build_model_no_extra_params -> Predictor: 3 batches of 64 uint8 tiles.
@@ -49,8 +56,21 @@
    the step at B=128 (median, least and greatest of 7 host-clock windows
    of 3 steps), its forward / backward / optimizer split (CUDA events),
    its peak memory, and one step's device time by kernel
-   (torch.profiler).
-
+   (torch.profiler). No int8 form runs in the step.
+5. Runs right after 3, before 4, beside 3's bf16 Predictor: serves the
+   same model in int8 through Predictor(quantize=True), 3 batches of 64,
+   counts zeroed just before; each int8 form must have run exactly 12
+   times per forward and no bf16 serving form. Checks finite logits, the
+   drift from the bf16 Predictor's logits on the same batch at the JAX
+   package's bound max|diff| < 0.05 * (max|bf16| + 1)
+   (tests/test_int8.py:58), printing the CLS's drift beside it, and
+   embed() on 2 tiles against the port's CPU float32 int8 path of the
+   same weights (relative L2 <= 0.05; both sides quantize, and bf16
+   rounding on the card flips codes that compound through the 12
+   PatchBlocks, which have no residual: the CLS reads about as far from
+   the CPU int8 path as int8 is from float32). Prints the stage times of
+   both stacks and the tiles/s of both Predictors at B=64, their windows
+   interleaved.
 Prints the card's name and power limit, one JSON line {"kernels": [...]},
 and as its last line {"ok": true, "device": {...}}. Exits non-zero, with
 no result line, when there is no CUDA device, when the port is not beside
@@ -78,6 +98,7 @@ B = 64                     # serving batch
 B_TRAIN = 128              # training batch (config.py:94)
 C, HEADS, HIDDEN = 768, 12, 3072
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_INT8_OPS = 1979e12    # H100 SXM dense int8 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 REPEATS = 20
 GRAD_REL_TOL = 0.05        # card (bf16) vs CPU (float32) gradients
@@ -93,6 +114,10 @@ SOURCES = {
     "fused_attention_residual_bwd_bare":
         CSRC + "fused_attention_residual_bwd.cu",
     "mlp_dz": CSRC + "mlp_dz.cu",
+    "fused_attention_residual_int8": CSRC + "fused_attention_residual_int8.cu",
+    "fused_attention_residual_int8_bare":
+        CSRC + "fused_attention_residual_int8.cu",
+    "fused_mlp_residual_int8": CSRC + "fused_mlp_residual_int8.cu",
 }
 REPLACES = {
     "fused_attention_residual": PALLAS + "311",
@@ -102,6 +127,9 @@ REPLACES = {
     "fused_attention_residual_bwd": PALLAS + "723",
     "fused_attention_residual_bwd_bare": PALLAS + "723",
     "mlp_dz": PALLAS + "1727",
+    "fused_attention_residual_int8": PALLAS + "442",
+    "fused_attention_residual_int8_bare": PALLAS + "442",
+    "fused_mlp_residual_int8": PALLAS + "1499",
 }
 SERVING_FORMS = ("fused_attention_residual", "fused_attention_residual_bare",
                  "fused_mlp_residual")
@@ -109,6 +137,9 @@ SERVING_FORMS = ("fused_attention_residual", "fused_attention_residual_bare",
 TRAINING_FORMS = ("fused_attention_residual", "fused_attention_residual_bare",
                   "fused_mlp_residual_z", "fused_attention_residual_bwd",
                   "fused_attention_residual_bwd_bare", "mlp_dz")
+# each runs 12 times in one int8 serving forward, and nowhere else
+INT8_FORMS = ("fused_attention_residual_int8",
+              "fused_attention_residual_int8_bare", "fused_mlp_residual_int8")
 
 
 def log(*a):
@@ -141,8 +172,12 @@ def median_ms(fn, torch, repeats=REPEATS):
     return float(np.median(times))
 
 
-def bound(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def bound(flops, nbytes, int8_ops=0):
+    """The least time for the work: bf16 flops and int8 operations at
+    their peaks (one after the other: they share the tensor cores) against
+    the bytes at the memory rate. -> (ms, what bounds it)."""
+    t_ops = flops / PEAK_BF16_FLOPS + int8_ops / PEAK_INT8_OPS
+    t_bytes = nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -393,6 +428,125 @@ def mlp_dz_case(torch, F, fa, gen, rows, c, hidden, timed):
     return res
 
 
+def _int8_weight(torch, w):
+    """float32 (in, out) -> (int8 [out, in], scale [out]) on the card, by
+    the port's quantize_weight."""
+    from duoformer_tcga_tpu_torch.ops.quantize import quantize_weight
+    w_q, sc = quantize_weight(w)
+    return w_q.t().contiguous().cuda(), sc.cuda()
+
+
+def _rowquant_library(torch, v):
+    """The library yardstick's row quantization (plain torch ops)."""
+    v = v.float()
+    s = (v.abs().amax(-1, keepdim=True) / 127.0).clamp_min(1e-30)
+    return torch.round(v / s).clamp(-127, 127).to(torch.int8), s
+
+
+def attention_int8_case(torch, F, fa, gen, n_seg, S, c, heads, bare, timed):
+    """The int8 attention kernel against its plain version on the same bf16
+    x and int8 weights (so both round at the same points)."""
+    from duoformer_tcga_tpu_torch.ops import fused_int8 as fi
+    dev, bf16 = "cuda", torch.bfloat16
+
+    def rnd(*shape, std=1.0, mean=0.0):
+        return torch.randn(*shape, generator=gen) * std + mean
+
+    x = rnd(n_seg, S, c).to(dev, bf16)
+    if bare:
+        lns = torch.zeros(c, device=dev)
+        lnb = torch.zeros(c, device=dev)
+    else:
+        lns, lnb = rnd(c, std=0.1, mean=1.0).cuda(), rnd(c, std=0.1).cuda()
+    wq, sq = _int8_weight(torch, rnd(c, 3 * c, std=QKV_STD * c ** -0.5))
+    bqkv = rnd(3 * c, std=0.01).cuda()
+    wp, sp = _int8_weight(torch, rnd(c, c, std=c ** -0.5))
+    bproj = rnd(c, std=0.01).cuda()
+    scale = (c // heads) ** -0.5
+    flags = dict(use_ln=not bare, use_residual=not bare)
+    args = (x, lns, lnb, wq, sq, bqkv, wp, sp, bproj, heads, S, scale)
+
+    def kernel():
+        return fi.fused_attention_residual_int8(*args, **flags)
+
+    def plain():
+        return fi.fused_attention_residual_int8_plain(*args, **flags)
+
+    res = compare(torch, kernel(), plain().float(), None if bare else x)
+    if not timed:
+        return res
+    lns_b, lnb_b = lns.to(bf16), lnb.to(bf16)
+    D, rows = c // heads, n_seg * S
+    wq_t, wp_t = wq.t(), wp.t()       # column-major, as _int_mm wants
+
+    def library():
+        h = x if bare else F.layer_norm(x, (c,), lns_b, lnb_b, 1e-6)
+        hq, hs = _rowquant_library(torch, h.view(rows, c))
+        qkv = (torch._int_mm(hq, wq_t).float() * hs * sq + bqkv).to(bf16)
+        q, k, v = qkv.view(n_seg, S, 3, heads, D).permute(2, 0, 3, 1, 4)
+        o = F.scaled_dot_product_attention(q, k, v, scale=scale)
+        oq, os_ = _rowquant_library(torch, o.transpose(1, 2).reshape(rows, c))
+        y = torch._int_mm(oq, wp_t).float() * os_ * sp + bproj
+        y = y if bare else y + x.view(rows, c).float()
+        return y.to(bf16)
+
+    int8_ops = 2 * rows * c * 4 * c
+    flops = 4 * n_seg * S * S * c
+    nbytes = 2 * 2 * rows * c + 4 * c * c + 4 * 10 * c
+    bound_ms, bound_by = bound(flops, nbytes, int8_ops)
+    res.update(ms=median_ms(kernel, torch), plain_ms=median_ms(plain, torch),
+               library_ms=median_ms(library, torch), bound_ms=bound_ms,
+               bound_by=bound_by, flops=flops, int8_ops=int8_ops,
+               bytes=nbytes)
+    return res
+
+
+def mlp_int8_case(torch, F, fa, gen, rows, c, hidden, timed):
+    """The int8 MLP kernel against its plain version on the same bf16 x and
+    int8 weights: the branch (out less x)."""
+    from duoformer_tcga_tpu_torch.ops import fused_int8 as fi
+    dev, bf16 = "cuda", torch.bfloat16
+
+    def rnd(*shape, std=1.0, mean=0.0):
+        return torch.randn(*shape, generator=gen) * std + mean
+
+    x = rnd(rows, c).to(dev, bf16)
+    lns, lnb = rnd(c, std=0.1, mean=1.0).cuda(), rnd(c, std=0.1).cuda()
+    w1, s1 = _int8_weight(torch, rnd(c, hidden, std=c ** -0.5))
+    b1 = rnd(hidden, std=0.01).cuda()
+    w2, s2 = _int8_weight(torch, rnd(hidden, c, std=hidden ** -0.5))
+    b2 = rnd(c, std=0.01).cuda()
+    args = (x, lns, lnb, w1, s1, b1, w2, s2, b2)
+
+    def kernel():
+        return fi.fused_mlp_residual_int8(*args)
+
+    def plain():
+        return fi.fused_mlp_residual_int8_plain(*args)
+
+    res = compare(torch, kernel(), plain().float(), x)
+    if not timed:
+        return res
+    lns_b, lnb_b = lns.to(bf16), lnb.to(bf16)
+    w1_t, w2_t = w1.t(), w2.t()
+
+    def library():
+        lq, ls = _rowquant_library(
+            torch, F.layer_norm(x, (c,), lns_b, lnb_b, 1e-6))
+        h = F.gelu(torch._int_mm(lq, w1_t).float() * ls * s1 + b1)
+        hq, hs = _rowquant_library(torch, h)
+        y = torch._int_mm(hq, w2_t).float() * hs * s2 + b2 + x.float()
+        return y.to(bf16)
+
+    int8_ops = 4 * rows * c * hidden
+    nbytes = 2 * 2 * rows * c + 2 * c * hidden + 4 * (4 * c + 2 * hidden)
+    bound_ms, bound_by = bound(0, nbytes, int8_ops)
+    res.update(ms=median_ms(kernel, torch), plain_ms=median_ms(plain, torch),
+               library_ms=median_ms(library, torch), bound_ms=bound_ms,
+               bound_by=bound_by, flops=0, int8_ops=int8_ops, bytes=nbytes)
+    return res
+
+
 def _case_specs(torch, F, fa, timed):
     """[(label, kernel form, run(generator))]: each form at its main path's
     shape (label = the form), then the other shapes."""
@@ -400,6 +554,7 @@ def _case_specs(torch, F, fa, timed):
     att, mlp = attention_case, mlp_case
     mlp_z = functools.partial(mlp_case, z_form=True)
     bwd, dz = attention_bwd_case, mlp_dz_case
+    att8, mlp8 = attention_int8_case, mlp_int8_case
     specs = [
         # the serving path's forms (B=64)
         ("fused_attention_residual", B * 49, 6, C, HEADS, False, att, timed),
@@ -428,6 +583,20 @@ def _case_specs(torch, F, fa, timed):
         ("fused_attention_residual_bwd_bare n_seg=3 S=50 C=256 H=4", 3, 50,
          256, 4, True, bwd, False),
         ("mlp_dz rows=222 C=256 hidden=1024", 222, 256, 1024, dz, False),
+        # the int8 serving path's forms (B=64), then the other shapes
+        ("fused_attention_residual_int8", B * 49, 6, C, HEADS, False, att8,
+         timed),
+        ("fused_attention_residual_int8_bare", B, 50, C, HEADS, True, att8,
+         timed),
+        ("fused_mlp_residual_int8", rows_s, C, HIDDEN, mlp8, timed),
+        ("fused_attention_residual_int8_bare n_seg=256 S=50 (B=256)", 256, 50,
+         C, HEADS, True, att8, timed),
+        ("fused_attention_residual_int8 n_seg=13 S=6 C=256 H=4", 13, 6, 256,
+         4, False, att8, False),
+        ("fused_attention_residual_int8_bare n_seg=3 S=50 C=256 H=4", 3, 50,
+         256, 4, True, att8, False),
+        ("fused_mlp_residual_int8 rows=222 C=256 hidden=1024", 222, 256,
+         1024, mlp8, False),
     ]
     out = []
     for label, *args in specs:
@@ -470,6 +639,122 @@ def grad_check_names(model):
              "transformer.cls_token", "scale_token", "projection."]
     return [n for n, p in model.named_parameters()
             if p.requires_grad and any(n.startswith(k) for k in keep)]
+
+
+def serve_stages(torch, pred, batch):
+    """One forward of `pred` on `batch`, stage by stage (CUDA events,
+    median of 5) -> {stage: ms}."""
+    m = pred.model
+    with torch.inference_mode():
+        x = pred.prepare(batch)
+        feats = m.features(x)
+        toks = m.tokens(feats)
+        sc = m.transformer.scale_stack(toks)
+        cls = m.transformer.cls_embedding(sc)
+        stages = {
+            "preprocess": lambda: pred.prepare(batch),
+            "backbone": lambda: m.features(x),
+            "projection+regroup": lambda: m.tokens(feats),
+            "scale stack (24 kernels)": lambda: m.transformer.scale_stack(toks),
+            "patch stack (12 kernels)":
+                lambda: m.transformer.cls_embedding(sc),
+            "head": lambda: m.transformer.head(cls),
+        }
+        return {k: median_ms(f, torch, 5) for k, f in stages.items()}
+
+
+def serve_rates(torch, preds, batch, n=5):
+    """{name: Predictor} -> {name: (median seconds per forward, the 7
+    windows)}: 7 rounds, each one host-clock window of n forwards (ending
+    in a synchronise) of every Predictor in turn, so that slow and fast
+    spells of the host fall on all of them alike."""
+    windows = {k: [] for k in preds}
+    for _ in range(7):
+        for k, pred in preds.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                pred(batch)
+            torch.cuda.synchronize()
+            windows[k].append((time.perf_counter() - t0) / n)
+    return {k: (float(np.median(w)), w) for k, w in windows.items()}
+
+
+def int8_phase(torch, port, fa, failures, card, cases, bf16_run):
+    """Phase 5: int8 serving of the same full-width model through
+    Predictor(quantize=True). -> the launch counts of its 3 forwards."""
+    from duoformer_tcga_tpu_torch.inference import Predictor
+
+    def build(device):
+        return port.build_model_no_extra_params(
+            num_layers=2, embed_dim=C, proj_dim=C, num_heads=HEADS, depth=12,
+            device=device, seed=SEED)
+
+    t0 = time.perf_counter()
+    pred = Predictor(build("cuda"), dtype=torch.bfloat16, quantize=True)
+    log(f"int8: model built, quantized and prepared in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED)
+    batches = [rng.integers(0, 256, (B, 224, 224, 3), dtype=np.uint8)
+               for _ in range(3)]
+    fa.reset_launch_counts()
+    outs = [pred(t) for t in batches]
+    torch.cuda.synchronize()
+    launches = dict(fa.launch_counts)
+    log(f"int8 serving: 3 batches of {B}; launches {launches}")
+    for name in cases:
+        want = 12 * len(batches) if name in INT8_FORMS else 0
+        if launches.get(name, 0) != want:
+            failures.append(f"int8 serving: {launches.get(name, 0)} launches "
+                            f"of {name}, expected {want}")
+    for i, lg in enumerate(outs):
+        if tuple(lg.shape) != (B, 2) or not bool(torch.isfinite(lg).all()):
+            failures.append(f"int8 batch {i}: logits {tuple(lg.shape)}, "
+                            f"finite={bool(torch.isfinite(lg).all())}")
+
+    # drift from the bf16 Predictor on the same weights and batch, at the
+    # JAX package's bound (tests/test_int8.py:58); the CLS's drift is
+    # printed beside it (random-init logits are mostly the head bias)
+    ref, ref_cls = (t.float().cpu() for t in bf16_run["pred"].embed(
+        batches[0]))
+    logits8, cls8 = (t.float().cpu() for t in pred.embed(batches[0]))
+    drift = (logits8 - ref).abs().max().item()
+    limit = 0.05 * (ref.abs().max().item() + 1.0)
+    log(f"int8 vs bf16 on batch 0: logits max |diff| {drift:.4e} (bound "
+        f"{limit:.4e}), argmax agrees on "
+        f"{(logits8.argmax(-1) == ref.argmax(-1)).sum().item()} of {B}; "
+        f"CLS rel L2 drift {rel_err(cls8, ref_cls):.3e}")
+    if not drift < limit:
+        failures.append(f"int8 vs bf16 logit drift {drift:.4e} >= {limit:.4e}")
+
+    two = batches[0][:2]
+    g_logits, g_cls = pred.embed(two)
+    ref_pred = Predictor(build("cpu"), device="cpu", dtype=torch.float32,
+                         quantize=True)
+    c_logits, c_cls = ref_pred.embed(two)
+    e_cls, e_logits = rel_err(g_cls, c_cls), rel_err(g_logits, c_logits)
+    log(f"int8 embed vs the CPU float32 int8 path: rel L2 err cls "
+        f"{e_cls:.3e}, logits {e_logits:.3e} (tolerance {EMBED_REL_TOL})")
+    if not (e_cls <= EMBED_REL_TOL and e_logits <= EMBED_REL_TOL):
+        failures.append(f"int8 embed vs CPU: {e_cls:.3e} / {e_logits:.3e}")
+    del ref_pred
+
+    stages = serve_stages(torch, pred, batches[0])
+    for name, st in (("bf16", bf16_run["stages"]), ("int8", stages)):
+        log(f"stages at B={B}, {name}: " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in st.items()))
+    rates = serve_rates(torch, {"int8": pred, "bf16": bf16_run["pred"]},
+                        batches[0])
+    kernel_ms = sum(12 * cases[k]["ms"] for k in INT8_FORMS)
+    for name, (dt, windows) in rates.items():
+        log(f"{name} throughput, windows interleaved: {B / dt:.1f} tiles/s "
+            f"at B={B}, median of 7 windows of 5 forwards (least "
+            f"{B / max(windows):.1f}, greatest {B / min(windows):.1f}; "
+            f"forward {dt * 1e3:.2f} ms" + (
+                f", of which the 36 int8 kernel launches ~{kernel_ms:.2f} ms "
+                f"by their timings above" if name == "int8" else "") +
+            f"); on {card}")
+    return launches
 
 
 def train_phase(torch, port, fa, failures, card):
@@ -545,9 +830,10 @@ def train_phase(torch, port, fa, failures, card):
         if launches.get(name, 0) != 12:
             failures.append(f"train step: {launches.get(name, 0)} launches "
                             f"of {name}, expected 12")
-    if launches.get("fused_mlp_residual", 0) != 0:
-        failures.append(f"train step: {launches['fused_mlp_residual']} "
-                        f"launches of the serving MLP form, expected 0")
+    for name in ("fused_mlp_residual",) + INT8_FORMS:
+        if launches.get(name, 0) != 0:
+            failures.append(f"train step: {launches[name]} launches of "
+                            f"{name}, expected 0")
     if not all(np.isfinite(losses)):
         failures.append(f"train losses {losses}")
     after = model.state_dict()
@@ -719,58 +1005,36 @@ def main() -> int:
     if not (e_cls <= EMBED_REL_TOL and e_logits <= EMBED_REL_TOL):
         failures.append(f"embed vs CPU: {e_cls:.3e} / {e_logits:.3e}")
 
-    # one forward, stage by stage (CUDA events, median of 5)
-    m = pred.model
-    with torch.inference_mode():
-        x = pred.prepare(batches[0])
-        feats = m.features(x)
-        toks = m.tokens(feats)
-        sc = m.transformer.scale_stack(toks)
-        cls = m.transformer.cls_embedding(sc)
-        stages = {
-            "preprocess": lambda: pred.prepare(batches[0]),
-            "backbone": lambda: m.features(x),
-            "projection+regroup": lambda: m.tokens(feats),
-            "scale stack (24 kernels)": lambda: m.transformer.scale_stack(toks),
-            "patch stack (12 kernels)":
-                lambda: m.transformer.cls_embedding(sc),
-            "head": lambda: m.transformer.head(cls),
-        }
-        breakdown = {k: median_ms(f, torch, 5) for k, f in stages.items()}
+    stages = serve_stages(torch, pred, batches[0])
     log("stages at B=%d: %s" % (B, ", ".join(
-        f"{k} {v:.3f} ms" for k, v in breakdown.items())))
-
-    n, windows = 5, []
-    for _ in range(7):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            pred(batches[0])
-        torch.cuda.synchronize()
-        windows.append((time.perf_counter() - t0) / n)
-    dt = float(np.median(windows))
+        f"{k} {v:.3f} ms" for k, v in stages.items())))
+    dt, windows = serve_rates(torch, {"bf16": pred}, batches[0])["bf16"]
     kernel_ms = sum(12 * cases[k]["ms"] for k in SERVING_FORMS)
     log(f"throughput: {B / dt:.1f} tiles/s at B={B}, median of 7 windows "
-        f"of {n} forwards (least {B / max(windows):.1f}, greatest "
+        f"of 5 forwards (least {B / max(windows):.1f}, greatest "
         f"{B / min(windows):.1f}; forward {dt * 1e3:.2f} ms, of which the "
         f"36 kernel launches ~{kernel_ms:.2f} ms by their timings above) on "
         f"{card}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del ref_pred, outs
 
-    del pred, ref_pred, m, x, feats, toks, sc, cls, outs
+    # ---- 5. int8 serving, beside the bf16 Predictor of phase 3 ----
+    int8_launches = int8_phase(torch, port, fa, failures, card, cases,
+                               dict(pred=pred, stages=stages))
+    del pred
     torch.cuda.empty_cache()
 
     # ---- 4. the training step ----
     train_launches = train_phase(torch, port, fa, failures, card)
 
+    paths = {f"serve ({len(batches)} forwards)": launches,
+             "train (1 step)": train_launches,
+             f"serve int8 ({len(batches)} forwards)": int8_launches}
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name],
-                    launches=launches.get(name, 0)
-                    + train_launches.get(name, 0),
-                    launches_by_path={
-                        f"serve ({len(batches)} forwards)":
-                            launches.get(name, 0),
-                        "train (1 step)": train_launches.get(name, 0)},
+                    launches=sum(v.get(name, 0) for v in paths.values()),
+                    launches_by_path={k: v.get(name, 0)
+                                      for k, v in paths.items()},
                     max_abs_err=res["max_abs_err"], ms=res["ms"],
                     plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
                     bound_by=res["bound_by"], library_ms=res["library_ms"])

@@ -5,9 +5,12 @@ A port of duoformer_tcga_tpu (JAX/Pallas), which stays the reference the
 port is tested against. This package imports neither JAX nor anything of
 duoformer_tcga_tpu. What it covers so far: the release 2-scale DuoFormer
 forward (ResNet-50 pyramid -> projections -> regroup -> 12 ScaleBlocks ->
-12 PatchBlocks -> head) served by `inference.Predictor`, and its training
-step with a frozen backbone (`train.py`), with the fused transformer
-kernels and their backward kernels in csrc/.
+12 PatchBlocks -> head) served by `inference.Predictor` in bf16 or int8
+(`quantize=True`, a8w8 transformer GEMMs), the serving artifact the JAX
+package exports and loads (`export_serving_artifact`,
+`load_serving_artifact`, `from_serving_artifact`), and its training step
+with a frozen backbone (`train.py`), with the fused transformer kernels,
+their int8 forms and their backward kernels in csrc/.
 
 Entry points run on the card unless the caller passes device="cpu";
 without a CUDA device and without that request they raise.
@@ -19,6 +22,9 @@ import torch
 
 from ._device import resolve_device
 from .models.duoformer import DuoFormer, count_parameters, fold_for_inference  # noqa: F401
+from .inference import (Predictor, export_serving_artifact,  # noqa: F401
+                        from_serving_artifact, load_serving_artifact)
+from .ops.quantize import quantize_model_  # noqa: F401
 
 
 def build_model_no_extra_params(

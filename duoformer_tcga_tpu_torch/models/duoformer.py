@@ -14,6 +14,7 @@ import torch
 from torch import nn
 
 from ..ops import initializers as init
+from ..ops.quantize import is_quantized
 from . import regroup
 from .projection import Projection
 from .resnet import ResNetBackbone, fold_bn
@@ -53,6 +54,15 @@ class DuoFormer(nn.Module):
             if hit:
                 raise NotImplementedError(
                     f"{what} is not ported to the PyTorch package yet")
+        # the architecture fields a serving artifact's meta["model"]
+        # records and from_serving_artifact checks (cli.py:664-672)
+        self.config = dict(
+            family="duoformer", depth=depth, embed_dim=embed_dim,
+            proj_dim=proj_dim, num_heads=num_heads, num_classes=num_classes,
+            num_layers=num_layers, num_patches=num_patches,
+            mlp_ratio=mlp_ratio, scale_token=scale_token, backbone=backbone,
+            patch_attn=patch_attn, init_values=init_values,
+            apply_fc_norm=apply_fc_norm)
         self.num_layers = num_layers
         self.proj_dim = proj_dim
         self.freeze_backbone = freeze_backbone
@@ -73,6 +83,9 @@ class DuoFormer(nn.Module):
             init.normal((1, 1, 1, proj_dim), 0.036, generator))
 
     def train(self, mode: bool = True):
+        if mode and is_quantized(self):
+            raise RuntimeError("an int8-quantized model serves only: the "
+                               "int8 kernels have no backward")
         super().train(mode)
         if self.freeze_backbone:
             self.backbone.eval()      # BN on running statistics

@@ -7,6 +7,8 @@ here each stack is a ModuleList of `depth` blocks run in a Python loop.
 Every ScaleBlock runs the two fused kernels (attention branch, then MLP
 branch); every PatchBlock runs the bare form of the attention kernel. Both
 go through the kernels' autograd functions, so the same forward trains.
+A model quantized by ops/quantize.quantize_model_ (QuantLinear qkv, proj,
+fc1, fc2) runs the int8 forms of both kernels instead, serving only.
 Every weight and embedding is cast to the activations' dtype where it is
 used, as the JAX package's `.astype(x.dtype)`: float32 master parameters
 train through bf16 kernels; vectors (norms, biases) stay float32.
@@ -27,6 +29,9 @@ from ..ops import initializers as init
 from ..ops import nn as ops
 from ..ops.attention import Attention, multihead_attention
 from ..ops.fused_attention import attention_residual, mlp_residual
+from ..ops.fused_int8 import (fused_attention_residual_int8,
+                              fused_mlp_residual_int8)
+from ..ops.quantize import QuantLinear
 
 
 def num_scale_tokens(scales: int) -> int:
@@ -62,10 +67,22 @@ class ScaleBlock(nn.Module):
         fc1, fc2 = self.mlp.fc1, self.mlp.fc2
         bqkv = (qkv.b if qkv.b is not None
                 else x.new_zeros(3 * C, dtype=torch.float32))
+        scale = (C // self.num_heads) ** -0.5
+        if isinstance(qkv, QuantLinear):
+            # int8 serving weights (ops/quantize.py): a8w8 qkv/proj and
+            # fc1/fc2 (transformer.py:267-276, 304-312)
+            x = fused_attention_residual_int8(
+                x.reshape(-1, S, C), self.norm1.scale, self.norm1.bias,
+                qkv.w_q, qkv.w_scale, bqkv, proj.w_q, proj.w_scale, proj.b,
+                self.num_heads, S, scale, self.ln_eps)
+            x = fused_mlp_residual_int8(
+                x, self.norm2.scale, self.norm2.bias, fc1.w_q, fc1.w_scale,
+                fc1.b, fc2.w_q, fc2.w_scale, fc2.b, self.ln_eps)
+            return x.reshape(*lead, S, C)
         x = attention_residual(
             x.reshape(-1, S, C), self.norm1.scale, self.norm1.bias,
             qkv.w.to(dt), bqkv, proj.w.to(dt), proj.b, self.num_heads, S,
-            (C // self.num_heads) ** -0.5, self.ln_eps)
+            scale, self.ln_eps)
         x = mlp_residual(
             x, self.norm2.scale, self.norm2.bias, fc1.w.to(dt), fc1.b,
             fc2.w.to(dt), fc2.b, self.ln_eps)

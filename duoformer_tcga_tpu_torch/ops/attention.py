@@ -17,6 +17,8 @@ from torch import nn
 
 from . import nn as ops
 from .fused_attention import attention_residual
+from .fused_int8 import fused_attention_residual_int8
+from .quantize import QuantLinear
 
 
 class Attention(nn.Module):
@@ -31,18 +33,27 @@ class Attention(nn.Module):
         self.proj = ops.Linear(dim, dim, True, "vit", generator)
 
 
-def _bias(linear: ops.Linear, width, like):
+def _bias(linear, width, like):
     if linear.b is not None:
         return linear.b
     return like.new_zeros(width, dtype=torch.float32)
 
 
 def multihead_attention(attn: Attention, x, num_heads, scale=None):
-    """Bare MHSA over the second-to-last axis: x [..., S, C] -> same."""
+    """Bare MHSA over the second-to-last axis: x [..., S, C] -> same. A
+    quantized Attention (QuantLinear qkv/proj) runs the bare int8 form
+    (attention.py:209-217)."""
     *lead, S, C = x.shape
     if scale is None:
         scale = (C // num_heads) ** -0.5
     zeros = x.new_zeros(C, dtype=torch.float32)
+    if isinstance(attn.qkv, QuantLinear):
+        out = fused_attention_residual_int8(
+            x.reshape(-1, S, C), zeros, zeros, attn.qkv.w_q,
+            attn.qkv.w_scale, _bias(attn.qkv, 3 * C, x), attn.proj.w_q,
+            attn.proj.w_scale, _bias(attn.proj, C, x), num_heads, S,
+            float(scale), 1e-6, use_ln=False, use_residual=False)
+        return out.reshape(*lead, S, C)
     out = attention_residual(
         x.reshape(-1, S, C), zeros, zeros, attn.qkv.w.to(x.dtype),
         _bias(attn.qkv, 3 * C, x), attn.proj.w.to(x.dtype),

@@ -9,6 +9,9 @@ so the walk is by name; what changes is layout:
     split over the ModuleList's blocks;
   * conv weights HWIO become OIHW;
   * linear weights stay (in, out), the layout the port keeps;
+  * int8 weights w_q of a quantized tree (ops/quantize.py) become
+    QuantLinear's (out, in) and stay int8; a quantized tree quantizes the
+    model's structure first;
   * BN comes either unfolded (scale/bias/mean/var) or folded (scale/bias,
     fold_for_inference): a folded tree folds the port's BNs first.
 Every tensor of the model must be loaded, and every leaf of the tree must
@@ -22,11 +25,17 @@ import torch
 from torch import nn
 
 from ..ops.nn import BatchNorm, Conv2d
+from ..ops.quantize import QuantLinear, is_quantized, quantize_model_
 from ..models.resnet import fold_bn
 
 
 def _is_folded(tree) -> bool:
     return "mean" not in tree["backbone"]["bn1"]
+
+
+def _is_quantized(tree) -> bool:
+    qkv = tree["transformer"]["scale_blocks"]["attn"]["qkv"]
+    return "w_q" in qkv
 
 
 def _copy(mod, name, arr, path, loaded):
@@ -36,6 +45,10 @@ def _copy(mod, name, arr, path, loaded):
     arr = np.asarray(arr)
     if isinstance(mod, Conv2d) and name == "w":
         arr = arr.transpose(3, 2, 0, 1)                 # HWIO -> OIHW
+    if isinstance(mod, QuantLinear) and name == "w_q":
+        if arr.dtype != np.int8:
+            raise TypeError(f"{path}: int8 codes expected, got {arr.dtype}")
+        arr = arr.T                                     # (in, out) -> (out, in)
     if tuple(arr.shape) != tuple(target.shape):
         raise ValueError(f"{path}: tree shape {arr.shape} vs model "
                          f"{tuple(target.shape)}")
@@ -90,6 +103,11 @@ def load_jax_params(model, tree):
         fold_bn(model.backbone)
     elif any(m.folded for m in model.modules() if isinstance(m, BatchNorm)):
         raise ValueError("the tree has unfolded BN but the model is folded")
+    if _is_quantized(tree):
+        quantize_model_(model)
+    elif is_quantized(model):
+        raise ValueError("the tree has float weights but the model is "
+                         "quantized")
     loaded: set = set()
     _load(model, tree, "", loaded)
     missing = set(model.state_dict()) - loaded
@@ -124,8 +142,9 @@ def _stack(items):
 
 def export_jax_params(model, grads=False):
     """The model's tensors (every tensor of the state dict) as a JAX-layout
-    tree of float32 numpy arrays: conv weights HWIO, the block stacks
-    stacked over depth, unfolded BN with its running statistics.
+    tree of numpy arrays: conv weights HWIO, int8 w_q (in, out) and int8,
+    every other tensor float32, the block stacks stacked over depth, BN
+    with its running statistics (folded BN without them).
     grads=True exports the parameters' .grad instead (parameters without
     one are left out)."""
     if grads:
@@ -135,10 +154,13 @@ def export_jax_params(model, grads=False):
         tensors = model.state_dict()
     tree: dict = {}
     for name, t in tensors.items():
-        arr = np.array(t.detach().float().cpu())       # a copy
+        t = t.detach().cpu()
+        arr = np.array(t if t.dtype == torch.int8 else t.float())   # a copy
         *path, leaf = name.split(".")
         if leaf == "w" and arr.ndim == 4:
             arr = arr.transpose(2, 3, 1, 0)                 # OIHW -> HWIO
+        if leaf == "w_q":
+            arr = np.ascontiguousarray(arr.T)               # -> (in, out)
         node = tree
         for key in path:
             node = node.setdefault(key, {})
