@@ -9,7 +9,8 @@ For each fault in FAULTS, copies chip_smoke.py and duoformer_tcga_tpu_torch/
 <name>/, changes one place in one kernel source (or the header the
 kernels share) there, and runs chip_smoke.kernel_checks (untimed, TF32
 off) on the cases of the named kernel form's source, from that copy, in
-a process of its own; all copies build and run at once. The fault "none"
+a process of its own, at most PARALLEL at once (the reg cases' plain
+versions hold several GB of mask counters each). The fault "none"
 changes nothing, runs every case and is the control. Prints, per fault
 and case, whether the case passed, its relative L2 error, and whether the
 elementwise atol = rtol = 0.08 bar alone passed it. Exits non-zero when
@@ -37,6 +38,9 @@ DZ = f"{PKG}/csrc/mlp_dz.cu"
 ATTN8 = f"{PKG}/csrc/fused_attention_residual_int8.cu"
 MLP8 = f"{PKG}/csrc/fused_mlp_residual_int8.cu"
 TILE = f"{PKG}/csrc/tile_ops.cuh"
+HASH = f"{PKG}/csrc/dropout_hash.cuh"
+EW = f"{PKG}/csrc/drop_ew.cu"
+PARALLEL = 8
 
 # name: (file, text, replacement, the kernel form whose cases must fail
 # [, why the checks may pass it])
@@ -115,6 +119,29 @@ FAULTS = {
         "exact ties k + 0.5 of the row scale are rare in float32 data; "
         "tests/test_torch_port_int8.py::test_rowquant_matches_jax_bit_for_bit"
         " guards the rounding on built ties"),
+    "block-local row counter of the dp mask (reg backward)": (
+        BWD, "dpv[u] = keep_mask(hseed, (uint32_t)(row0 + r),",
+        "dpv[u] = keep_mask(hseed, (uint32_t)r,",
+        "fused_attention_residual_bwd_reg"),
+    "arithmetic shift in the hash": (
+        HASH, "return (x >> 8) < thr;",
+        "return (uint32_t)((int32_t)x >> 8) < thr;", "drop_ew_gm"),
+    "MLP output dropout salted as the hidden's": (
+        MLP, "make_drop(seed, SITE_MLP_OUT, drop_thr, drop_scale)",
+        "make_drop(seed, SITE_MLP_HID, drop_thr, drop_scale)",
+        "fused_mlp_residual_reg"),
+    "softmax Jacobian on the dropped p (reg backward)": (
+        BWD, "pv[u] = c < RT ? sS[r * Sh::S_LD + c] : 0.f;",
+        "pv[u] = c < RT ? __bfloat162float(sP[r * Sh::P_LD + c]) : 0.f;",
+        "fused_attention_residual_bwd_reg"),
+    "gamma left out of geff (reg backward)": (
+        BWD, "      v.x = __fmul_rn(v.x, gamma[col]);\n"
+             "      v.y = __fmul_rn(v.y, gamma[col + 1]);\n", "",
+        "fused_attention_residual_bwd_reg"),
+    "dz reads dh through bf16 (drop_ew)": (
+        EW, "const float dd = keep ? d[e] * drop.scale : 0.f;",
+        "const float dd = keep ? __bfloat162float(__float2bfloat16(d[e])) "
+        "* drop.scale : 0.f;", "drop_ew_dz"),
 }
 
 CHILD = """
@@ -151,14 +178,25 @@ def plant(name, fault):
 
 def main() -> int:
     dirs = {name: plant(name, f) for name, f in FAULTS.items()}
-    procs = {name: subprocess.Popen([sys.executable, "-c", CHILD,
-                                     FAULTS[name][3] or ""], cwd=d,
-                                    stdout=subprocess.PIPE,
-                                    stderr=subprocess.PIPE, text=True)
-             for name, d in dirs.items()}
+    names = list(dirs)
+    procs, done = {}, {}
+
+    def start(name):
+        procs[name] = subprocess.Popen([sys.executable, "-c", CHILD,
+                                        FAULTS[name][3] or ""],
+                                       cwd=dirs[name],
+                                       stdout=subprocess.PIPE,
+                                       stderr=subprocess.PIPE, text=True)
+
+    for name in names[:PARALLEL]:
+        start(name)
+    for i, name in enumerate(names):
+        done[name] = procs[name].communicate(timeout=900)
+        if i + PARALLEL < len(names):
+            start(names[i + PARALLEL])
     bad, passed_as_allowed = [], []
     for name, proc in procs.items():
-        out, err = proc.communicate(timeout=900)
+        out, err = done[name]
         if proc.returncode != 0:
             print(f"{name}: the checks did not run (exit {proc.returncode})"
                   f"\n{err[-3000:]}", flush=True)

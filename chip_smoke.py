@@ -3,14 +3,17 @@
 
     python3 chip_smoke.py
 
-1. Builds the six CUDA kernel sources from the checkout (one nvcc each,
+1. Builds the seven CUDA kernel sources from the checkout (one nvcc each,
    started together) and prints each kernel's register and spill report.
 2. Holds every kernel form against its plain PyTorch version on the card:
    the serving forms at the serving path's shapes (C=768, 12 heads, B=64),
    the training forms (the MLP's z form, the attention backward in both
    forms, the MLP's dz pass) at the training step's (B=128), the int8
-   forms (attention full and bare, MLP) at the serving shapes, the bare
-   forms also at B=256, and each at one small odd shape: kernel in bf16,
+   forms (attention full and bare, MLP) at the serving shapes, the reg
+   forms (dropout 0.1 from one seed, gamma 0.5 + U(0, 1)) at the legacy
+   training step's shapes and with gamma alone at the serving shapes,
+   drop_ew in its three modes, the bare forms also at B=256, and each at
+   one small odd shape: kernel in bf16,
    plain version on the same inputs upcast to float32 (the int8 forms'
    plain versions take the same bf16 x and int8 weights, so both round at
    the same points, with the int8 products exact). Every output of a case
@@ -28,9 +31,16 @@
    composition of the same function (a yardstick the port never calls;
    for the int8 forms F.layer_norm, a torch row quantization,
    torch._int_mm, SDPA or F.gelu, torch._int_mm and the dequantization)
-   with CUDA events, median of 20 launches each. The bound of an int8
-   form counts its int8 operations at the int8 peak (1979 TOP/s) and its
-   bf16 attention core at the bf16 peak.
+   with CUDA events, median of 20 launches each (the reg forms' yardstick
+   adds F.dropout and SDPA's dropout_p; drop_ew's is F.dropout with
+   F.gelu or aten.gelu_backward). The bound of an int8 form counts its
+   int8 operations at the int8 peak (1979 TOP/s) and its bf16 attention
+   core at the bf16 peak; the bounds count tensor-core products and bytes
+   (the dropout hash's integer operations are not counted: drop_ew is
+   bound by its bytes). drop_ew is also held to a bf16 mismatch fraction
+   of at most 1e-3 against its plain version (one float32 formula on both
+   sides), and gm on a tensor of ones to none at all: the kernel's masks
+   are the plain version's bit for bit.
 3. Serves the release DuoFormer at full width (768/12/12, depth 12, 2
    scales, bf16, random weights from a fixed seed) through
    build_model_no_extra_params -> Predictor: 3 batches of 64 uint8 tiles.
@@ -71,6 +81,18 @@
    the CPU int8 path as int8 is from float32). Prints the stage times of
    both stacks and the tiles/s of both Predictors at B=64, their windows
    interleaved.
+6. Runs last: the legacy DuoFormer (build_model: channel token,
+   LayerScale 1e-5, attention dropout 0.1, dropout 0.1, random weights
+   from a fixed seed) served through Predictor at B=64 (3 forwards,
+   counted: exactly 12 reg full, 12 reg MLP and 2 reg bare launches per
+   forward and no other; finite logits; embed() on 2 tiles against the
+   port's CPU float32 run, relative L2 <= 0.05; tiles/s in 7 windows) and
+   trained at B=128 (one counted step: exactly 12 + 12 (z) + 2 forward,
+   12 + 2 backward and 36 drop_ew launches; the gradients of one
+   backward on 2 tiles with the same seeds on the card in bf16 and on the
+   CPU in float32 within 0.05 relative L2; over 3 steps a finite loss,
+   every trainable tensor moved, backbone and BN statistics unchanged;
+   tiles/s, split, peak memory and profile as in 4).
 Prints the card's name and power limit, one JSON line {"kernels": [...]},
 and as its last line {"ok": true, "device": {...}}. Exits non-zero, with
 no result line, when there is no CUDA device, when the port is not beside
@@ -102,6 +124,12 @@ PEAK_INT8_OPS = 1979e12    # H100 SXM dense int8 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 REPEATS = 20
 GRAD_REL_TOL = 0.05        # card (bf16) vs CPU (float32) gradients
+LEGACY_E2E_GRAD_TOL = 0.1  # the same, legacy, end to end (see phase 6)
+DROP = 0.1                 # the legacy family's dropout rates
+DROP_SEED = 12345          # the kernel cases' dropout seed
+# drop_ew computes one float32 formula on both sides; only erff, expf and
+# fma contraction move a bf16 rounding, in about 1e-5 of the elements
+DROP_EW_MISMATCH_TOL = 1e-3
 CSRC = "duoformer_tcga_tpu_torch/csrc/"
 PALLAS = "duoformer_tcga_tpu/ops/pallas_attention.py:"
 # kernel form -> its CUDA source; REPLACES: -> the TPU kernel it replaces
@@ -118,6 +146,17 @@ SOURCES = {
     "fused_attention_residual_int8_bare":
         CSRC + "fused_attention_residual_int8.cu",
     "fused_mlp_residual_int8": CSRC + "fused_mlp_residual_int8.cu",
+    "fused_attention_residual_reg": CSRC + "fused_attention_residual.cu",
+    "fused_attention_residual_reg_bare": CSRC + "fused_attention_residual.cu",
+    "fused_mlp_residual_reg": CSRC + "fused_mlp_residual.cu",
+    "fused_mlp_residual_reg_z": CSRC + "fused_mlp_residual.cu",
+    "fused_attention_residual_bwd_reg":
+        CSRC + "fused_attention_residual_bwd.cu",
+    "fused_attention_residual_bwd_reg_bare":
+        CSRC + "fused_attention_residual_bwd.cu",
+    "drop_ew_hd": CSRC + "drop_ew.cu",
+    "drop_ew_dz": CSRC + "drop_ew.cu",
+    "drop_ew_gm": CSRC + "drop_ew.cu",
 }
 REPLACES = {
     "fused_attention_residual": PALLAS + "311",
@@ -130,6 +169,15 @@ REPLACES = {
     "fused_attention_residual_int8": PALLAS + "442",
     "fused_attention_residual_int8_bare": PALLAS + "442",
     "fused_mlp_residual_int8": PALLAS + "1499",
+    "fused_attention_residual_reg": PALLAS + "311",
+    "fused_attention_residual_reg_bare": PALLAS + "311",
+    "fused_mlp_residual_reg": PALLAS + "1306",
+    "fused_mlp_residual_reg_z": PALLAS + "1350",
+    "fused_attention_residual_bwd_reg": PALLAS + "723",
+    "fused_attention_residual_bwd_reg_bare": PALLAS + "723",
+    "drop_ew_hd": PALLAS + "1949",
+    "drop_ew_dz": PALLAS + "1949",
+    "drop_ew_gm": PALLAS + "1949",
 }
 SERVING_FORMS = ("fused_attention_residual", "fused_attention_residual_bare",
                  "fused_mlp_residual")
@@ -140,6 +188,22 @@ TRAINING_FORMS = ("fused_attention_residual", "fused_attention_residual_bare",
 # each runs 12 times in one int8 serving forward, and nowhere else
 INT8_FORMS = ("fused_attention_residual_int8",
               "fused_attention_residual_int8_bare", "fused_mlp_residual_int8")
+# launches per legacy serving forward and per legacy training step (12
+# MultiscaleBlocks, 2 region passes); every other form none
+LEGACY_SERVE = {"fused_attention_residual_reg": 12,
+                "fused_mlp_residual_reg": 12,
+                "fused_attention_residual_reg_bare": 2}
+LEGACY_TRAIN = {"fused_attention_residual_reg": 12,
+                "fused_mlp_residual_reg_z": 12,
+                "fused_attention_residual_reg_bare": 2,
+                "fused_attention_residual_bwd_reg": 12,
+                "fused_attention_residual_bwd_reg_bare": 2,
+                "drop_ew_hd": 12, "drop_ew_dz": 12, "drop_ew_gm": 12}
+# the serving-shape cases of the legacy forward's forms, with launches
+LEGACY_SERVING_CASES = (
+    ("fused_attention_residual_reg gamma alone n_seg=3136 (serving)", 12),
+    ("fused_mlp_residual_reg gamma alone rows=18816 (serving)", 12),
+    ("fused_attention_residual_reg_bare no dropout n_seg=64 (serving)", 2))
 
 
 def log(*a):
@@ -182,28 +246,30 @@ def bound(flops, nbytes, int8_ops=0):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def compare(torch, out, ref, residual, n_summed=1):
+def compare(torch, out, ref, residual, n_summed=1, scale=1.0):
     """out (kernel, bf16) against ref (plain, float32): max |out - ref|, the
     relative L2 error of the branch ref - residual, and both bars. A column
     sum over n_summed rows is held at atol = 0.08 * sqrt(n_summed): each
     row's term carries its own bf16 rounding, and n independent errors
-    add up to sqrt(n) times one."""
+    add up to sqrt(n) times one. scale: a reg form's largest factor on
+    the branch (max gamma / (1 - rate)), by which its rounding errors grow
+    with the values they round; atol is multiplied by it."""
     torch.cuda.synchronize()
     out = out.float()
     branch = ref if residual is None else ref - residual.float()
     rel = ((out - ref).norm() / branch.norm().clamp_min(1e-30)).item()
-    close = bool(torch.allclose(out, ref, atol=TOL * n_summed ** 0.5,
-                                rtol=TOL))
+    close = bool(torch.allclose(out, ref, rtol=TOL,
+                                atol=TOL * n_summed ** 0.5 * scale))
     return dict(max_abs_err=(out - ref).abs().max().item(), rel_err=rel,
                 branch_rms=branch.pow(2).mean().sqrt().item(), close=close,
                 ok=close and rel <= BRANCH_REL_TOL)
 
 
-def compare_all(torch, outputs):
+def compare_all(torch, outputs, scale=1.0):
     """{output: (kernel, plain, residual[, n_summed])} -> the worst of
     each output's compare(), with every output's own result under "outputs";
     the case passes when every output passes both bars."""
-    each = {k: compare(torch, *v) for k, v in outputs.items()}
+    each = {k: compare(torch, *v, scale=scale) for k, v in outputs.items()}
     return dict(max_abs_err=max(r["max_abs_err"] for r in each.values()),
                 rel_err=max(r["rel_err"] for r in each.values()),
                 branch_rms=min(r["branch_rms"] for r in each.values()),
@@ -211,7 +277,32 @@ def compare_all(torch, outputs):
                 ok=all(r["ok"] for r in each.values()), outputs=each)
 
 
-def attention_case(torch, F, fa, gen, n_seg, S, c, heads, bare, timed):
+def reg_flags(torch, gen, c, reg):
+    """A reg case's keyword arguments for the kernel and its plain
+    version: gamma 0.5 + U(0, 1) (so that the epilogue shows), or ones
+    with reg["gamma"] False; the seed and the rates of `reg`."""
+    if reg is None:
+        return {}
+    gamma = (torch.rand(c, generator=gen) + 0.5 if reg.get("gamma", True)
+             else torch.ones(c)).cuda()
+    rates = {k: v for k, v in reg.items() if k != "gamma"}
+    return dict(gamma=gamma, seed=DROP_SEED if any(rates.values()) else 0,
+                **rates)
+
+
+def reg_scale(flags):
+    """The largest factor a reg form's flags put on its branch: max gamma
+    over the keep probability of its highest rate (1 for an inert form)."""
+    if "gamma" not in flags:
+        return 1.0
+    rate = max([v for k, v in flags.items() if k.endswith("drop")] + [0.0])
+    return flags["gamma"].max().item() / (1.0 - rate)
+
+
+def attention_case(torch, F, fa, gen, n_seg, S, c, heads, bare, timed,
+                   reg=None):
+    """The attention kernel; reg: the reg form's flags (gamma, attn_drop,
+    proj_drop; see reg_flags)."""
     dev, bf16 = "cuda", torch.bfloat16
 
     def rnd(*shape, std=1.0, mean=0.0):
@@ -228,7 +319,8 @@ def attention_case(torch, F, fa, gen, n_seg, S, c, heads, bare, timed):
     wproj = rnd(c, c, std=c ** -0.5).to(dev, bf16)
     bproj = rnd(c, std=0.01).cuda()
     scale = (c // heads) ** -0.5
-    flags = dict(use_ln=not bare, use_residual=not bare)
+    flags = dict(use_ln=not bare, use_residual=not bare,
+                 **reg_flags(torch, gen, c, reg))
 
     def kernel():
         return fa.fused_attention_residual(x, lns, lnb, wqkv, bqkv, wproj,
@@ -241,26 +333,33 @@ def attention_case(torch, F, fa, gen, n_seg, S, c, heads, bare, timed):
             f32[0], lns, lnb, f32[1], bqkv, f32[2], bproj, heads, S, scale,
             **flags)
 
-    res = compare(torch, kernel(), plain(), None if bare else x)
+    res = compare(torch, kernel(), plain(), None if bare else x,
+                  scale=reg_scale(flags))
     if not timed:
         return res
     wqkv_t, wproj_t = wqkv.t().contiguous(), wproj.t().contiguous()
     bqkv_b, bproj_b = bqkv.to(bf16), bproj.to(bf16)
     lns_b, lnb_b = lns.to(bf16), lnb.to(bf16)
     D = c // heads
+    a_drop, p_drop = flags.get("attn_drop", 0.0), flags.get("proj_drop", 0.0)
+    gamma_b = flags["gamma"].to(bf16) if reg is not None else None
 
     def library():
         h = x if bare else F.layer_norm(x, (c,), lns_b, lnb_b, 1e-6)
         qkv = F.linear(h, wqkv_t, bqkv_b).view(n_seg, S, 3, heads, D)
         q, k, v = qkv.permute(2, 0, 3, 1, 4)
-        o = F.scaled_dot_product_attention(q, k, v, scale=scale)
+        o = F.scaled_dot_product_attention(q, k, v, dropout_p=a_drop,
+                                           scale=scale)
         y = F.linear(o.transpose(1, 2).reshape(n_seg, S, c), wproj_t,
                      bproj_b)
+        if reg is not None:
+            y = F.dropout(y, p_drop) * gamma_b
         return y if bare else y + x
 
     rows = n_seg * S
     flops = 2 * rows * c * 4 * c + 4 * n_seg * S * S * c
-    nbytes = 2 * (2 * rows * c + 4 * c * c) + 4 * (2 * c + 4 * c)
+    nbytes = (2 * (2 * rows * c + 4 * c * c) + 4 * (2 * c + 4 * c)
+              + (4 * c if reg is not None else 0))
     bound_ms, bound_by = bound(flops, nbytes)
     res.update(ms=median_ms(kernel, torch), plain_ms=median_ms(plain, torch),
                library_ms=median_ms(library, torch), bound_ms=bound_ms,
@@ -268,8 +367,10 @@ def attention_case(torch, F, fa, gen, n_seg, S, c, heads, bare, timed):
     return res
 
 
-def mlp_case(torch, F, fa, gen, rows, c, hidden, timed, z_form=False):
-    """The MLP kernel: the branch (out less x); the z form also z."""
+def mlp_case(torch, F, fa, gen, rows, c, hidden, timed, z_form=False,
+             reg=None):
+    """The MLP kernel: the branch (out less x); the z form also z. reg:
+    the reg form's flags (gamma, drop; see reg_flags)."""
     dev, bf16 = "cuda", torch.bfloat16
 
     def rnd(*shape, std=1.0, mean=0.0):
@@ -281,36 +382,45 @@ def mlp_case(torch, F, fa, gen, rows, c, hidden, timed, z_form=False):
     b1 = rnd(hidden, std=0.01).cuda()
     w2 = rnd(hidden, c, std=hidden ** -0.5).to(dev, bf16)
     b2 = rnd(c, std=0.01).cuda()
+    flags = reg_flags(torch, gen, c, reg)
 
     def kernel():
         return fa.fused_mlp_residual(x, lns, lnb, w1, b1, w2, b2,
-                                     return_hidden=z_form)
+                                     return_hidden=z_form, **flags)
 
     f32 = [t.float() for t in (x, w1, w2)]
 
     def plain():
         return fa.fused_mlp_residual_plain(f32[0], lns, lnb, f32[1], b1,
-                                           f32[2], b2, return_hidden=z_form)
+                                           f32[2], b2, return_hidden=z_form,
+                                           **flags)
 
     if z_form:
         (out, z), (ref, zref) = kernel(), plain()
-        res = compare_all(torch, {"out": (out, ref, x), "z": (z, zref, None)})
+        res = compare_all(torch, {"out": (out, ref, x), "z": (z, zref, None)},
+                          scale=reg_scale(flags))
     else:
-        res = compare(torch, kernel(), plain(), x)
+        res = compare(torch, kernel(), plain(), x, scale=reg_scale(flags))
     if not timed:
         return res
     w1_t, w2_t = w1.t().contiguous(), w2.t().contiguous()
     b1_b, b2_b, lns_b, lnb_b = (t.to(bf16) for t in (b1, b2, lns, lnb))
+    drop = flags.get("drop", 0.0)
+    gamma_b = flags["gamma"].to(bf16) if reg is not None else None
 
     def library():
         zz = F.linear(F.layer_norm(x, (c,), lns_b, lnb_b, 1e-6), w1_t, b1_b)
-        y = F.linear(F.gelu(zz), w2_t, b2_b) + x
+        if reg is not None:
+            y = F.linear(F.dropout(F.gelu(zz), drop), w2_t, b2_b)
+            y = F.dropout(y, drop) * gamma_b + x
+        else:
+            y = F.linear(F.gelu(zz), w2_t, b2_b) + x
         return (y, zz) if z_form else y
 
     flops = 4 * rows * c * hidden
     nbytes = (2 * (2 * rows * c + 2 * c * hidden
                    + (rows * hidden if z_form else 0))
-              + 4 * (3 * c + hidden))
+              + 4 * (3 * c + hidden) + (4 * c if reg is not None else 0))
     bound_ms, bound_by = bound(flops, nbytes)
     res.update(ms=median_ms(kernel, torch), plain_ms=median_ms(plain, torch),
                library_ms=median_ms(library, torch), bound_ms=bound_ms,
@@ -318,10 +428,12 @@ def mlp_case(torch, F, fa, gen, rows, c, hidden, timed, z_form=False):
     return res
 
 
-def attention_bwd_case(torch, F, fa, gen, n_seg, S, c, heads, bare, timed):
+def attention_bwd_case(torch, F, fa, gen, n_seg, S, c, heads, bare, timed,
+                       reg=None):
     """The attention backward kernel: dx less the residual g, ln (full
     form), attn, dqkv and the column sums, each against the plain version
-    on the same bf16 inputs upcast to float32."""
+    on the same bf16 inputs upcast to float32; the reg form (reg: see
+    reg_flags) also gm where the proj dropout is on."""
     dev, bf16 = "cuda", torch.bfloat16
 
     def rnd(*shape, std=1.0, mean=0.0):
@@ -339,7 +451,8 @@ def attention_bwd_case(torch, F, fa, gen, n_seg, S, c, heads, bare, timed):
     wproj = rnd(c, c, std=c ** -0.5).to(dev, bf16)
     bproj = rnd(c, std=0.01).cuda()
     scale = (c // heads) ** -0.5
-    flags = dict(use_ln=not bare, use_residual=not bare)
+    flags = dict(use_ln=not bare, use_residual=not bare,
+                 **reg_flags(torch, gen, c, reg))
 
     def kernel():
         return fa.fused_attention_residual_bwd(x, g, lns, lnb, wqkv, bqkv,
@@ -354,34 +467,42 @@ def attention_bwd_case(torch, F, fa, gen, n_seg, S, c, heads, bare, timed):
             **flags)
 
     out, ref = kernel(), plain()
-    names = ("dx", "ln", "attn", "dqkv", "dlns", "dlnb", "dbqkv", "dbproj")
+    names = ("dx", "ln", "attn", "dqkv", "dlns", "dlnb", "dbqkv", "dbproj",
+             "gm")
     rows = n_seg * S
     pairs = {k: (o, r, None) if o.dim() > 1 else (o, r, None, rows)
              for k, o, r in zip(names, out, ref)
              if not (bare and k in ("ln", "dlns", "dlnb"))}
     if not bare:
         pairs["dx"] = (out[0], ref[0], g)
-    res = compare_all(torch, pairs)
+    res = compare_all(torch, pairs, scale=reg_scale(flags))
     if not timed:
         return res
     D = c // heads
     leaves = [t.detach().clone().requires_grad_(True) for t in (
         x, lns.to(bf16), lnb.to(bf16), wqkv.t().contiguous(), bqkv.to(bf16),
         wproj.t().contiguous(), bproj.to(bf16))]
+    if reg is not None:
+        leaves.append(flags["gamma"].to(bf16).requires_grad_(True))
+    a_drop, p_drop = flags.get("attn_drop", 0.0), flags.get("proj_drop", 0.0)
 
     def library():
-        xx, ls, lb, wq, bq, wp, bp = leaves
+        xx, ls, lb, wq, bq, wp, bp = leaves[:7]
         h = xx if bare else F.layer_norm(xx, (c,), ls, lb, 1e-6)
         qkv = F.linear(h, wq, bq).view(n_seg, S, 3, heads, D)
         q, k, v = qkv.permute(2, 0, 3, 1, 4)
-        o = F.scaled_dot_product_attention(q, k, v, scale=scale)
+        o = F.scaled_dot_product_attention(q, k, v, dropout_p=a_drop,
+                                           scale=scale)
         y = F.linear(o.transpose(1, 2).reshape(n_seg, S, c), wp, bp)
+        if reg is not None:
+            y = F.dropout(y, p_drop) * leaves[7]
         y = y if bare else y + xx
         return torch.autograd.grad(y, leaves, g, allow_unused=bare)
 
     flops = 2 * rows * c * 7 * c + 12 * n_seg * S * S * c
-    nbytes = (2 * (rows * c * (3 + (0 if bare else 1) + 1 + 3) + 4 * c * c)
-              + 4 * (2 * c + 3 * c + 6 * c))
+    nbytes = (2 * (rows * c * (3 + (0 if bare else 1) + 1 + 3
+                               + (1 if p_drop else 0)) + 4 * c * c)
+              + 4 * (2 * c + 3 * c + 6 * c + (c if reg is not None else 0)))
     bound_ms, bound_by = bound(flops, nbytes)
     res.update(ms=median_ms(kernel, torch), plain_ms=median_ms(plain, torch),
                library_ms=median_ms(library, torch), bound_ms=bound_ms,
@@ -425,6 +546,93 @@ def mlp_dz_case(torch, F, fa, gen, rows, c, hidden, timed):
     res.update(ms=median_ms(kernel, torch), plain_ms=median_ms(plain, torch),
                library_ms=median_ms(library, torch), bound_ms=bound_ms,
                bound_by=bound_by, flops=flops, bytes=nbytes)
+    return res
+
+
+def attention_mask_case(torch, F, fa, gen, n_seg, S, c, heads, bare, timed,
+                        backward=False):
+    """The attention probabilities' dropout masks, exactly, in the forward
+    kernel (its output) or the backward kernel (its recomputed attn): q =
+    k = 0 make every probability 1/S within a segment, v = 1 (its bias)
+    and wproj = I make each output element kept / ((1 - rate) S) of its
+    (row, head). One mask element that differs from the plain version's
+    moves that element by 1 / ((1 - rate) S) (0.022 at S=50, 0.19 at
+    S=6), while both sides otherwise agree to the bf16 rounding of p and
+    of the output (< 0.007): the case is held at half that move."""
+    dev, bf16 = "cuda", torch.bfloat16
+    x = torch.randn(n_seg, S, c, generator=gen).to(dev, bf16)
+    g = torch.randn(n_seg, S, c, generator=gen).to(dev, bf16)
+    ones, zeros = torch.ones(c, device=dev), torch.zeros(c, device=dev)
+    wqkv = torch.zeros(c, 3 * c, device=dev, dtype=bf16)
+    bqkv = torch.cat([torch.zeros(2 * c), torch.ones(c)]).cuda()
+    wproj = torch.eye(c, device=dev, dtype=bf16)
+    flags = dict(use_ln=not bare, use_residual=False, gamma=ones,
+                 seed=DROP_SEED, attn_drop=DROP)
+    scale = (c // heads) ** -0.5
+    f32 = [t.float() for t in (x, g, wqkv, wproj)]
+    if backward:
+        out = fa.fused_attention_residual_bwd(
+            x, g, ones, zeros, wqkv, bqkv, wproj, heads, S, scale,
+            **flags)[2]
+        ref = fa.fused_attention_residual_bwd_plain(
+            f32[0], f32[1], ones, zeros, f32[2], bqkv, f32[3], heads, S,
+            scale, **flags)[2]
+    else:
+        out = fa.fused_attention_residual(x, ones, zeros, wqkv, bqkv, wproj,
+                                          zeros, heads, S, scale, **flags)
+        ref = fa.fused_attention_residual_plain(
+            f32[0], ones, zeros, f32[2], bqkv, f32[3], zeros, heads, S,
+            scale, **flags)
+    res = compare(torch, out, ref, None)
+    res["ok"] = res["max_abs_err"] < 0.5 / ((1.0 - DROP) * S)
+    return res
+
+
+def drop_ew_case(torch, F, fa, gen, rows, cols, mode, timed, ones=False):
+    """The drop_ew kernel in one mode against its plain version on the
+    same bf16 z (and float32 dh). Besides the bars of compare(), the
+    fraction of bf16 results that differ from the plain version's rounded
+    to bf16 is held at DROP_EW_MISMATCH_TOL, and at 0 for a tensor of
+    ones in mode gm: there the output is the mask times a constant, so the
+    kernel's masks must equal the plain version's bit for bit."""
+    from duoformer_tcga_tpu_torch.ops import fused_reg as fr
+    dev, bf16 = "cuda", torch.bfloat16
+    site = 3 if mode == "gm" else 2
+    z = (torch.ones(rows, cols) if ones
+         else torch.randn(rows, cols, generator=gen)).to(dev, bf16)
+    dh = (torch.randn(rows, cols, generator=gen).cuda() if mode == "dz"
+          else None)
+
+    def kernel():
+        return fr.drop_ew(z, DROP_SEED, DROP, site, mode, dh)
+
+    zf = z.float()
+
+    def plain():
+        return fr.drop_ew_plain(zf, DROP_SEED, DROP, site, mode, dh)
+
+    out, ref = kernel(), plain()
+    res = compare(torch, out, ref, None)
+    mism = (out != ref.to(bf16)).float().mean().item()
+    res["mismatch"] = mism
+    res["ok"] = res["ok"] and (mism == 0 if ones
+                               else mism <= DROP_EW_MISMATCH_TOL)
+    if not timed:
+        return res
+
+    def library():
+        if mode == "gm":
+            return F.dropout(z, DROP)
+        if mode == "hd":
+            return F.dropout(F.gelu(z), DROP)
+        return torch.ops.aten.gelu_backward(F.dropout(dh, DROP), zf).to(bf16)
+
+    n = rows * cols
+    nbytes = n * (8 if mode == "dz" else 4)
+    bound_ms, bound_by = bound(0, nbytes)
+    res.update(ms=median_ms(kernel, torch), plain_ms=median_ms(plain, torch),
+               library_ms=median_ms(library, torch), bound_ms=bound_ms,
+               bound_by=bound_by, flops=0, bytes=nbytes)
     return res
 
 
@@ -555,6 +763,18 @@ def _case_specs(torch, F, fa, timed):
     mlp_z = functools.partial(mlp_case, z_form=True)
     bwd, dz = attention_bwd_case, mlp_dz_case
     att8, mlp8 = attention_int8_case, mlp_int8_case
+    part = functools.partial
+    both = dict(attn_drop=DROP, proj_drop=DROP)
+    att_r = part(att, reg=both)                 # the legacy scale blocks
+    att_g = part(att, reg={})                   # LayerScale alone (eval)
+    att_rb = part(att, reg=dict(gamma=False, attn_drop=DROP))   # region
+    att_gb = part(att, reg=dict(gamma=False))   # region, eval
+    mlp_r = part(mlp, reg=dict(drop=DROP))
+    mlp_g = part(mlp, reg={})
+    mlp_rz = part(mlp, z_form=True, reg=dict(drop=DROP))
+    bwd_r = part(bwd, reg=both)
+    bwd_rb = part(bwd, reg=dict(gamma=False, attn_drop=DROP))
+    ew = drop_ew_case
     specs = [
         # the serving path's forms (B=64)
         ("fused_attention_residual", B * 49, 6, C, HEADS, False, att, timed),
@@ -597,6 +817,51 @@ def _case_specs(torch, F, fa, timed):
          256, 4, True, att8, False),
         ("fused_mlp_residual_int8 rows=222 C=256 hidden=1024", 222, 256,
          1024, mlp8, False),
+        # the legacy family's reg forms: training (B=128, dropout 0.1,
+        # gamma), then serving (B=64, gamma alone), then other shapes
+        ("fused_attention_residual_reg", B_TRAIN * 49, 6, C, HEADS, False,
+         att_r, timed),
+        ("fused_attention_residual_reg_bare", B_TRAIN, 50, C, HEADS, True,
+         att_rb, timed),
+        ("fused_mlp_residual_reg", rows_s, C, HIDDEN, mlp_r, timed),
+        ("fused_mlp_residual_reg_z", rows_t, C, HIDDEN, mlp_rz, timed),
+        ("fused_attention_residual_bwd_reg", B_TRAIN * 49, 6, C, HEADS,
+         False, bwd_r, timed),
+        ("fused_attention_residual_bwd_reg_bare", B_TRAIN, 50, C, HEADS,
+         True, bwd_rb, timed),
+        ("drop_ew_hd", rows_t, HIDDEN, "hd", ew, timed),
+        ("drop_ew_dz", rows_t, HIDDEN, "dz", ew, timed),
+        ("drop_ew_gm", rows_t, C, "gm", ew, timed),
+        ("drop_ew_gm mask of ones, exact rows=37632 cols=768", rows_t, C,
+         "gm", part(ew, ones=True), False),
+        ("fused_attention_residual_reg attention masks, exact n_seg=6272",
+         B_TRAIN * 49, 6, C, HEADS, False, attention_mask_case, False),
+        ("fused_attention_residual_reg_bare attention masks, exact "
+         "n_seg=128", B_TRAIN, 50, C, HEADS, True, attention_mask_case,
+         False),
+        ("fused_attention_residual_bwd_reg attention masks, exact "
+         "n_seg=6272", B_TRAIN * 49, 6, C, HEADS, False,
+         part(attention_mask_case, backward=True), False),
+        ("fused_attention_residual_bwd_reg_bare attention masks, exact "
+         "n_seg=128", B_TRAIN, 50, C, HEADS, True,
+         part(attention_mask_case, backward=True), False),
+        ("fused_attention_residual_reg gamma alone n_seg=3136 (serving)",
+         B * 49, 6, C, HEADS, False, att_g, timed),
+        ("fused_attention_residual_reg_bare no dropout n_seg=64 (serving)",
+         B, 50, C, HEADS, True, att_gb, timed),
+        ("fused_mlp_residual_reg gamma alone rows=18816 (serving)", rows_s,
+         C, HIDDEN, mlp_g, timed),
+        ("fused_attention_residual_reg n_seg=13 S=6 C=256 H=4", 13, 6, 256,
+         4, False, att_r, False),
+        ("fused_attention_residual_reg_bare n_seg=3 S=50 C=256 H=4", 3, 50,
+         256, 4, True, att_rb, False),
+        ("fused_mlp_residual_reg_z rows=222 C=256 hidden=1024", 222, 256,
+         1024, mlp_rz, False),
+        ("fused_attention_residual_bwd_reg n_seg=13 S=6 C=256 H=4", 13, 6,
+         256, 4, False, bwd_r, False),
+        ("fused_attention_residual_bwd_reg_bare n_seg=3 S=50 C=256 H=4", 3,
+         50, 256, 4, True, bwd_rb, False),
+        ("drop_ew_dz rows=222 cols=1024", 222, 1024, "dz", ew, False),
     ]
     out = []
     for label, *args in specs:
@@ -655,8 +920,8 @@ def serve_stages(torch, pred, batch):
             "preprocess": lambda: pred.prepare(batch),
             "backbone": lambda: m.features(x),
             "projection+regroup": lambda: m.tokens(feats),
-            "scale stack (24 kernels)": lambda: m.transformer.scale_stack(toks),
-            "patch stack (12 kernels)":
+            "scale stack": lambda: m.transformer.scale_stack(toks),
+            "patch (or region) stack":
                 lambda: m.transformer.cls_embedding(sc),
             "head": lambda: m.transformer.head(cls),
         }
@@ -826,14 +1091,6 @@ def train_phase(torch, port, fa, failures, card):
         losses.append(float(m["loss"]))
     log(f"train: one step at B={B_TRAIN}, launches {launches}; losses of 3 "
         f"steps {losses}")
-    for name in TRAINING_FORMS:
-        if launches.get(name, 0) != 12:
-            failures.append(f"train step: {launches.get(name, 0)} launches "
-                            f"of {name}, expected 12")
-    for name in ("fused_mlp_residual",) + INT8_FORMS:
-        if launches.get(name, 0) != 0:
-            failures.append(f"train step: {launches[name]} launches of "
-                            f"{name}, expected 0")
     if not all(np.isfinite(losses)):
         failures.append(f"train losses {losses}")
     after = model.state_dict()
@@ -850,7 +1107,21 @@ def train_phase(torch, port, fa, failures, card):
         failures.append(f"backbone tensors changed: {moved[:5]}")
     del before
 
-    # ---- the step's time: 7 host-clock windows of 3 steps ----
+    time_step(torch, model, state, step, batches, card, "train")
+    return launches
+
+
+def time_step(torch, model, state, step, batches, card, what):
+    """A training step's time: 7 host-clock windows of 3 steps, the
+    forward / backward / optimizer split (CUDA events, median of 5 steps),
+    the peak memory of a step and one step's device time by kernel
+    (torch.profiler, CUPTI). A model with dropout takes seeds drawn for
+    each step of the split, as the training step draws them."""
+    from duoformer_tcga_tpu_torch import train as train_lib
+    from duoformer_tcga_tpu_torch.data import pipeline as data_lib
+    from duoformer_tcga_tpu_torch.models.duoformer import draw_seeds
+    tf = model.transformer
+    gen = torch.Generator().manual_seed(SEED)
     n, windows = 3, []
     for i in range(7):
         torch.cuda.synchronize()
@@ -861,8 +1132,6 @@ def train_phase(torch, port, fa, failures, card):
         windows.append((time.perf_counter() - t0) / n)
     dt = float(np.median(windows))
 
-    # forward / backward / optimizer split (CUDA events, median of 5) and
-    # the peak memory of one step
     x = data_lib.preprocess_tiles(
         torch.as_tensor(batches[0]["image"]).cuda(), dtype=torch.bfloat16)
     labels = torch.as_tensor(batches[0]["label"]).cuda()
@@ -871,8 +1140,9 @@ def train_phase(torch, port, fa, failures, card):
     for _ in range(5):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         state["optimizer"].zero_grad(set_to_none=True)
+        seeds = draw_seeds(tf.num_seeds(), gen) if tf.has_dropout else None
         ev[0].record()
-        loss = train_lib.cross_entropy(model(x), labels)
+        loss = train_lib.cross_entropy(model(x, seeds=seeds), labels)
         ev[1].record()
         loss.backward()
         ev[2].record()
@@ -882,7 +1152,6 @@ def train_phase(torch, port, fa, failures, card):
         split.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
     fwd, bwd, opt = np.median(np.array(split), axis=0)
 
-    # where one step's device time goes (torch.profiler, CUPTI)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -894,22 +1163,197 @@ def train_phase(torch, port, fa, failures, card):
                    if e.device_type == DeviceType.CUDA
                    and e.self_device_time_total > 0), reverse=True)
     busy = sum(r[0] for r in rows)
-    log(f"train profile of one step: device busy {busy:.2f} ms "
+    log(f"{what} profile of one step: device busy {busy:.2f} ms "
         f"({busy / (dt * 1e3):.1%} of the {dt * 1e3:.2f} ms step); by "
         f"kernel (ms, launches):" if rows else
-        "train profile: the profiler saw no device time (not measured)")
+        f"{what} profile: the profiler saw no device time (not measured)")
     for ms, count, key in rows[:16]:
         log(f"  {ms:8.3f} {count:5d}  {key[:90]}")
-    log(f"train throughput: {B_TRAIN / dt:.1f} tiles/s at B={B_TRAIN}, "
+    log(f"{what} throughput: {B_TRAIN / dt:.1f} tiles/s at B={B_TRAIN}, "
         f"median of 7 windows of {n} steps (least {B_TRAIN / max(windows):.1f}"
         f", greatest {B_TRAIN / min(windows):.1f}; step {dt * 1e3:.2f} ms); "
         f"forward {fwd:.2f} ms, backward {bwd:.2f} ms, optimizer {opt:.2f} "
         f"ms (CUDA events, median of 5 steps); peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; on {card}")
-    return launches
+
+
+def check_launches(failures, what, launches, want, names):
+    """Every form in `names` ran exactly want.get(form, 0) times."""
+    for name in names:
+        if launches.get(name, 0) != want.get(name, 0):
+            failures.append(f"{what}: {launches.get(name, 0)} launches of "
+                            f"{name}, expected {want.get(name, 0)}")
+
+
+def legacy_phase(torch, port, fa, failures, card, cases, others):
+    """Phase 6: the legacy DuoFormer (build_model: channel token,
+    LayerScale 1e-5, attention dropout 0.1, dropout 0.1) at full width,
+    served at B=64 and trained at B=128. -> the launch counts of 3
+    forwards and of one step."""
+    from duoformer_tcga_tpu_torch import train as train_lib
+    from duoformer_tcga_tpu_torch.data import pipeline as data_lib
+    from duoformer_tcga_tpu_torch.inference import Predictor
+    from duoformer_tcga_tpu_torch.models.duoformer import draw_seeds
+
+    def build(device):
+        return port.build_model(depth=12, embed_dim=C, num_heads=HEADS,
+                                proj_dim=C, num_classes=2, device=device,
+                                seed=SEED)
+
+    # ---- serving: 3 forwards, counted; embed() vs the CPU; tiles/s ----
+    t0 = time.perf_counter()
+    pred = Predictor(build("cuda"), dtype=torch.bfloat16)
+    rng = np.random.default_rng(SEED + 2)
+    batches = [rng.integers(0, 256, (B, 224, 224, 3), dtype=np.uint8)
+               for _ in range(3)]
+    fa.reset_launch_counts()
+    outs = [pred(t) for t in batches]
+    torch.cuda.synchronize()
+    serve_launches = dict(fa.launch_counts)
+    log(f"legacy serving: built in {time.perf_counter() - t0:.1f} s; 3 "
+        f"batches of {B}; launches {serve_launches}")
+    check_launches(failures, "legacy serving", serve_launches,
+                   {k: 3 * v for k, v in LEGACY_SERVE.items()}, cases)
+    for i, lg in enumerate(outs):
+        if tuple(lg.shape) != (B, 2) or not bool(torch.isfinite(lg).all()):
+            failures.append(f"legacy batch {i}: logits {tuple(lg.shape)}, "
+                            f"finite={bool(torch.isfinite(lg).all())}")
+    two = batches[0][:2]
+    g_logits, g_cls = pred.embed(two)
+    c_logits, c_cls = Predictor(build("cpu"), device="cpu",
+                                dtype=torch.float32).embed(two)
+    e_cls, e_logits = rel_err(g_cls, c_cls), rel_err(g_logits, c_logits)
+    log(f"legacy embed vs CPU float32: rel L2 err cls {e_cls:.3e}, logits "
+        f"{e_logits:.3e} (tolerance {EMBED_REL_TOL})")
+    if not (e_cls <= EMBED_REL_TOL and e_logits <= EMBED_REL_TOL):
+        failures.append(f"legacy embed vs CPU: {e_cls:.3e} / {e_logits:.3e}")
+    stages = serve_stages(torch, pred, batches[0])
+    log("legacy stages at B=%d: %s" % (B, ", ".join(
+        f"{k} {v:.3f} ms" for k, v in stages.items())))
+    dt, windows = serve_rates(torch, {"legacy": pred}, batches[0])["legacy"]
+    kernel_ms = sum(n * others[k]["ms"] for k, n in LEGACY_SERVING_CASES)
+    log(f"legacy throughput: {B / dt:.1f} tiles/s at B={B}, median of 7 "
+        f"windows of 5 forwards (least {B / max(windows):.1f}, greatest "
+        f"{B / min(windows):.1f}; forward {dt * 1e3:.2f} ms, of which the 26 "
+        f"kernel launches ~{kernel_ms:.2f} ms by their serving-shape "
+        f"timings above) on {card}")
+    del pred, outs
+    torch.cuda.empty_cache()
+
+    # ---- training ----
+    def setup(device, dtype):
+        model = build(device)
+        opt = train_lib.make_optimizer(
+            model, train_lib.onecycle_schedule(1e-4, 1000), weight_decay=1e-4,
+            frozen_label_fn=train_lib.backbone_frozen_labels)
+        state = train_lib.init_train_state(model, opt)
+        return model, state, train_lib.make_train_step(model, dtype=dtype)
+
+    t0 = time.perf_counter()
+    model, state, step = setup("cuda", torch.bfloat16)
+    trainable = {n for n, p in model.named_parameters() if p.requires_grad}
+    before = {n: t.detach().clone() for n, t in model.state_dict().items()}
+    rng = np.random.default_rng(SEED + 3)
+    batches = [{"image": rng.integers(0, 256, (B_TRAIN, 224, 224, 3),
+                                      dtype=np.uint8),
+                "label": rng.integers(0, 2, (B_TRAIN,))} for _ in range(3)]
+
+    # gradients of one backward on 2 tiles with the same seeds, card bf16
+    # against CPU float32, twice: from the same tokens (the card's, upcast)
+    # through the transformer, the path of the kernels, at GRAD_REL_TOL;
+    # and end to end from the tiles, where the bf16 pyramid's tokens (1%
+    # off) move these gradients further (the MLP's fc1 and norm2 most;
+    # printed beside the first), at LEGACY_E2E_GRAD_TOL. Left out: the
+    # carried q/k norms (no forward applies them, Q9) and the channel
+    # fusers (plain torch convs and batch-stat BNs, no kernel of the
+    # port: at random init the token's gradient hardly depends on the
+    # tile, so the BN backward's mean subtraction cancels it to a
+    # remainder bf16 cannot resolve; the CPU tests hold the fusers to JAX
+    # in float32).
+    cpu_model, _, _ = setup("cpu", torch.float32)
+    last = len(model.transformer.blocks) - 1
+    keep = [f"transformer.blocks.{i}." for i in (0, last)] + [
+        "transformer.head.", "transformer.norm.", "transformer.pos_embed",
+        "transformer.cls_token", "projection."]
+    names = [n for n in trainable if any(n.startswith(k) for k in keep)
+             and "_norm." not in n]
+    tf_names = [n for n in names if n.startswith("transformer.")]
+    seeds = draw_seeds(model.transformer.num_seeds(),
+                       torch.Generator().manual_seed(SEED))
+
+    def grads(m, device, dtype, tokens=None):
+        """-> (gradients of `names`, the tokens); given tokens, the
+        transformer's gradients from them."""
+        x = data_lib.preprocess_tiles(
+            torch.as_tensor(batches[0]["image"][:2]).to(device), dtype=dtype)
+        labels = torch.zeros(2, dtype=torch.long).to(device)
+        params = dict(m.named_parameters())
+        wrt = names if tokens is None else tf_names
+        if tokens is None:
+            tokens = m.tokens(m.features(x))
+        loss = train_lib.cross_entropy(m.transformer(tokens, seeds=seeds),
+                                       labels)
+        return (dict(zip(wrt, torch.autograd.grad(
+            loss, [params[n] for n in wrt]))), tokens.detach())
+
+    g_card, card_tokens = grads(model, "cuda", torch.bfloat16)
+    cpu_e2e, cpu_tokens = grads(cpu_model, "cpu", torch.float32)
+    cpu_same, _ = grads(cpu_model, "cpu", torch.float32,
+                        card_tokens.float().cpu())
+    del cpu_model
+    errs = {n: rel_err(g_card[n], cpu_same[n]) for n in tf_names}
+    e2e = {n: rel_err(g_card[n], cpu_e2e[n]) for n in names}
+    log(f"legacy train: set up and gradients on 2 tiles, same seeds "
+        f"({time.perf_counter() - t0:.1f} s); tokens card vs CPU rel L2 "
+        f"{rel_err(card_tokens, cpu_tokens):.3e}; rel L2 err card bf16 vs "
+        f"CPU float32 (from the same tokens, tolerance {GRAD_REL_TOL} | end "
+        f"to end, tolerance {LEGACY_E2E_GRAD_TOL}):")
+    for n in names:
+        log(f"  {n}: {errs.get(n, float('nan')):.3e} | {e2e[n]:.3e}")
+    failures += [f"legacy gradient of {n} (same tokens): rel err {e:.3e}"
+                 for n, e in errs.items() if not e <= GRAD_REL_TOL]
+    failures += [f"legacy gradient of {n} (end to end): rel err {e:.3e}"
+                 for n, e in e2e.items() if not e <= LEGACY_E2E_GRAD_TOL]
+
+    fa.reset_launch_counts()
+    state, m = step(state, batches[0])
+    torch.cuda.synchronize()
+    train_launches = dict(fa.launch_counts)
+    losses = [float(m["loss"])]
+    for b in batches[1:]:
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+    log(f"legacy train: one step at B={B_TRAIN}, launches {train_launches}; "
+        f"losses of 3 steps {losses}")
+    check_launches(failures, "legacy train step", train_launches,
+                   LEGACY_TRAIN, cases)
+    if not all(np.isfinite(losses)):
+        failures.append(f"legacy train losses {losses}")
+    after = model.state_dict()
+    # parameters the loss does not reach get a zero gradient and Adam's L2
+    # term moves only those that are not 0: the carried q/k norms (Q9) and
+    # attn2 of blocks 1..depth-2 (Q4: the region pass uses block 0's and
+    # block depth-1's) keep their zero biases
+    dead = ("_norm.",) + tuple(f".blocks.{i}.attn2." for i in range(1, last))
+    same = [n for n in trainable if not (any(d in n for d in dead)
+                                         and not before[n].any())
+            and torch.equal(after[n], before[n])]
+    moved = [n for n in before if (n.startswith("backbone.") or n.endswith(
+        (".mean", ".var"))) and not torch.equal(after[n], before[n])]
+    log(f"legacy train: {len(trainable)} trainable tensors, unchanged after "
+        f"3 steps: {same}; backbone tensors and BN statistics changed: "
+        f"{moved}")
+    if same:
+        failures.append(f"legacy trainable tensors unchanged: {same[:5]}")
+    if moved:
+        failures.append(f"legacy frozen tensors changed: {moved[:5]}")
+    del before
+    time_step(torch, model, state, step, batches, card, "legacy train")
+    return serve_launches, train_launches
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     import torch.nn.functional as F
 
@@ -959,7 +1403,9 @@ def main() -> int:
             + (f"; kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} "
                f"ms, library {res['library_ms']:.4f} ms, bound "
                f"{res['bound_ms']:.4f} ms ({res['bound_by']})"
-               if "ms" in res else ""))
+               if "ms" in res else "")
+            + (f"; bf16 mismatch fraction {res['mismatch']:.3g}"
+               if "mismatch" in res else ""))
         for out, r in res.get("outputs", {}).items():
             log(f"  {out}: max_abs_err {r['max_abs_err']:.6g}, rel L2 err "
                 f"{r['rel_err']:.4g} {'ok' if r['ok'] else 'FAIL'}")
@@ -1026,10 +1472,19 @@ def main() -> int:
 
     # ---- 4. the training step ----
     train_launches = train_phase(torch, port, fa, failures, card)
+    torch.cuda.empty_cache()
+    check_launches(failures, "train step", train_launches,
+                   {k: 12 for k in TRAINING_FORMS}, cases)
+
+    # ---- 6. the legacy family: serving and training ----
+    legacy_serve, legacy_train = legacy_phase(torch, port, fa, failures,
+                                              card, cases, others)
 
     paths = {f"serve ({len(batches)} forwards)": launches,
              "train (1 step)": train_launches,
-             f"serve int8 ({len(batches)} forwards)": int8_launches}
+             f"serve int8 ({len(batches)} forwards)": int8_launches,
+             "legacy serve (3 forwards)": legacy_serve,
+             "legacy train (1 step)": legacy_train}
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name],
                     launches=sum(v.get(name, 0) for v in paths.values()),
@@ -1039,6 +1494,7 @@ def main() -> int:
                     plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
                     bound_by=res["bound_by"], library_ms=res["library_ms"])
                for name, res in cases.items()]
+    log(f"elapsed: {time.perf_counter() - t_start:.0f} s")
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))
     if failures:

@@ -7,10 +7,19 @@
 // q | k | v, head h at h*64), wproj [C, C]. LayerNorm scale/bias and both
 // biases are float32.
 //
-// Replaces: duoformer_tcga_tpu/ops/pallas_attention.py, _fused_block_kernel
-// (inert instantiation), driven by _fused_block_impl. Two forms run on the
-// serving path: the full form (LN + residual) in every ScaleBlock at S=6,
-// and the bare form (use_ln = use_residual = 0) in every PatchBlock at S=50.
+// Replaces: duoformer_tcga_tpu/ops/pallas_attention.py, _fused_block_kernel,
+// driven by _fused_block_impl, in both its instantiations. The inert one:
+// the full form (LN + residual) in every release ScaleBlock at S=6, and
+// the bare form (use_ln = use_residual = 0) in every PatchBlock at S=50.
+// The reg one (fused_attention_residual_reg, pallas_attention.py:1202), as
+// runtime arguments of the same kernel: dropout of the softmax
+// probabilities (each head's own site, at the global token indices, after
+// the float32 softmax and before the bf16 cast for P.V), dropout of the
+// proj output at the global row and column, and a LayerScale gamma, in
+// that order before the residual (pallas_attention.py:372-384, 426-439);
+// the masks come from csrc/dropout_hash.cuh. The legacy family runs it in
+// every block: full form S=6 with gamma (and in training both dropouts),
+// bare form S=50 in its two region passes (attention dropout in training).
 //
 // Rounding points are the TPU kernel's: LN output cast to bf16, qkv cast
 // after its bias, softmax probabilities cast to bf16, each head's output
@@ -116,7 +125,8 @@ fused_attention_kernel(const bf16* __restrict__ x,
                        const float* __restrict__ bproj,
                        bf16* __restrict__ out,
                        int n_seg, int S, float scale, float eps, int use_ln,
-                       int use_residual) {
+                       int use_residual, const float* __restrict__ gamma,
+                       Drop adrop, Drop pdrop) {
   typedef Shape<RT, C> Sh;
   constexpr int MT = Sh::MT;
   constexpr int NJ = Sh::NJ;
@@ -232,7 +242,9 @@ fused_attention_kernel(const bf16* __restrict__ x,
             }
         }
         __syncthreads();
-        // ---- 4. softmax within each row's segment; zeros elsewhere ----
+        // ---- 4. softmax within each row's segment; zeros elsewhere;
+        // dropout of head h's probabilities (reg form) ----
+        const uint32_t hseed = site_seed(adrop.seed_plus, SITE_ATTN + 4 * h);
         for (int r = warp; r < RT; r += WARPS) {
           const int c0 = (r / S) * S;
           const bool live = r < R;
@@ -254,7 +266,15 @@ fused_attention_kernel(const bf16* __restrict__ x,
 #pragma unroll
           for (int u = 0; u < 2; ++u) {
             const int c = lane + 32 * u;
-            if (c < RT) sP[r * Sh::P_LD + c] = __float2bfloat16(e[u] * inv);
+            if (c < RT) {
+              float pv = e[u] * inv;
+              if (adrop.on)
+                pv = keep_mask(hseed, (uint32_t)(row0 + r),
+                               (uint32_t)(row0 + c), adrop.thr)
+                         ? pv * adrop.scale
+                         : 0.f;
+              sP[r * Sh::P_LD + c] = __float2bfloat16(pv);
+            }
           }
         }
         __syncthreads();
@@ -305,9 +325,10 @@ fused_attention_kernel(const bf16* __restrict__ x,
     __syncthreads();
   }
 
-  // ---- 7. epilogue: + bproj [+ x], one cast, live rows only ----
+  // ---- 7. epilogue: + bproj (, proj dropout, * gamma) [+ x], one cast,
+  // live rows only ----
   store_rows<C, MT, NJ>(acc, warp * (C / 8), bproj, x, out, row0, R,
-                        use_residual);
+                        use_residual, gamma, pdrop);
 }
 
 // Rows per block for seg_len S.
@@ -318,6 +339,7 @@ cudaError_t launch(const bf16* x, const float* lns, const float* lnb,
                    const bf16* wqkv, const float* bqkv, const bf16* wproj,
                    const float* bproj, bf16* out, int n_seg, int S,
                    float scale, float eps, int use_ln, int use_residual,
+                   const float* gamma, Drop adrop, Drop pdrop,
                    cudaStream_t stream) {
   constexpr size_t smem = Shape<RT, C>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
@@ -328,7 +350,7 @@ cudaError_t launch(const bf16* x, const float* lns, const float* lnb,
   const int blocks = (n_seg + G - 1) / G;
   fused_attention_kernel<RT, C><<<blocks, THREADS, smem, stream>>>(
       x, lns, lnb, wqkv, bqkv, wproj, bproj, out, n_seg, S, scale, eps,
-      use_ln, use_residual);
+      use_ln, use_residual, gamma, adrop, pdrop);
   return cudaGetLastError();
 }
 
@@ -337,12 +359,15 @@ cudaError_t launch_rows(const bf16* x, const float* lns, const float* lnb,
                         const bf16* wqkv, const float* bqkv,
                         const bf16* wproj, const float* bproj, bf16* out,
                         int n_seg, int S, float scale, float eps, int use_ln,
-                        int use_residual, cudaStream_t stream) {
+                        int use_residual, const float* gamma, Drop adrop,
+                        Drop pdrop, cudaStream_t stream) {
   if (rows_per_block(S) == 48)
     return launch<48, C>(x, lns, lnb, wqkv, bqkv, wproj, bproj, out, n_seg,
-                         S, scale, eps, use_ln, use_residual, stream);
+                         S, scale, eps, use_ln, use_residual, gamma, adrop,
+                         pdrop, stream);
   return launch<64, C>(x, lns, lnb, wqkv, bqkv, wproj, bproj, out, n_seg, S,
-                       scale, eps, use_ln, use_residual, stream);
+                       scale, eps, use_ln, use_residual, gamma, adrop, pdrop,
+                       stream);
 }
 
 }  // namespace
@@ -351,20 +376,26 @@ extern "C" {
 
 // Returns the launch's cudaGetLastError() (0 on success). Arguments are
 // checked by the Python wrapper: S in 1..64, C = 64 * num_heads with C in
-// {256, 512, 768}, every pointer 32-byte aligned.
+// {256, 512, 768}, every pointer 32-byte aligned. The reg form: gamma
+// float32 [C] or null; seed the int32 dropout seed; attn_thr / proj_thr
+// the keep thresholds of the two sites (< 0: that dropout is off) and
+// attn_scale / proj_scale their keep scales.
 int launch_fused_attention_residual(const void* x, const void* lns,
                                     const void* lnb, const void* wqkv,
                                     const void* bqkv, const void* wproj,
                                     const void* bproj, void* out, int n_seg,
                                     int S, int C, int num_heads, float scale,
                                     float eps, int use_ln, int use_residual,
-                                    void* stream) {
+                                    const void* gamma, int seed, int attn_thr,
+                                    float attn_scale, int proj_thr,
+                                    float proj_scale, void* stream) {
   if (S < 1 || S > 64 || C != num_heads * D) return (int)cudaErrorInvalidValue;
 #define ARGS                                                                \
   (const bf16*)x, (const float*)lns, (const float*)lnb, (const bf16*)wqkv, \
       (const float*)bqkv, (const bf16*)wproj, (const float*)bproj,        \
       (bf16*)out, n_seg, S, scale, eps, use_ln, use_residual,              \
-      (cudaStream_t)stream
+      (const float*)gamma, make_drop(seed, SITE_ATTN, attn_thr, attn_scale), \
+      make_drop(seed, SITE_PROJ, proj_thr, proj_scale), (cudaStream_t)stream
   switch (C) {
     case 256: return (int)launch_rows<256>(ARGS);
     case 512: return (int)launch_rows<512>(ARGS);

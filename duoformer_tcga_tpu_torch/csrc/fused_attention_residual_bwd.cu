@@ -20,6 +20,18 @@
 // full form (LN + residual) in every ScaleBlock at S=6, the bare form
 // (use_ln = use_residual = 0) in every PatchBlock at S=50.
 //
+// The reg instantiation (_far_reg_bwd, pallas_attention.py:809-822,
+// 848-870, 896-905), as runtime arguments: a first small kernel forms the
+// upstream gradient the branch saw, geff = bf16(bf16(g * proj mask / keep)
+// * gamma), and writes gm = bf16(g * proj mask / keep) when the proj
+// dropout is on; the main kernel streams geff where it streamed g, drops
+// the bf16 probabilities for P.V and dv with the forward's mask, drops and
+// rescales dp, and takes the softmax Jacobian with the UNDROPPED float32 p;
+// dbproj sums the float32 proj-masked g without gamma (the caller's
+// dgamma and dbproj identities need it so), and the residual adds raw g.
+// Every mask is the forward's, regenerated from csrc/dropout_hash.cuh at
+// global positions: this kernel's row blocks are not the forward's.
+//
 // Rounding points are the TPU kernel's (pallas_attention.py:791-918): ln
 // in bf16; qkv in bf16 after its bias; p in float32 for the softmax
 // backward and in bf16 for P.V and dv; each head's output o in bf16; each
@@ -108,7 +120,8 @@ struct Shape {
 // Slab j of head h's stream: phase 0 (recompute) and phase 2 (dln) take
 // wqkv rows [k*KS, k*KS + KS) x the head's q | k | v columns; phase 1
 // (dattn) takes wproj rows [h*D, h*D + D) and the block's g rows, columns
-// [k*KS, k*KS + KS) of each. g rows at or past R are zeros.
+// [k*KS, k*KS + KS) of each. g rows at or past R are zeros. (The reg form
+// passes geff as g.)
 template <int RT, int C>
 __device__ __forceinline__ void load_slab(bf16* dst, int h, int j,
                                           const bf16* wqkv,
@@ -141,6 +154,7 @@ __device__ __forceinline__ void load_slab(bf16* dst, int h, int j,
 template <int RT, int C>
 __global__ void __launch_bounds__(THREADS, 1)
 attention_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
+                     const bf16* __restrict__ gsrc,
                      const float* __restrict__ lns,
                      const float* __restrict__ lnb,
                      const bf16* __restrict__ wqkv,
@@ -149,7 +163,7 @@ attention_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
                      bf16* __restrict__ ln_out, bf16* __restrict__ attn_out,
                      bf16* __restrict__ dqkv_out, float* __restrict__ part,
                      int n_seg, int S, float scale, float eps, int use_ln,
-                     int use_residual) {
+                     int use_residual, Drop adrop, Drop pdrop) {
   typedef Shape<RT, C> Sh;
   constexpr int MT = Sh::MT;
   constexpr int NQ = Sh::NQ;
@@ -176,14 +190,14 @@ attention_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
 
   const int total = Sh::H * Sh::PER_HEAD;
   int s = 0;                                 // slab counter
-  load_slab<RT, C>(stage0, 0, 0, wqkv, wproj, g, row0, R);
+  load_slab<RT, C>(stage0, 0, 0, wqkv, wproj, gsrc, row0, R);
   cp_async_commit();
   // the next slab into the other buffer, then wait for slab s
   auto next_slab = [&]() -> const bf16* {
     if (s + 1 < total)
       load_slab<RT, C>(stage0 + ((s + 1) & 1) * Sh::STAGE,
                        (s + 1) / Sh::PER_HEAD, (s + 1) % Sh::PER_HEAD, wqkv,
-                       wproj, g, row0, R);
+                       wproj, gsrc, row0, R);
     cp_async_commit();
     cp_async_wait_one();
     __syncthreads();
@@ -277,6 +291,9 @@ attention_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
     }
     __syncthreads();
     // softmax within each row's segment: p (float32) into sS, bf16 into sP
+    // (dropped with the forward's mask in the reg form: the forward's P.V
+    // operand, for o and dv; sS keeps the undropped p for the Jacobian)
+    const uint32_t hseed = site_seed(adrop.seed_plus, SITE_ATTN + 4 * h);
     for (int r = warp; r < RT; r += WARPS) {
       const int c0 = (r / S) * S;
       const bool live = r < R;
@@ -299,8 +316,13 @@ attention_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
       for (int u = 0; u < 2; ++u) {
         const int c = lane + 32 * u;
         if (c < RT) {
-          sS[r * Sh::S_LD + c] = e[u] * inv;
-          sP[r * Sh::P_LD + c] = __float2bfloat16(e[u] * inv);
+          const float pv = e[u] * inv;
+          sS[r * Sh::S_LD + c] = pv;
+          sP[r * Sh::P_LD + c] = __float2bfloat16(
+              adrop.on && !keep_mask(hseed, (uint32_t)(row0 + r),
+                                     (uint32_t)(row0 + c), adrop.thr)
+                  ? 0.f
+                  : (adrop.on ? pv * adrop.scale : pv));
         }
       }
     }
@@ -426,6 +448,11 @@ attention_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
         const int c = lane + 32 * u;
         pv[u] = c < RT ? sS[r * Sh::S_LD + c] : 0.f;
         dpv[u] = c < RT ? sD[r * Sh::S_LD + c] : 0.f;
+        if (adrop.on && c < RT)      // dp through the dropout: mask, rescale
+          dpv[u] = keep_mask(hseed, (uint32_t)(row0 + r),
+                             (uint32_t)(row0 + c), adrop.thr)
+                       ? dpv[u] * adrop.scale
+                       : 0.f;
       }
       const float rs = warp_sum(dpv[0] * pv[0] + dpv[1] * pv[1]);
 #pragma unroll
@@ -613,7 +640,10 @@ attention_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           if (use_residual) out[e] += gg[e];
-          cs[2][e] += gg[e];
+          // dbproj's sum: the float32 proj-masked g, no gamma (reg form)
+          cs[2][e] += pdrop.on ? pdrop.apply(gg[e], (uint32_t)(row0 + row),
+                                             col + e)
+                               : gg[e];
         }
         *reinterpret_cast<__nv_bfloat162*>(dx + off) =
             __floats2bfloat162_rn(out[0], out[1]);
@@ -632,6 +662,34 @@ attention_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
         bpart[C + col + e] = cs[1][e];
         bpart[5 * C + col + e] = cs[2][e];
       }
+  }
+}
+
+// The reg form's upstream gradients, elementwise over [rows, C] in bf16
+// pairs: gm = bf16(g * proj mask / keep) (written when the proj dropout is
+// on), geff = bf16(gm or g) times gamma (when given), rounded again.
+__global__ void geff_kernel(const bf16* __restrict__ g,
+                            const float* __restrict__ gamma, Drop pdrop,
+                            bf16* __restrict__ geff, bf16* __restrict__ gm,
+                            long n, int C) {
+  for (long i = 2 * ((long)blockIdx.x * blockDim.x + threadIdx.x); i < n;
+       i += 2L * gridDim.x * blockDim.x) {
+    const uint32_t row = (uint32_t)(i / C);
+    const int col = (int)(i % C);
+    float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+        g + i));
+    if (pdrop.on) {
+      const __nv_bfloat162 m = __floats2bfloat162_rn(
+          pdrop.apply(v.x, row, col), pdrop.apply(v.y, row, col + 1));
+      *reinterpret_cast<__nv_bfloat162*>(gm + i) = m;
+      v = __bfloat1622float2(m);
+    }
+    if (gamma != nullptr) {
+      v.x = __fmul_rn(v.x, gamma[col]);
+      v.y = __fmul_rn(v.y, gamma[col + 1]);
+    }
+    *reinterpret_cast<__nv_bfloat162*>(geff + i) =
+        __floats2bfloat162_rn(v.x, v.y);
   }
 }
 
@@ -654,17 +712,29 @@ cudaError_t launch(const bf16* x, const bf16* g, const float* lns,
                    const bf16* wproj, bf16* dx, bf16* ln, bf16* attn,
                    bf16* dqkv, float* sums, float* part, int n_seg, int S,
                    float scale, float eps, int use_ln, int use_residual,
-                   cudaStream_t stream) {
+                   const float* gamma, bf16* geff, bf16* gm, Drop adrop,
+                   Drop pdrop, cudaStream_t stream) {
   constexpr size_t smem = Shape<RT, C>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
       attention_bwd_kernel<RT, C>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
+  const bf16* gsrc = g;
+  if (gamma != nullptr || pdrop.on) {
+    const long n = (long)n_seg * S * C;
+    const long pairs = n / 2;
+    const int eb = (int)((pairs + 255) / 256 < 4096 ? (pairs + 255) / 256
+                                                     : 4096);
+    geff_kernel<<<eb, 256, 0, stream>>>(g, gamma, pdrop, geff, gm, n, C);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    gsrc = geff;
+  }
   const int G = RT / S;
   const int blocks = (n_seg + G - 1) / G;
   attention_bwd_kernel<RT, C><<<blocks, THREADS, smem, stream>>>(
-      x, g, lns, lnb, wqkv, bqkv, wproj, dx, ln, attn, dqkv, part, n_seg, S,
-      scale, eps, use_ln, use_residual);
+      x, g, gsrc, lns, lnb, wqkv, bqkv, wproj, dx, ln, attn, dqkv, part,
+      n_seg, S, scale, eps, use_ln, use_residual, adrop, pdrop);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   sum_partials_kernel<<<(6 * C + 255) / 256, 256, 0, stream>>>(
@@ -678,14 +748,16 @@ cudaError_t launch_rows(const bf16* x, const bf16* g, const float* lns,
                         const float* bqkv, const bf16* wproj, bf16* dx,
                         bf16* ln, bf16* attn, bf16* dqkv, float* sums,
                         float* part, int n_seg, int S, float scale, float eps,
-                        int use_ln, int use_residual, cudaStream_t stream) {
+                        int use_ln, int use_residual, const float* gamma,
+                        bf16* geff, bf16* gm, Drop adrop, Drop pdrop,
+                        cudaStream_t stream) {
   if (rows_per_block(S) == 48)
     return launch<48, C>(x, g, lns, lnb, wqkv, bqkv, wproj, dx, ln, attn,
                          dqkv, sums, part, n_seg, S, scale, eps, use_ln,
-                         use_residual, stream);
+                         use_residual, gamma, geff, gm, adrop, pdrop, stream);
   return launch<64, C>(x, g, lns, lnb, wqkv, bqkv, wproj, dx, ln, attn, dqkv,
                        sums, part, n_seg, S, scale, eps, use_ln,
-                       use_residual, stream);
+                       use_residual, gamma, geff, gm, adrop, pdrop, stream);
 }
 
 }  // namespace
@@ -697,20 +769,28 @@ extern "C" {
 // num_heads with C in {256, 512, 768}, every pointer 32-byte aligned; ln
 // may be null when use_ln is 0. sums is float32 [6C]: dlns | dlnb | dbqkv
 // (3C) | dbproj. part is a float32 workspace of blocks * 6C, blocks =
-// ceil(n_seg / (rows per block / S)).
+// ceil(n_seg / (rows per block / S)). The reg form: gamma float32 [C] or
+// null; geff a bf16 [rows, C] workspace, needed when gamma is given or the
+// proj dropout is on (else null); gm bf16 [rows, C], written when the proj
+// dropout is on (else null); seed, the thresholds (< 0: off) and keep
+// scales of the two dropout sites, as the forward took them.
 int launch_fused_attention_residual_bwd(
     const void* x, const void* g, const void* lns, const void* lnb,
     const void* wqkv, const void* bqkv, const void* wproj, void* dx,
     void* ln, void* attn, void* dqkv, void* sums, void* part, int n_seg,
     int S, int C, int num_heads, float scale, float eps, int use_ln,
-    int use_residual, void* stream) {
+    int use_residual, const void* gamma, void* geff, void* gm, int seed,
+    int attn_thr, float attn_scale, int proj_thr, float proj_scale,
+    void* stream) {
   if (S < 1 || S > 64 || C != num_heads * D || n_seg < 1)
     return (int)cudaErrorInvalidValue;
 #define ARGS                                                                 \
   (const bf16*)x, (const bf16*)g, (const float*)lns, (const float*)lnb,     \
       (const bf16*)wqkv, (const float*)bqkv, (const bf16*)wproj, (bf16*)dx, \
       (bf16*)ln, (bf16*)attn, (bf16*)dqkv, (float*)sums, (float*)part,      \
-      n_seg, S, scale, eps, use_ln, use_residual, (cudaStream_t)stream
+      n_seg, S, scale, eps, use_ln, use_residual, (const float*)gamma,      \
+      (bf16*)geff, (bf16*)gm, make_drop(seed, SITE_ATTN, attn_thr, attn_scale), \
+      make_drop(seed, SITE_PROJ, proj_thr, proj_scale), (cudaStream_t)stream
   switch (C) {
     case 256: return (int)launch_rows<256>(ARGS);
     case 512: return (int)launch_rows<512>(ARGS);

@@ -11,7 +11,15 @@
 // writes the pre-GELU hidden z [rows, H] in bf16 for the save-hidden
 // backward), both driven by _fused_mlp_impl. The serving form runs once in
 // every ScaleBlock of the serving path, the z form once in every ScaleBlock
-// of a training step. The z form writes z from the fc1 accumulator
+// of a training step. The reg instantiations (fused_mlp_residual_reg,
+// pallas_attention.py:1940; kernel semantics :1330-1347, :1379-1395) are
+// runtime arguments of the same kernel: dropout of the post-GELU hidden
+// (site 2) before its bf16 cast, dropout of fc2 + b2 (site 3), then a
+// LayerScale gamma, then the residual, every mask at the global flat row
+// (csrc/dropout_hash.cuh); the z form still saves z before any dropout.
+// The legacy family runs the serving form with gamma in every block of a
+// forward and the z form with gamma and dropout in every block of a step.
+// The z form writes z from the fc1 accumulator
 // fragments as they are, before GELU: 4 threads store 16 contiguous bytes
 // of a row, so the write is not fully coalesced (rows * H * 2 bytes, 231 MB
 // per block at B=128).
@@ -104,7 +112,8 @@ fused_mlp_kernel(const bf16* __restrict__ x, const float* __restrict__ lns,
                  const float* __restrict__ b1, const bf16* __restrict__ w2,
                  const float* __restrict__ b2, bf16* __restrict__ out,
                  bf16* __restrict__ zout, int rows, int hidden, float eps,
-                 int use_residual) {
+                 int use_residual, const float* __restrict__ gamma,
+                 Drop hdrop, Drop odrop) {
   typedef Shape<C> S;
   constexpr int NJ = S::NJ;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -181,8 +190,12 @@ fused_mlp_kernel(const bf16* __restrict__ x, const float* __restrict__ lns,
               const int row = m * 16 + g + 8 * hr;
               const float z0 = h1[m][n][2 * hr] + bb0;
               const float z1 = h1[m][n][2 * hr + 1] + bb1;
-              const float a0 = 0.5f * z0 * (1.f + erff(z0 * 0.70710678118654752f));
-              const float a1 = 0.5f * z1 * (1.f + erff(z1 * 0.70710678118654752f));
+              float a0 = 0.5f * z0 * (1.f + erff(z0 * 0.70710678118654752f));
+              float a1 = 0.5f * z1 * (1.f + erff(z1 * 0.70710678118654752f));
+              if (hdrop.on) {
+                a0 = hdrop.apply(a0, (uint32_t)(row0 + row), c0 + col);
+                a1 = hdrop.apply(a1, (uint32_t)(row0 + row), c0 + col + 1);
+              }
               if (zout != nullptr && row < R)
                 *reinterpret_cast<__nv_bfloat162*>(
                     zout + (row0 + row) * hidden + c0 + col) =
@@ -217,9 +230,10 @@ fused_mlp_kernel(const bf16* __restrict__ x, const float* __restrict__ lns,
     __syncthreads();
   }
 
-  // ---- 4. epilogue: + b2 [+ x], one cast, live rows only ----
+  // ---- 4. epilogue: + b2 (, output dropout, * gamma) [+ x], one cast,
+  // live rows only ----
   store_rows<C, MT, NJ>(acc, warp * (C / 8), b2, x, out, row0, R,
-                        use_residual);
+                        use_residual, gamma, odrop);
 }
 
 template <int C>
@@ -227,6 +241,7 @@ cudaError_t launch(const bf16* x, const float* lns, const float* lnb,
                    const bf16* w1, const float* b1, const bf16* w2,
                    const float* b2, bf16* out, bf16* zout, int rows,
                    int hidden, float eps, int use_residual,
+                   const float* gamma, Drop hdrop, Drop odrop,
                    cudaStream_t stream) {
   constexpr size_t smem = Shape<C>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
@@ -236,7 +251,7 @@ cudaError_t launch(const bf16* x, const float* lns, const float* lnb,
   const int blocks = (rows + RT - 1) / RT;
   fused_mlp_kernel<C><<<blocks, THREADS, smem, stream>>>(
       x, lns, lnb, w1, b1, w2, b2, out, zout, rows, hidden, eps,
-      use_residual);
+      use_residual, gamma, hdrop, odrop);
   return cudaGetLastError();
 }
 
@@ -247,17 +262,23 @@ extern "C" {
 // Returns the launch's cudaGetLastError() (0 on success). Arguments are
 // checked by the Python wrapper: C in {256, 512, 768}, hidden a positive
 // multiple of 128, every pointer 32-byte aligned. z: null (the serving
-// form), or [rows, hidden] bf16 for the pre-GELU hidden (the z form).
+// form), or [rows, hidden] bf16 for the pre-GELU hidden (the z form). The
+// reg form: gamma float32 [C] or null; seed the int32 dropout seed;
+// drop_thr the keep threshold of both sites (< 0: no dropout), drop_scale
+// their keep scale.
 int launch_fused_mlp_residual(const void* x, const void* lns, const void* lnb,
                               const void* w1, const void* b1, const void* w2,
                               const void* b2, void* out, void* z, int rows,
                               int C, int hidden, float eps, int use_residual,
-                              void* stream) {
+                              const void* gamma, int seed, int drop_thr,
+                              float drop_scale, void* stream) {
   if (hidden <= 0 || hidden % HC != 0) return (int)cudaErrorInvalidValue;
 #define ARGS                                                              \
   (const bf16*)x, (const float*)lns, (const float*)lnb, (const bf16*)w1, \
       (const float*)b1, (const bf16*)w2, (const float*)b2, (bf16*)out,   \
-      (bf16*)z, rows, hidden, eps, use_residual, (cudaStream_t)stream
+      (bf16*)z, rows, hidden, eps, use_residual, (const float*)gamma,    \
+      make_drop(seed, SITE_MLP_HID, drop_thr, drop_scale),                 \
+      make_drop(seed, SITE_MLP_OUT, drop_thr, drop_scale), (cudaStream_t)stream
   switch (C) {
     case 256: return (int)launch<256>(ARGS);
     case 512: return (int)launch<512>(ARGS);

@@ -1,6 +1,7 @@
 // Device helpers shared by the port's fused kernels (sm_90a): warp
 // reductions, cp.async, ldmatrix fragment loads, the m16n8k16 bf16 mma,
-// and the LayerNorm prologue and bias/residual epilogue both kernels run.
+// and the LayerNorm prologue and bias/residual epilogue both kernels run
+// (the epilogue with the reg forms' dropout and LayerScale gamma).
 //
 // mma.sync m16n8k16 fragment layout (lane = 4 * g + t): the accumulator
 // holds rows g and g + 8, columns 2t and 2t + 1 of its 16x8 tile.
@@ -11,6 +12,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include "dropout_hash.cuh"
 
 typedef __nv_bfloat16 bf16;
 
@@ -335,14 +338,19 @@ __device__ __forceinline__ void ln_rows(const bf16* __restrict__ x, long row0,
 
 // out[row0 + row, col0 + col] = acc + bias [+ x], cast once to bf16, for
 // the warp's MT x NJ accumulator tiles (rows 16m.., columns col0 + 8n..);
-// rows at or past R are not written.
+// rows at or past R are not written. The reg forms' epilogue, in the TPU
+// kernels' order (pallas_attention.py:431-439, 1339-1346): acc + bias,
+// then dropout at the global row and column, then times gamma, then + x.
 template <int C, int MT, int NJ>
 __device__ __forceinline__ void store_rows(const float (&acc)[MT][NJ][4],
                                            int col0,
                                            const float* __restrict__ bias,
                                            const bf16* __restrict__ x,
                                            bf16* __restrict__ out, long row0,
-                                           int R, int use_residual) {
+                                           int R, int use_residual,
+                                           const float* __restrict__ gamma =
+                                               nullptr,
+                                           Drop drop = Drop{0u, 0u, 1.f, 0}) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int m = 0; m < MT; ++m)
@@ -356,6 +364,14 @@ __device__ __forceinline__ void store_rows(const float (&acc)[MT][NJ][4],
         if (row >= R) continue;
         float y0 = acc[m][n][2 * hr] + bb0, y1 = acc[m][n][2 * hr + 1] + bb1;
         const long off = (row0 + row) * C + col;
+        if (drop.on) {
+          y0 = drop.apply(y0, (uint32_t)(row0 + row), col);
+          y1 = drop.apply(y1, (uint32_t)(row0 + row), col + 1);
+        }
+        if (gamma != nullptr) {
+          y0 = __fmul_rn(y0, gamma[col]);
+          y1 = __fmul_rn(y1, gamma[col + 1]);
+        }
         if (use_residual) {
           const float2 r2 = __bfloat1622float2(
               *reinterpret_cast<const __nv_bfloat162*>(x + off));

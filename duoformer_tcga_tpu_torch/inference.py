@@ -40,7 +40,9 @@ class Predictor:
     def __init__(self, model, device=None, dtype=torch.bfloat16,
                  fold: bool = True, preprocess: bool = True,
                  quantize: bool = False):
-        """model: the port's DuoFormer; the Predictor takes it over (puts
+        """model: the port's DuoFormer or DuoFormerLegacy (whose logits
+        are squeezed, quirk Q13, and whose embedding is the post-norm CLS
+        its head reads); the Predictor takes it over (puts
         it in eval mode, folds its BNs, quantizes, moves and casts it in
         place). device: None -> the card (raises without one); "cpu" on
         request. preprocess: accept raw uint8 NHWC tiles and normalise on
@@ -158,10 +160,10 @@ def from_serving_artifact(model, path: str, device=None,
     params, meta = load_serving_artifact(path)
     recorded = meta.get("model", {})
     for k in ARTIFACT_MODEL_FIELDS:
-        if k in recorded and model.config[k] != recorded[k]:
+        if k in recorded and model.config.get(k) != recorded[k]:
             raise ValueError(
                 f"artifact was exported with model.{k}={recorded[k]} but "
-                f"the model has {model.config[k]}")
+                f"the model has {model.config.get(k)}")
     load_jax_params(model, params)
     if is_quantized(model) != bool(meta.get("quantized", False)):
         raise ValueError(f"artifact meta says quantized="

@@ -26,7 +26,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 KERNELS = ("fused_attention_residual", "fused_attention_residual_bwd",
            "fused_mlp_residual", "mlp_dz", "fused_attention_residual_int8",
-           "fused_mlp_residual_int8")
+           "fused_mlp_residual_int8", "drop_ew")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

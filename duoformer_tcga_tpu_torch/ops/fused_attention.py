@@ -1,6 +1,8 @@
 """The port's fused transformer kernels, their plain PyTorch versions,
 their launch counts and the autograd functions built on them (counterpart
-of duoformer_tcga_tpu/ops/pallas_attention.py, inert forms).
+of duoformer_tcga_tpu/ops/pallas_attention.py, inert forms; the reg forms'
+flags are keyword arguments of the same wrappers, whose autograd functions
+and the drop_ew kernel are in ops/fused_reg.py).
 
   fused_attention_residual: y = [x +] proj(block-diag attn(qkv([LN] x)))
     kernel: csrc/fused_attention_residual.cu
@@ -30,6 +32,13 @@ as in the JAX package) and float32 vectors (LayerNorm scale/bias, biases),
 the types the JAX path feeds its kernels. The plain versions round where
 the TPU kernels round (each function's docstring and kernel source say
 where).
+
+The reg forms (pallas_attention.py:1119-1281, 1894-1946) are the same
+kernels with runtime flags: gamma (LayerScale, float32 [C]) and an int32
+dropout seed with its rates. Their masks are ops/dropout.py's, which the
+kernels compute with the same hash (csrc/dropout_hash.cuh); a wrapper
+given gamma or a dropout rate counts its launch under the form's "_reg"
+name.
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ import ctypes
 import torch
 
 from . import _build
+from . import dropout as dr
 from .nn import layernorm
 
 # Launches of each kernel form since the last reset_launch_counts(); a
@@ -62,10 +72,13 @@ def reset_launch_counts():
 def fused_attention_residual_plain(x, ln_scale, ln_bias, wqkv, bqkv, wproj,
                                    bproj, num_heads, seg_len, scale,
                                    ln_eps=1e-6, use_ln=True,
-                                   use_residual=True):
+                                   use_residual=True, gamma=None, seed=0,
+                                   attn_drop=0.0, proj_drop=0.0):
     """Plain twin of the attention kernel (pallas_attention.py:311-439 /
-    _fused_block_xla): x [n_seg, seg_len, C]; attention only within each
-    segment."""
+    _fused_block_xla, with the reg flags _fused_block_reg_xla :1156-1197):
+    x [n_seg, seg_len, C]; attention only within each segment. Dropout of
+    the float32 probabilities before their cast, of proj + bias, then
+    times gamma, then the residual."""
     n_seg, S, C = x.shape
     if S != seg_len:
         raise ValueError(f"x has {S} tokens per segment, seg_len={seg_len}")
@@ -75,10 +88,19 @@ def fused_attention_residual_plain(x, ln_scale, ln_bias, wqkv, bqkv, wproj,
     qkv = (torch.matmul(ln.float(), wqkv.float()) + bqkv.float()).to(dt)
     q, k, v = qkv.view(n_seg, S, 3, num_heads, D).permute(2, 0, 3, 1, 4)
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    p = torch.softmax(s, dim=-1).to(dt)
-    o = torch.matmul(p.float(), v.float()).to(dt)          # [n, H, S, D]
+    p = torch.softmax(s, dim=-1)
+    if attn_drop > 0.0:
+        p = dr.drop(p, dr.attn_keep_masks(n_seg, S, num_heads, seed,
+                                          attn_drop, x.device), attn_drop)
+    o = torch.matmul(p.to(dt).float(), v.float()).to(dt)   # [n, H, S, D]
     attn = o.permute(0, 2, 1, 3).reshape(n_seg, S, C)
     y = torch.matmul(attn.float(), wproj.float()) + bproj.float()
+    if proj_drop > 0.0:
+        y = dr.drop(y, dr.row_keep_mask(n_seg * S, C, seed, dr._SITE_PROJ,
+                                        proj_drop, x.device).view(y.shape),
+                    proj_drop)
+    if gamma is not None:
+        y = y * gamma.float()
     if use_residual:
         y = y + x.float()
     return y.to(dt)
@@ -86,16 +108,30 @@ def fused_attention_residual_plain(x, ln_scale, ln_bias, wqkv, bqkv, wproj,
 
 def fused_mlp_residual_plain(x, ln_scale, ln_bias, w1, b1, w2, b2,
                              ln_eps=1e-6, use_residual=True,
-                             return_hidden=False):
-    """Plain twin of the MLP kernel (pallas_attention.py:1306-1396):
-    exact-erf GELU in float32 from the unrounded z, hidden rounded to x's
-    dtype. return_hidden=True also returns z = fc1 + b1 [rows, hidden]
-    rounded to x's dtype (_fused_mlp_kernel_z)."""
+                             return_hidden=False, gamma=None, seed=0,
+                             drop=0.0):
+    """Plain twin of the MLP kernel (pallas_attention.py:1306-1396, with
+    the reg flags _fused_mlp_reg_xla :1903-1936): exact-erf GELU in
+    float32 from the unrounded z, dropped (site 2, global flat rows), the
+    hidden rounded to x's dtype; fc2 + b2 dropped (site 3), times gamma,
+    then the residual. return_hidden=True also returns z = fc1 + b1 [rows,
+    hidden] rounded to x's dtype, before any dropout
+    (_fused_mlp_kernel_z)."""
     dt = x.dtype
     ln = layernorm(x, ln_scale, ln_bias, ln_eps)
     z = torch.matmul(ln.float(), w1.float()) + b1.float()
-    h = torch.nn.functional.gelu(z, approximate="none").to(dt)
-    y = torch.matmul(h.float(), w2.float()) + b2.float()
+    h = torch.nn.functional.gelu(z, approximate="none")
+    C, hidden = x.shape[-1], z.shape[-1]
+    rows = x.numel() // C if C else 0
+    if drop > 0.0:
+        h = dr.drop(h, dr.row_keep_mask(rows, hidden, seed, dr._SITE_MLP_HID,
+                                        drop, x.device).view(h.shape), drop)
+    y = torch.matmul(h.to(dt).float(), w2.float()) + b2.float()
+    if drop > 0.0:
+        y = dr.drop(y, dr.row_keep_mask(rows, C, seed, dr._SITE_MLP_OUT, drop,
+                                        x.device).view(y.shape), drop)
+    if gamma is not None:
+        y = y * gamma.float()
     if use_residual:
         y = y + x.float()
     if return_hidden:
@@ -127,14 +163,22 @@ def ln_bwd_f32(dln, ln_scale, xhat, inv):
 def fused_attention_residual_bwd_plain(x, g, ln_scale, ln_bias, wqkv, bqkv,
                                        wproj, num_heads, seg_len, scale,
                                        ln_eps=1e-6, use_ln=True,
-                                       use_residual=True):
+                                       use_residual=True, gamma=None, seed=0,
+                                       attn_drop=0.0, proj_drop=0.0):
     """Plain twin of the attention backward kernel
     (_fused_block_bwd_kernel, dw=False, pallas_attention.py:723-918). x, g
     [n_seg, seg_len, C] -> (dx [n_seg, seg_len, C], ln [rows, C], attn
     [rows, C], dqkv [rows, 3C], dlns, dlnb, dbqkv, dbproj); the bare form's
     ln is x itself and its dlns, dlnb are zeros. Rounds where the kernel
     does: ln, qkv, p for P.V and dv, o, each head's dattn, ds * scale, dq,
-    dk, dv; p stays float32 in ds, dln float32, dx rounded once."""
+    dk, dv; p stays float32 in ds, dln float32, dx rounded once.
+
+    Reg flags (:809-905): geff = bf16(bf16(g * proj mask / keep) * gamma)
+    feeds dattn; p for P.V and dv is dropped with the forward's mask, dp
+    is dropped and rescaled, the Jacobian takes the undropped p; dbproj
+    sums the float32 proj-masked g without gamma; the residual adds raw
+    g. With proj_drop > 0 a ninth output gm = bf16(g * proj mask / keep)
+    [rows, C]."""
     n_seg, S, C = x.shape
     if S != seg_len:
         raise ValueError(f"x has {S} tokens per segment, seg_len={seg_len}")
@@ -143,6 +187,14 @@ def fused_attention_residual_bwd_plain(x, g, ln_scale, ln_bias, wqkv, bqkv,
     D = C // H
     rows = n_seg * S
     x2, g2 = x.reshape(rows, C), g.reshape(rows, C)
+    gsum = g2.float()
+    geff = g2
+    if proj_drop > 0.0:
+        gsum = dr.drop(gsum, dr.row_keep_mask(rows, C, seed, dr._SITE_PROJ,
+                                              proj_drop, x.device), proj_drop)
+        geff = gm = gsum.to(dt)
+    if gamma is not None:
+        geff = (geff.float() * gamma.float()).to(dt)
     if use_ln:
         lnf, xhat, inv = ln_fwd_f32(x2.float(), ln_scale, ln_bias, ln_eps)
         ln = lnf.to(dt)
@@ -152,12 +204,18 @@ def fused_attention_residual_bwd_plain(x, g, ln_scale, ln_bias, wqkv, bqkv,
     q, k, v = (t.float() for t in
                qkv.view(n_seg, S, 3, H, D).permute(2, 0, 3, 1, 4))
     p = torch.softmax(torch.matmul(q, k.transpose(-1, -2)) * scale, dim=-1)
-    pb = p.to(dt).float()
+    if attn_drop > 0.0:
+        km = dr.attn_keep_masks(n_seg, S, H, seed, attn_drop, x.device)
+        pb = dr.drop(p, km, attn_drop).to(dt).float()
+    else:
+        pb = p.to(dt).float()
     attn = torch.matmul(pb, v).to(dt).permute(0, 2, 1, 3).reshape(rows, C)
-    dattn = torch.matmul(g2.float(), wproj.float().t()).to(dt)
+    dattn = torch.matmul(geff.float(), wproj.float().t()).to(dt)
     do = dattn.float().view(n_seg, S, H, D).permute(0, 2, 1, 3)
     dv = torch.matmul(pb.transpose(-1, -2), do)
     dp = torch.matmul(do, v.transpose(-1, -2))
+    if attn_drop > 0.0:
+        dp = dr.drop(dp, km, attn_drop)
     ds = p * (dp - (dp * p).sum(-1, keepdim=True))
     ds = (ds * scale).to(dt).float()
     dq = torch.matmul(ds, k)
@@ -172,8 +230,9 @@ def fused_attention_residual_bwd_plain(x, g, ln_scale, ln_bias, wqkv, bqkv,
         dlns = dlnb = torch.zeros(C, dtype=torch.float32, device=x.device)
     if use_residual:
         dxf = dxf + g2.float()
-    return (dxf.to(dt).view(n_seg, S, C), ln, attn, dqkv, dlns, dlnb,
-            dqkv.float().sum(0), g2.float().sum(0))
+    out = (dxf.to(dt).view(n_seg, S, C), ln, attn, dqkv, dlns, dlnb,
+           dqkv.float().sum(0), gsum.sum(0))
+    return out + (gm,) if proj_drop > 0.0 else out
 
 
 _SQRT1_2 = 0.7071067811865476
@@ -228,18 +287,44 @@ def _check_width(C, what):
              f"got {C}")
 
 
+def int32_seed(seed) -> int:
+    """A dropout seed as the kernels' signed 32-bit argument (the same
+    32-bit word the plain versions hash)."""
+    v = int(seed) & 0xFFFFFFFF
+    return v - (1 << 32) if v >= (1 << 31) else v
+
+
+def drop_args(rate):
+    """(keep threshold, keep scale) of a dropout site for a kernel call:
+    (-1, 1.0) switches the site off (rate 0)."""
+    if rate <= 0.0:
+        return -1, 1.0
+    _require(rate < 1.0, f"dropout rate {rate} must be below 1")
+    return dr.keep_threshold(rate), dr.keep_scale(rate)
+
+
+def _reg_name(name, gamma, *rates):
+    return name + "_reg" if gamma is not None or any(
+        r > 0.0 for r in rates) else name
+
+
 def fused_attention_residual(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
                              num_heads, seg_len, scale, ln_eps=1e-6,
-                             use_ln=True, use_residual=True):
+                             use_ln=True, use_residual=True, gamma=None,
+                             seed=0, attn_drop=0.0, proj_drop=0.0):
     """y = [x +] proj(block_diag_attn(qkv([LN](x)))); x [n_seg, seg_len, C].
 
     The JAX signature (pallas_attention.py:1053). use_ln=use_residual=False
     is the bare form the patch blocks run. On the card: bf16 x and
-    weights, float32 vectors, head width 64, seg_len <= 64."""
+    weights, float32 vectors, head width 64, seg_len <= 64. gamma, seed,
+    attn_drop, proj_drop: the reg form's LayerScale and dropout
+    (fused_attention_residual_reg, pallas_attention.py:1202)."""
+    reg = dict(gamma=gamma, seed=seed, attn_drop=attn_drop,
+               proj_drop=proj_drop)
     if x.device.type == "cpu":
         return fused_attention_residual_plain(
             x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, num_heads,
-            seg_len, scale, ln_eps, use_ln, use_residual)
+            seg_len, scale, ln_eps, use_ln, use_residual, **reg)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     _require(x.dim() == 3, f"x must be [n_seg, seg_len, C], got "
@@ -261,35 +346,46 @@ def fused_attention_residual(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
     _check_tensor("bqkv", bqkv, dev, f32, (3 * C,))
     _check_tensor("wproj", wproj, dev, bf16, (C, C))
     _check_tensor("bproj", bproj, dev, f32, (C,))
+    if gamma is not None:
+        _check_tensor("gamma", gamma, dev, f32, (C,))
+    a_thr, a_scale = drop_args(attn_drop)
+    p_thr, p_scale = drop_args(proj_drop)
     out = torch.empty_like(x)
     if n_seg == 0:
         return out
     lib = _build.load_library("fused_attention_residual")
     fn = lib.launch_fused_attention_residual
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + \
-        [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] + \
+        [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
+                              ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         status = fn(_ptr(x), _ptr(ln_scale), _ptr(ln_bias), _ptr(wqkv),
                     _ptr(bqkv), _ptr(wproj), _ptr(bproj), _ptr(out),
                     n_seg, S, C, num_heads, float(scale), float(ln_eps),
-                    int(bool(use_ln)), int(bool(use_residual)), _stream(dev))
+                    int(bool(use_ln)), int(bool(use_residual)),
+                    None if gamma is None else _ptr(gamma), int32_seed(seed),
+                    a_thr, a_scale, p_thr, p_scale, _stream(dev))
     _build.check(lib, status, "fused_attention_residual")
-    launch_counts["fused_attention_residual" if use_ln
-                  else "fused_attention_residual_bare"] += 1
+    name = _reg_name("fused_attention_residual", gamma, attn_drop, proj_drop)
+    launch_counts[name if use_ln else name + "_bare"] += 1
     return out
 
 
 def fused_mlp_residual(x, ln_scale, ln_bias, w1, b1, w2, b2, ln_eps=1e-6,
-                       use_residual=True, return_hidden=False):
+                       use_residual=True, return_hidden=False, gamma=None,
+                       seed=0, drop=0.0):
     """y = [x +] fc2(gelu(fc1(LN(x)))); x [..., C]. The JAX signature
     (pallas_attention.py:1696). return_hidden=True -> (y, z), z the
     pre-GELU hidden [rows, hidden] (the z form, _fused_mlp_kernel_z). On
     the card: bf16 x and weights, float32 vectors, hidden a multiple of
-    128."""
+    128. gamma, seed, drop: the reg form's LayerScale and dropout of the
+    hidden and the output (fused_mlp_residual_reg, :1940)."""
     if x.device.type == "cpu":
         return fused_mlp_residual_plain(x, ln_scale, ln_bias, w1, b1, w2, b2,
-                                        ln_eps, use_residual, return_hidden)
+                                        ln_eps, use_residual, return_hidden,
+                                        gamma, seed, drop)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     C = x.shape[-1]
@@ -306,6 +402,9 @@ def fused_mlp_residual(x, ln_scale, ln_bias, w1, b1, w2, b2, ln_eps=1e-6,
     _check_tensor("b1", b1, dev, f32, (hidden,))
     _check_tensor("w2", w2, dev, bf16, (hidden, C))
     _check_tensor("b2", b2, dev, f32, (C,))
+    if gamma is not None:
+        _check_tensor("gamma", gamma, dev, f32, (C,))
+    d_thr, d_scale = drop_args(drop)
     out = torch.empty_like(x)
     z = (torch.empty(rows, hidden, dtype=bf16, device=dev) if return_hidden
          else None)
@@ -314,14 +413,18 @@ def fused_mlp_residual(x, ln_scale, ln_bias, w1, b1, w2, b2, ln_eps=1e-6,
     lib = _build.load_library("fused_mlp_residual")
     fn = lib.launch_fused_mlp_residual
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + \
-        [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        [ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+         ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         status = fn(_ptr(x), _ptr(ln_scale), _ptr(ln_bias), _ptr(w1),
                     _ptr(b1), _ptr(w2), _ptr(b2), _ptr(out),
                     _ptr(z) if return_hidden else None, rows, C, hidden,
-                    float(ln_eps), int(bool(use_residual)), _stream(dev))
-    name = "fused_mlp_residual_z" if return_hidden else "fused_mlp_residual"
+                    float(ln_eps), int(bool(use_residual)),
+                    None if gamma is None else _ptr(gamma), int32_seed(seed),
+                    d_thr, d_scale, _stream(dev))
+    name = _reg_name("fused_mlp_residual", gamma, drop)
+    name += "_z" if return_hidden else ""
     _build.check(lib, status, name)
     launch_counts[name] += 1
     return (out, z) if return_hidden else out
@@ -329,16 +432,22 @@ def fused_mlp_residual(x, ln_scale, ln_bias, w1, b1, w2, b2, ln_eps=1e-6,
 
 def fused_attention_residual_bwd(x, g, ln_scale, ln_bias, wqkv, bqkv, wproj,
                                  num_heads, seg_len, scale, ln_eps=1e-6,
-                                 use_ln=True, use_residual=True):
+                                 use_ln=True, use_residual=True, gamma=None,
+                                 seed=0, attn_drop=0.0, proj_drop=0.0):
     """The attention branch's backward without the weight gradients
     (_fused_block_bwd_impl, dw=False, pallas_attention.py:921-1049): x, g
     [n_seg, seg_len, C] -> (dx, ln [rows, C], attn [rows, C], dqkv
     [rows, 3C], dlns, dlnb, dbqkv, dbproj). The bare form's ln is x
-    itself. On the card: as fused_attention_residual, g bf16 like x."""
+    itself. On the card: as fused_attention_residual, g bf16 like x.
+    gamma, seed, attn_drop, proj_drop: the reg form, as the forward took
+    them; with proj_drop > 0 a ninth output gm [rows, C] (the proj-masked
+    g) and dbproj sums it (float32, without gamma)."""
+    reg = dict(gamma=gamma, seed=seed, attn_drop=attn_drop,
+               proj_drop=proj_drop)
     if x.device.type == "cpu":
         return fused_attention_residual_bwd_plain(
             x, g, ln_scale, ln_bias, wqkv, bqkv, wproj, num_heads, seg_len,
-            scale, ln_eps, use_ln, use_residual)
+            scale, ln_eps, use_ln, use_residual, **reg)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     _require(x.dim() == 3, f"x must be [n_seg, seg_len, C], got "
@@ -360,6 +469,10 @@ def fused_attention_residual_bwd(x, g, ln_scale, ln_bias, wqkv, bqkv, wproj,
     _check_tensor("wqkv", wqkv, dev, bf16, (C, 3 * C))
     _check_tensor("bqkv", bqkv, dev, f32, (3 * C,))
     _check_tensor("wproj", wproj, dev, bf16, (C, C))
+    if gamma is not None:
+        _check_tensor("gamma", gamma, dev, f32, (C,))
+    a_thr, a_scale = drop_args(attn_drop)
+    p_thr, p_scale = drop_args(proj_drop)
     rows = n_seg * S
     dx = torch.empty_like(x)
     ln = (torch.empty(rows, C, dtype=bf16, device=dev) if use_ln
@@ -369,6 +482,12 @@ def fused_attention_residual_bwd(x, g, ln_scale, ln_bias, wqkv, bqkv, wproj,
     sums = torch.zeros(6 * C, dtype=f32, device=dev)
     out = (dx, ln, attn, dqkv, sums[:C], sums[C:2 * C], sums[2 * C:5 * C],
            sums[5 * C:])
+    gm = (torch.empty(rows, C, dtype=bf16, device=dev) if proj_drop > 0.0
+          else None)
+    geff = (torch.empty(rows, C, dtype=bf16, device=dev)
+            if gamma is not None or proj_drop > 0.0 else None)
+    if gm is not None:
+        out = out + (gm,)
     if n_seg == 0:
         return out
     lib = _build.load_library("fused_attention_residual_bwd")
@@ -378,7 +497,9 @@ def fused_attention_residual_bwd(x, g, ln_scale, ln_bias, wqkv, bqkv, wproj,
                        device=dev)
     fn = lib.launch_fused_attention_residual_bwd
     fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + \
-        [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3 + \
+        [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
+                              ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         status = fn(_ptr(x), _ptr(g), _ptr(ln_scale), _ptr(ln_bias),
@@ -386,10 +507,15 @@ def fused_attention_residual_bwd(x, g, ln_scale, ln_bias, wqkv, bqkv, wproj,
                     _ptr(ln) if use_ln else None, _ptr(attn), _ptr(dqkv),
                     _ptr(sums), _ptr(part), n_seg, S, C, num_heads,
                     float(scale), float(ln_eps), int(bool(use_ln)),
-                    int(bool(use_residual)), _stream(dev))
+                    int(bool(use_residual)),
+                    None if gamma is None else _ptr(gamma),
+                    None if geff is None else _ptr(geff),
+                    None if gm is None else _ptr(gm), int32_seed(seed),
+                    a_thr, a_scale, p_thr, p_scale, _stream(dev))
     _build.check(lib, status, "fused_attention_residual_bwd")
-    launch_counts["fused_attention_residual_bwd" if use_ln
-                  else "fused_attention_residual_bwd_bare"] += 1
+    name = _reg_name("fused_attention_residual_bwd", gamma, attn_drop,
+                     proj_drop)
+    launch_counts[name if use_ln else name + "_bare"] += 1
     return out
 
 

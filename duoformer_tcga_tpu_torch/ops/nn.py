@@ -82,6 +82,15 @@ def batchnorm(x, scale, bias, mean, var, eps=1e-5):
                         bias.float(), training=False, momentum=0.0, eps=eps)
 
 
+def batchnorm_batch_stats(x, scale, bias, eps=1e-5):
+    """Training BatchNorm over dim 1 of an NCHW tensor: the batch's mean
+    and biased variance (float32), differentiable through both, and no
+    running statistics updated (nn.py:153-170 with train=True, stats
+    None)."""
+    return F.batch_norm(x, None, None, scale.float(), bias.float(),
+                        training=True, momentum=0.0, eps=eps)
+
+
 def fold_batchnorm(scale, bias, mean, var, eps=1e-5):
     """Inference BN -> per-channel float32 (scale, bias) for `affine`."""
     s = scale.float() * torch.rsqrt(var.float() + eps)
@@ -153,7 +162,8 @@ class LayerNorm(nn.Module):
 class Conv2d(nn.Module):
     """Conv with an OIHW weight `w` (initialised HWIO as the JAX package
     does, then transposed). scheme: 'kaiming' (fan_in, bias normal 1e-6),
-    'kaiming_fan_out' (torchvision ResNet, no bias)."""
+    'kaiming_fan_out' (torchvision ResNet, no bias), 'torch' (the
+    nn.Conv2d default: weight and bias uniform in 1/sqrt(fan_in))."""
 
     def __init__(self, kh, kw, cin, cout, bias=True, scheme="kaiming",
                  generator=None):
@@ -163,11 +173,18 @@ class Conv2d(nn.Module):
             w = init.kaiming_normal_conv(shape, generator)
         elif scheme == "kaiming_fan_out":
             w = init.kaiming_normal_conv_fan_out(shape, generator)
+        elif scheme == "torch":
+            w = init.uniform(shape, (kh * kw * cin) ** -0.5, generator)
         else:
             raise ValueError(f"unknown conv init scheme: {scheme}")
         self.w = nn.Parameter(w.permute(3, 2, 0, 1).contiguous())
-        self.b = (nn.Parameter(init.normal((cout,), 1e-6, generator))
-                  if bias else None)
+        if not bias:
+            self.b = None
+        elif scheme == "torch":
+            self.b = nn.Parameter(init.torch_default_bias(
+                (cout,), kh * kw * cin, generator))
+        else:
+            self.b = nn.Parameter(init.normal((cout,), 1e-6, generator))
 
     def forward(self, x, stride=1, padding="SAME"):
         return conv2d(x, self.w.to(x.dtype), self.b, stride, padding)
@@ -190,10 +207,13 @@ def cast_weights_(module, dtype):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm; fold() turns it into the bare float32 affine
-    the serving path runs (exact under eval-mode BN). A folded BN keeps
-    mean 0 and variance 1 as non-persistent buffers (and AFFINE_EPS), so
-    both states take the same one-pass batch-norm call."""
+    """BatchNorm; fold() turns it into the bare float32 affine the serving
+    path runs (exact under eval-mode BN). A folded BN keeps mean 0 and
+    variance 1 as non-persistent buffers (and AFFINE_EPS), so both states
+    take the same one-pass batch-norm call. In training mode an unfolded
+    BN normalises with the batch's statistics and leaves the running ones
+    as they are (the channel token's fusers, projection.py:119-126); the
+    frozen backbone's BNs stay in eval mode."""
 
     def __init__(self, ch, eps=1e-5):
         super().__init__()
@@ -218,5 +238,7 @@ class BatchNorm(nn.Module):
         self.folded = True
 
     def forward(self, x):
+        if self.training and not self.folded:
+            return batchnorm_batch_stats(x, self.scale, self.bias, self.eps)
         return batchnorm(x, self.scale, self.bias, self.mean, self.var,
                          AFFINE_EPS if self.folded else self.eps)

@@ -14,8 +14,15 @@ entropy (config.py:94-103, bench.py:177-227):
     step = make_train_step(model)                         # bf16 compute
     state, metrics = step(state, {"image": tiles, "label": labels})
 
-Each step is one forward, the loss, one backward through the fused
-kernels' autograd functions, one optimizer step and one schedule step.
+The legacy recipe is the same with build_model() (LayerScale, attention
+dropout 0.1, dropout 0.1; its channel fusers train, their BNs on batch
+statistics). Each step is one forward, the loss, one backward through the
+fused kernels' autograd functions, one optimizer step and one schedule
+step. A model with dropout takes its int32 seeds from a torch.Generator
+the step owns (`dropout_seed`), drawn on the CPU and handed to the kernels
+as arguments, one per dropout call in the order of
+models/transformer.py's docstring; `step(state, batch, seeds=...)` hands
+in given ones instead.
 The schedules are the optax formulas the JAX package uses (not
 torch.optim.lr_scheduler.OneCycleLR, which differs by up to 2%), applied
 through a LambdaLR on a base rate of 1. Options of the JAX step this slice
@@ -30,6 +37,7 @@ import torch
 from torch import nn
 
 from .data import pipeline as data_lib
+from .models.duoformer import draw_seeds
 from .ops.nn import cast_weights_
 
 
@@ -96,8 +104,9 @@ def make_schedule(kind, peak_lr, total_steps):
 
 def backbone_frozen_labels(model: nn.Module) -> dict:
     """{parameter name: "train" | "frozen"}: the backbone is frozen (every
-    release preset). BN running means and variances are buffers in the
-    port, never parameters, so no optimizer sees them."""
+    preset, both families; train.py:156-158). BN running means and
+    variances are buffers in the port, never parameters, so no optimizer
+    sees them; the channel fusers' convs and BN scales train."""
     return {name: "frozen" if name.startswith("backbone.") else "train"
             for name, _ in model.named_parameters()}
 
@@ -168,10 +177,14 @@ def init_train_state(model, optimizer) -> dict:
 def make_train_step(model, dtype=torch.bfloat16, label_smoothing=0.0,
                     class_weights=None, accum_steps=1, augment="none",
                     jitter=0.0, mixup=0.0, ema=0.0, bn_stats=False,
-                    mesh=None, pp_microbatches=None, remat=False):
-    """-> step(state, batch) -> (state, {"loss", "accuracy"}); batch is
-    {"image": [B, 224, 224, 3] uint8 tiles (normalised on the device) or
-    an already normalised float batch, "label": [B] int}.
+                    mesh=None, pp_microbatches=None, remat=False,
+                    dropout_seed=0):
+    """-> step(state, batch, seeds=None) -> (state, {"loss", "accuracy"});
+    batch is {"image": [B, 224, 224, 3] uint8 tiles (normalised on the
+    device) or an already normalised float batch, "label": [B] int}.
+    A model with dropout draws each step's seeds from
+    torch.Generator().manual_seed(dropout_seed), owned by the step, unless
+    `seeds` are given.
 
     Prepares the model in place: training mode, and with a frozen backbone
     its weights cast once to `dtype` (the JAX step's per-step astype of
@@ -194,14 +207,18 @@ def make_train_step(model, dtype=torch.bfloat16, label_smoothing=0.0,
     weights = (None if class_weights is None else
                torch.as_tensor(class_weights, dtype=torch.float32,
                                device=device))
+    tf = model.transformer
+    gen = torch.Generator().manual_seed(dropout_seed)
 
-    def step(state, batch):
+    def step(state, batch, seeds=None):
         x = torch.as_tensor(batch["image"]).to(device, non_blocking=True)
         x = (data_lib.preprocess_tiles(x, dtype=dtype)
              if x.dtype == torch.uint8 else x.to(dtype))
         labels = torch.as_tensor(batch["label"]).to(device).long()
         state["optimizer"].zero_grad(set_to_none=True)
-        logits = state["model"](x)
+        if seeds is None and tf.has_dropout:
+            seeds = draw_seeds(tf.num_seeds(), gen)
+        logits = state["model"](x, seeds=seeds)
         loss = cross_entropy(logits, labels, label_smoothing, weights)
         loss.backward()
         apply_update(state)

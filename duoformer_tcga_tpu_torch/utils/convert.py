@@ -5,15 +5,19 @@ duoformer_tcga_tpu/utils/torch_convert.py).
 The tree is the JAX package's nested dict/list of arrays, handed over as
 numpy arrays. The port's module and parameter names are the tree's keys,
 so the walk is by name; what changes is layout:
-  * depth-stacked `scale_blocks` / `patch_blocks` leaves [depth, ...] are
-    split over the ModuleList's blocks;
+  * depth-stacked `scale_blocks` / `patch_blocks` (the release family) and
+    `blocks` (the legacy family) leaves [depth, ...] are split over the
+    ModuleList's blocks; lists (the channel fuser's `fuse`) stay lists;
   * conv weights HWIO become OIHW;
   * linear weights stay (in, out), the layout the port keeps;
   * int8 weights w_q of a quantized tree (ops/quantize.py) become
     QuantLinear's (out, in) and stay int8; a quantized tree quantizes the
     model's structure first;
   * BN comes either unfolded (scale/bias/mean/var) or folded (scale/bias,
-    fold_for_inference): a folded tree folds the port's BNs first.
+    fold_for_inference): a folded tree folds the port's BNs first (the
+    backbone's and the channel fuser's).
+LayerScale (`ls1`, `ls2` {gamma}) and the legacy blocks' carried q/k norms
+(`attn2.q_norm`, `attn2.k_norm`) load and export by name like the rest.
 Every tensor of the model must be loaded, and every leaf of the tree must
 land somewhere: anything else raises.
 """
@@ -26,16 +30,16 @@ from torch import nn
 
 from ..ops.nn import BatchNorm, Conv2d
 from ..ops.quantize import QuantLinear, is_quantized, quantize_model_
-from ..models.resnet import fold_bn
+from ..models.duoformer import fold_for_inference
 
 
 def _is_folded(tree) -> bool:
-    return "mean" not in tree["backbone"]["bn1"]
+    return "backbone" in tree and "mean" not in tree["backbone"]["bn1"]
 
 
 def _is_quantized(tree) -> bool:
-    qkv = tree["transformer"]["scale_blocks"]["attn"]["qkv"]
-    return "w_q" in qkv
+    blocks = tree.get("transformer", tree).get("scale_blocks", {})
+    return "w_q" in blocks.get("attn", {}).get("qkv", {})
 
 
 def _copy(mod, name, arr, path, loaded):
@@ -98,9 +102,9 @@ def _index(tree, i, depth, path):
 
 def load_jax_params(model, tree):
     """Copy a JAX DuoFormer param tree (numpy leaves) into `model` in
-    place and return it."""
+    place and return it; a transformer core's tree loads into the core."""
     if _is_folded(tree):
-        fold_bn(model.backbone)
+        fold_for_inference(model)
     elif any(m.folded for m in model.modules() if isinstance(m, BatchNorm)):
         raise ValueError("the tree has unfolded BN but the model is folded")
     if _is_quantized(tree):
@@ -117,7 +121,8 @@ def load_jax_params(model, tree):
     return model
 
 
-STACKED = ("scale_blocks", "patch_blocks")   # depth-stacked in the JAX tree
+# depth-stacked in the JAX tree
+STACKED = ("scale_blocks", "patch_blocks", "blocks")
 
 
 def _jax_layout(node, lists, prefix=""):

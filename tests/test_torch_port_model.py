@@ -164,10 +164,12 @@ def test_parameter_count_matches_jax(pair):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(scale_token="channel"), dict(attn_drop_rate=0.1),
+    dict(num_layers=4), dict(attn_drop_rate=0.1),
     dict(backbone="r18"), dict(num_layers=3), dict(remat=True),
 ])
 def test_unported_options_raise(kwargs):
+    """(The channel scale token, once refused here, is held to the JAX
+    package in tests/test_torch_port_reg.py.)"""
     with pytest.raises(NotImplementedError):
         port.build_model_no_extra_params(
             **{**CFG, **kwargs, "device": "cpu"})

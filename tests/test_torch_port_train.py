@@ -276,10 +276,13 @@ def test_unported_train_options_raise(small_model, option):
         ttrain.make_train_step(small_model, **option)
 
 
-@pytest.mark.parametrize("kwargs", [dict(freeze_backbone=False),
-                                    dict(proj_drop_rate=0.1)])
+@pytest.mark.parametrize("kwargs", [
+    dict(freeze_backbone=False),
+    dict(freeze_backbone=False, proj_drop_rate=0.1)])
 def test_unported_training_modes_raise(kwargs):
-    """Batch-stat BN (an unfrozen backbone) and dropout do not train."""
+    """Batch-stat BN (an unfrozen backbone) does not train, with dropout
+    or without. (Dropout, once refused here, trains through the reg
+    kernels: tests/test_torch_port_reg.py holds it to the JAX package.)"""
     model = port.DuoFormer(**{**CFG, **kwargs}).train()
     with pytest.raises(NotImplementedError):
         model(torch.zeros(1, 224, 224, 3))
