@@ -40,6 +40,9 @@ MLP8 = f"{PKG}/csrc/fused_mlp_residual_int8.cu"
 TILE = f"{PKG}/csrc/tile_ops.cuh"
 HASH = f"{PKG}/csrc/dropout_hash.cuh"
 EW = f"{PKG}/csrc/drop_ew.cu"
+MLPB = f"{PKG}/csrc/fused_mlp_bwd.cu"
+LN = f"{PKG}/csrc/layernorm.cu"
+BDA = f"{PKG}/csrc/block_diag_attention.cu"
 PARALLEL = 8
 
 # name: (file, text, replacement, the kernel form whose cases must fail
@@ -142,6 +145,33 @@ FAULTS = {
         EW, "const float dd = keep ? d[e] * drop.scale : 0.f;",
         "const float dd = keep ? __bfloat162float(__float2bfloat16(d[e])) "
         "* drop.scale : 0.f;", "drop_ew_dz"),
+    "one hidden chunk left out of dln (MLP backward)": (
+        MLPB, "          mma16816(acc[m][2 * k], a, b[0], b[1]);\n"
+              "          mma16816(acc[m][2 * k + 1], a, b[2], b[3]);",
+        "          if (chunk != 1) {\n"
+        "          mma16816(acc[m][2 * k], a, b[0], b[1]);\n"
+        "          mma16816(acc[m][2 * k + 1], a, b[2], b[3]);\n"
+        "          }", "fused_mlp_bwd"),
+    "z phi(z) dropped from gelu' (MLP backward)": (
+        MLPB, "(phi + z * (INV_SQRT_2PI * expf(-0.5f * z * z)))", "phi",
+        "fused_mlp_bwd"),
+    "dwA against g where gm is due (dw form)": (
+        BWD, "        if (pdrop.on) {                    "
+             "// gacc = bf16(g * mask / keep)",
+        "        if (false) {", "fused_attention_residual_bwd_reg_dw"),
+    "ragged last row tile left out of dwqkv (dw form)": (
+        BWD, "    if (dw)\n      for (int mt = warp; mt < C / 16; "
+             "mt += WARPS) {",
+        "    if (dw && !(R < RT && blockIdx.x + 1 == gridDim.x))\n"
+        "      for (int mt = warp; mt < C / 16; mt += WARPS) {",
+        "fused_attention_residual_bwd_dw"),
+    "bias left out (LayerNorm)": (
+        LN, "(v[2 * i] - mean) * inv * lns[c + 2 * i] + lnb[c + 2 * i],",
+        "(v[2 * i] - mean) * inv * lns[c + 2 * i],", "fused_layernorm"),
+    "score mask spans two segments (block_diag_attention)": (
+        BDA, "in[u] = live && c >= c0 && c < c0 + S;",
+        "in[u] = live && c >= c0 - S && c < c0 + S;",
+        "block_diag_attention"),
 }
 
 CHILD = """

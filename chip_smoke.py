@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-1. Builds the seven CUDA kernel sources from the checkout (one nvcc each,
+1. Builds the ten CUDA kernel sources from the checkout (one nvcc each,
    started together) and prints each kernel's register and spill report.
 2. Holds every kernel form against its plain PyTorch version on the card:
    the serving forms at the serving path's shapes (C=768, 12 heads, B=64),
@@ -12,8 +12,12 @@
    forms (attention full and bare, MLP) at the serving shapes, the reg
    forms (dropout 0.1 from one seed, gamma 0.5 + U(0, 1)) at the legacy
    training step's shapes and with gamma alone at the serving shapes,
-   drop_ew in its three modes, the bare forms also at B=256, and each at
-   one small odd shape: kernel in bf16,
+   drop_ew in its three modes, the bare forms also at B=256, the
+   memory-lean step's forms at its shapes (B=128: the recompute-from-x MLP
+   backward, the attention backward's dw form inert, bare and reg, the
+   LayerNorm on the CLS, also at [18816, 768]), the block-diagonal
+   attention op at S=6 (3136 segments) and S=50 (64), and each at one
+   small odd shape: kernel in bf16,
    plain version on the same inputs upcast to float32 (the int8 forms'
    plain versions take the same bf16 x and int8 weights, so both round at
    the same points, with the int8 products exact). Every output of a case
@@ -40,7 +44,14 @@
    bound by its bytes). drop_ew is also held to a bf16 mismatch fraction
    of at most 1e-3 against its plain version (one float32 formula on both
    sides), and gm on a tensor of ones to none at all: the kernel's masks
-   are the plain version's bit for bit.
+   are the plain version's bit for bit. The dw form's dwqkv and dwA are
+   also held within 1e-2 relative L2 of the dw=False kernel's row-space
+   outputs multiplied by torch.matmul, and, summed with atomics in an
+   order that varies, a second launch's within the bars of the first
+   (every other output bit for bit). Yardsticks of the new forms:
+   autograd through F.layer_norm, F.linear, F.gelu, F.linear (the MLP
+   backward); the dw=False kernel plus its two torch.matmul products (the
+   dw form); F.layer_norm; SDPA with the segments as the batch.
 3. Serves the release DuoFormer at full width (768/12/12, depth 12, 2
    scales, bf16, random weights from a fixed seed) through
    build_model_no_extra_params -> Predictor: 3 batches of 64 uint8 tiles.
@@ -93,6 +104,20 @@
    CPU in float32 within 0.05 relative L2; over 3 steps a finite loss,
    every trainable tensor moved, backbone and BN statistics unchanged;
    tiles/s, split, peak memory and profile as in 4).
+7. Runs after 6: the memory-lean training step (make_train_step(
+   mlp_save_hidden=False, attn_bwd_dw=True) on a model built with
+   fused_ln=True) at full width and B=128, for the release DuoFormer with
+   apply_fc_norm=True and for the legacy DuoFormer. Each: the gradients of
+   one backward on 2 tiles against the port's CPU float32 run on the same
+   routes (release 0.05; legacy 0.05 from the same tokens and 0.1 end to
+   end, as phase 6) and against the default routes on the card (same
+   state, batch and seeds; 0.05); one counted step with exactly the
+   launches of LEAN_RELEASE_TRAIN / LEAN_LEGACY_TRAIN and no other form;
+   over 3 steps a finite loss, every trainable tensor moved, the backbone
+   bit-identical; tiles/s, split, peak memory and profile as in 4. Then
+   the block_diag_attention op forward and backward at S=6 and S=50,
+   counted (2 launches). Every kernel form must have launched on some
+   path.
 Prints the card's name and power limit, one JSON line {"kernels": [...]},
 and as its last line {"ok": true, "device": {...}}. Exits non-zero, with
 no result line, when there is no CUDA device, when the port is not beside
@@ -157,6 +182,17 @@ SOURCES = {
     "drop_ew_hd": CSRC + "drop_ew.cu",
     "drop_ew_dz": CSRC + "drop_ew.cu",
     "drop_ew_gm": CSRC + "drop_ew.cu",
+    "fused_mlp_bwd": CSRC + "fused_mlp_bwd.cu",
+    "fused_attention_residual_bwd_dw":
+        CSRC + "fused_attention_residual_bwd.cu",
+    "fused_attention_residual_bwd_dw_bare":
+        CSRC + "fused_attention_residual_bwd.cu",
+    "fused_attention_residual_bwd_reg_dw":
+        CSRC + "fused_attention_residual_bwd.cu",
+    "fused_attention_residual_bwd_reg_dw_bare":
+        CSRC + "fused_attention_residual_bwd.cu",
+    "fused_layernorm": CSRC + "layernorm.cu",
+    "block_diag_attention": CSRC + "block_diag_attention.cu",
 }
 REPLACES = {
     "fused_attention_residual": PALLAS + "311",
@@ -178,6 +214,13 @@ REPLACES = {
     "drop_ew_hd": PALLAS + "1949",
     "drop_ew_dz": PALLAS + "1949",
     "drop_ew_gm": PALLAS + "1949",
+    "fused_mlp_bwd": PALLAS + "1597",
+    "fused_attention_residual_bwd_dw": PALLAS + "723",
+    "fused_attention_residual_bwd_dw_bare": PALLAS + "723",
+    "fused_attention_residual_bwd_reg_dw": PALLAS + "723",
+    "fused_attention_residual_bwd_reg_dw_bare": PALLAS + "723",
+    "fused_layernorm": "duoformer_tcga_tpu/ops/pallas_norm.py:47",
+    "block_diag_attention": PALLAS + "175",
 }
 SERVING_FORMS = ("fused_attention_residual", "fused_attention_residual_bare",
                  "fused_mlp_residual")
@@ -199,6 +242,25 @@ LEGACY_TRAIN = {"fused_attention_residual_reg": 12,
                 "fused_attention_residual_bwd_reg": 12,
                 "fused_attention_residual_bwd_reg_bare": 2,
                 "drop_ew_hd": 12, "drop_ew_dz": 12, "drop_ew_gm": 12}
+# launches per memory-lean training step (phase 7): release and legacy;
+# every other form none
+LEAN_RELEASE_TRAIN = {"fused_attention_residual": 12,
+                      "fused_attention_residual_bare": 12,
+                      "fused_mlp_residual": 12, "fused_layernorm": 1,
+                      "fused_mlp_bwd": 12,
+                      "fused_attention_residual_bwd_dw": 12,
+                      "fused_attention_residual_bwd_dw_bare": 12}
+LEAN_LEGACY_TRAIN = {"fused_attention_residual_reg": 12,
+                     "fused_mlp_residual_reg": 12,
+                     "fused_attention_residual_reg_bare": 2,
+                     "fused_layernorm": 1,
+                     "fused_attention_residual_bwd_reg_dw": 12,
+                     "fused_attention_residual_bwd_reg_dw_bare": 2,
+                     "drop_ew_hd": 12, "drop_ew_dz": 12, "drop_ew_gm": 12}
+# the lean routes' gradients against the default routes' on the card, same
+# state, batch and seeds: both bf16, rounded at other points (h from the
+# float32 z, the weight gradients' sums in the kernel)
+LEAN_ROUTE_TOL = GRAD_REL_TOL
 # the serving-shape cases of the legacy forward's forms, with launches
 LEGACY_SERVING_CASES = (
     ("fused_attention_residual_reg gamma alone n_seg=3136 (serving)", 12),
@@ -636,6 +698,207 @@ def drop_ew_case(torch, F, fa, gen, rows, cols, mode, timed, ones=False):
     return res
 
 
+def mlp_bwd_case(torch, F, fa, gen, rows, c, hidden, timed):
+    """The recompute-from-x MLP backward kernel: dx less the residual g,
+    ln, h, dz and the column sums dlns, dlnb."""
+    dev, bf16 = "cuda", torch.bfloat16
+
+    def rnd(*shape, std=1.0, mean=0.0):
+        return torch.randn(*shape, generator=gen) * std + mean
+
+    x = rnd(rows, c).to(dev, bf16)
+    g = rnd(rows, c).to(dev, bf16)
+    lns, lnb = rnd(c, std=0.1, mean=1.0).cuda(), rnd(c, std=0.1).cuda()
+    w1 = rnd(c, hidden, std=c ** -0.5).to(dev, bf16)
+    b1 = rnd(hidden, std=0.01).cuda()
+    w2 = rnd(hidden, c, std=hidden ** -0.5).to(dev, bf16)
+
+    def kernel():
+        return fa.fused_mlp_bwd(x, g, lns, lnb, w1, b1, w2)
+
+    f32 = [t.float() for t in (x, g, w1, w2)]
+
+    def plain():
+        return fa.fused_mlp_bwd_plain(f32[0], f32[1], lns, lnb, f32[2], b1,
+                                      f32[3])
+
+    out, ref = kernel(), plain()
+    names = ("dx", "ln", "h", "dz", "dlns", "dlnb")
+    pairs = {k: (o, r, None) if o.dim() > 1 else (o, r, None, rows)
+             for k, o, r in zip(names, out, ref)}
+    pairs["dx"] = (out[0], ref[0], g)
+    res = compare_all(torch, pairs)
+    if not timed:
+        return res
+    b2 = torch.zeros(c, device=dev, dtype=bf16)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (
+        x, lns.to(bf16), lnb.to(bf16), w1.t().contiguous(), b1.to(bf16),
+        w2.t().contiguous(), b2)]
+
+    def library():
+        xx, ls, lb, ww1, bb1, ww2, bb2 = leaves
+        y = F.linear(F.gelu(F.linear(F.layer_norm(xx, (c,), ls, lb, 1e-6),
+                                     ww1, bb1)), ww2, bb2) + xx
+        return torch.autograd.grad(y, leaves, g)
+
+    flops = 6 * rows * c * hidden
+    nbytes = (2 * (4 * rows * c + 2 * rows * hidden + 2 * c * hidden)
+              + 4 * (4 * c + hidden))
+    bound_ms, bound_by = bound(flops, nbytes)
+    res.update(ms=median_ms(kernel, torch), plain_ms=median_ms(plain, torch),
+               library_ms=median_ms(library, torch), bound_ms=bound_ms,
+               bound_by=bound_by, flops=flops, bytes=nbytes)
+    return res
+
+
+def attention_bwd_dw_case(torch, F, fa, gen, n_seg, S, c, heads, bare,
+                          timed, reg=None):
+    """The attention backward kernel's dw form: dx (less the residual g),
+    the column sums, dwqkv and dwA against the plain version; dwqkv and
+    dwA also against the dw=False kernel's row-space outputs multiplied
+    with torch.matmul (relative L2 <= BRANCH_REL_TOL); and a second launch
+    on the same inputs: dwqkv and dwA (float32 atomic sums in another
+    order) within the bars of the first, every other output bit for
+    bit."""
+    dev, bf16 = "cuda", torch.bfloat16
+
+    def rnd(*shape, std=1.0, mean=0.0):
+        return torch.randn(*shape, generator=gen) * std + mean
+
+    x = rnd(n_seg, S, c).to(dev, bf16)
+    g = rnd(n_seg, S, c).to(dev, bf16)
+    if bare:
+        lns = torch.zeros(c, device=dev)
+        lnb = torch.zeros(c, device=dev)
+    else:
+        lns, lnb = rnd(c, std=0.1, mean=1.0).cuda(), rnd(c, std=0.1).cuda()
+    wqkv = rnd(c, 3 * c, std=QKV_STD * c ** -0.5).to(dev, bf16)
+    bqkv = rnd(3 * c, std=0.01).cuda()
+    wproj = rnd(c, c, std=c ** -0.5).to(dev, bf16)
+    scale = (c // heads) ** -0.5
+    flags = dict(use_ln=not bare, use_residual=not bare,
+                 **reg_flags(torch, gen, c, reg))
+    args = (x, g, lns, lnb, wqkv, bqkv, wproj, heads, S, scale)
+
+    def kernel():
+        return fa.fused_attention_residual_bwd(*args, dw=True, **flags)
+
+    f32 = [t.float() for t in (x, g, wqkv, wproj)]
+
+    def plain():
+        return fa.fused_attention_residual_bwd_plain(
+            f32[0], f32[1], lns, lnb, f32[2], bqkv, f32[3], heads, S, scale,
+            dw=True, **flags)
+
+    out, ref = kernel(), plain()
+    rows = n_seg * S
+    names = ("dx", "dlns", "dlnb", "dbqkv", "dbproj", "dwqkv", "dwA")
+    pairs = {k: (o, r, None, rows) for k, o, r in zip(names, out, ref)
+             if not (bare and k in ("dlns", "dlnb"))}
+    pairs["dx"] = (out[0], ref[0], None if bare else g)
+    res = compare_all(torch, pairs, scale=reg_scale(flags))
+    # the dw=False route's weight gradients, float32 sums of its bf16
+    # row-space outputs
+    rs = fa.fused_attention_residual_bwd(*args, **flags)
+    gacc = rs[8] if flags.get("proj_drop", 0.0) > 0.0 else g.view(rows, c)
+    route = (fa._mm_f32(rs[1].t(), rs[3]), fa._mm_f32(rs[2].t(), gacc))
+    vs = [rel_err(a, b) for a, b in zip(out[5:], route)]
+    again = kernel()
+    same = all(torch.equal(a, b) for a, b in zip(again[:5], out[:5]))
+    rerun = compare_all(torch, {k: (a, b.float(), None, rows) for k, a, b in
+                                zip(("dwqkv", "dwA"), again[5:], out[5:])})
+    res.update(vs_dw_false=max(vs), rerun_rel_err=rerun["rel_err"],
+               rerun_bit_identical=all(torch.equal(a, b) for a, b in
+                                       zip(again, out)),
+               ok=res["ok"] and max(vs) <= BRANCH_REL_TOL and same
+               and rerun["ok"])
+    if not timed:
+        return res
+    p_drop = flags.get("proj_drop", 0.0)
+
+    def library():
+        r = fa.fused_attention_residual_bwd(*args, **flags)
+        ga = r[8] if p_drop > 0.0 else g.view(rows, c)
+        return (torch.matmul(r[1].t(), r[3]), torch.matmul(r[2].t(), ga))
+
+    flops = 2 * rows * c * 7 * c + 12 * n_seg * S * S * c + 8 * rows * c * c
+    nbytes = (2 * (3 * rows * c + 4 * c * c)
+              + 4 * (2 * c + 3 * c + 6 * c + 4 * c * c
+                     + (c if reg is not None else 0)))
+    bound_ms, bound_by = bound(flops, nbytes)
+    res.update(ms=median_ms(kernel, torch), plain_ms=median_ms(plain, torch),
+               library_ms=median_ms(library, torch), bound_ms=bound_ms,
+               bound_by=bound_by, flops=flops, bytes=nbytes)
+    return res
+
+
+def layernorm_case(torch, F, fa, gen, rows, c, timed):
+    """The LayerNorm kernel (through ops.nn.fused_layernorm) against its
+    plain version."""
+    from duoformer_tcga_tpu_torch.ops import nn as tnn
+    dev, bf16 = "cuda", torch.bfloat16
+    x = (torch.randn(rows, c, generator=gen) * 2.0 + 0.5).to(dev, bf16)
+    scale = (torch.randn(c, generator=gen) * 0.1 + 1.0).cuda()
+    bias = (torch.randn(c, generator=gen) * 0.1).cuda()
+
+    def kernel():
+        return tnn.fused_layernorm(x, scale, bias)
+
+    xf = x.float()
+
+    def plain():
+        return tnn.fused_layernorm_plain(xf, scale, bias)
+
+    res = compare(torch, kernel(), plain(), None)
+    if not timed:
+        return res
+    scale_b, bias_b = scale.to(bf16), bias.to(bf16)
+
+    def library():
+        return F.layer_norm(x, (c,), scale_b, bias_b, 1e-6)
+
+    nbytes = 2 * 2 * rows * c + 4 * 2 * c
+    bound_ms, bound_by = bound(0, nbytes)
+    res.update(ms=median_ms(kernel, torch), plain_ms=median_ms(plain, torch),
+               library_ms=median_ms(library, torch), bound_ms=bound_ms,
+               bound_by=bound_by, flops=0, bytes=nbytes)
+    return res
+
+
+def block_attention_case(torch, F, fa, gen, n_seg, S, c, heads, timed):
+    """The block-diagonal attention kernel against its plain version; q, k,
+    v drawn so that the scores spread about 2 units."""
+    dev, bf16 = "cuda", torch.bfloat16
+    qkv = (torch.randn(n_seg, S, 3 * c, generator=gen) * 1.5).to(dev, bf16)
+    scale = (c // heads) ** -0.5
+
+    def kernel():
+        return fa.block_diag_attention_fwd(qkv, heads, S, scale)
+
+    qf = qkv.float()
+
+    def plain():
+        return fa.block_diag_attention_plain(qf, heads, S, scale)
+
+    res = compare(torch, kernel(), plain(), None)
+    if not timed:
+        return res
+    D = c // heads
+
+    def library():
+        q, k, v = qkv.view(n_seg, S, 3, heads, D).permute(2, 0, 3, 1, 4)
+        o = F.scaled_dot_product_attention(q, k, v, scale=scale)
+        return o.transpose(1, 2).reshape(n_seg, S, c)
+
+    flops = 4 * n_seg * S * S * c
+    nbytes = 2 * (n_seg * S * 3 * c + n_seg * S * c)
+    bound_ms, bound_by = bound(flops, nbytes)
+    res.update(ms=median_ms(kernel, torch), plain_ms=median_ms(plain, torch),
+               library_ms=median_ms(library, torch), bound_ms=bound_ms,
+               bound_by=bound_by, flops=flops, bytes=nbytes)
+    return res
+
+
 def _int8_weight(torch, w):
     """float32 (in, out) -> (int8 [out, in], scale [out]) on the card, by
     the port's quantize_weight."""
@@ -775,6 +1038,10 @@ def _case_specs(torch, F, fa, timed):
     bwd_r = part(bwd, reg=both)
     bwd_rb = part(bwd, reg=dict(gamma=False, attn_drop=DROP))
     ew = drop_ew_case
+    mlpb, dw, ln, bda = (mlp_bwd_case, attention_bwd_dw_case, layernorm_case,
+                         block_attention_case)
+    dw_r = part(dw, reg=both)
+    dw_rb = part(dw, reg=dict(gamma=False, attn_drop=DROP))
     specs = [
         # the serving path's forms (B=64)
         ("fused_attention_residual", B * 49, 6, C, HEADS, False, att, timed),
@@ -823,7 +1090,7 @@ def _case_specs(torch, F, fa, timed):
          att_r, timed),
         ("fused_attention_residual_reg_bare", B_TRAIN, 50, C, HEADS, True,
          att_rb, timed),
-        ("fused_mlp_residual_reg", rows_s, C, HIDDEN, mlp_r, timed),
+        ("fused_mlp_residual_reg", rows_t, C, HIDDEN, mlp_r, timed),
         ("fused_mlp_residual_reg_z", rows_t, C, HIDDEN, mlp_rz, timed),
         ("fused_attention_residual_bwd_reg", B_TRAIN * 49, 6, C, HEADS,
          False, bwd_r, timed),
@@ -862,6 +1129,34 @@ def _case_specs(torch, F, fa, timed):
         ("fused_attention_residual_bwd_reg_bare n_seg=3 S=50 C=256 H=4", 3,
          50, 256, 4, True, bwd_rb, False),
         ("drop_ew_dz rows=222 cols=1024", 222, 1024, "dz", ew, False),
+        # the memory-lean step's forms (B=128; LayerNorm on its CLS), the
+        # block-diagonal attention op, then other shapes
+        ("fused_mlp_bwd", rows_t, C, HIDDEN, mlpb, timed),
+        ("fused_attention_residual_bwd_dw", B_TRAIN * 49, 6, C, HEADS, False,
+         dw, timed),
+        ("fused_attention_residual_bwd_dw_bare", B_TRAIN, 50, C, HEADS, True,
+         dw, timed),
+        ("fused_attention_residual_bwd_reg_dw", B_TRAIN * 49, 6, C, HEADS,
+         False, dw_r, timed),
+        ("fused_attention_residual_bwd_reg_dw_bare", B_TRAIN, 50, C, HEADS,
+         True, dw_rb, timed),
+        ("fused_layernorm", B_TRAIN, C, ln, timed),
+        ("block_diag_attention", B * 49, 6, C, HEADS, bda, timed),
+        ("fused_layernorm rows=18816 C=768", rows_s, C, ln, timed),
+        ("block_diag_attention n_seg=64 S=50", B, 50, C, HEADS, bda, timed),
+        ("fused_mlp_bwd rows=222 C=256 hidden=1024", 222, 256, 1024, mlpb,
+         False),
+        ("fused_attention_residual_bwd_dw n_seg=13 S=6 C=256 H=4", 13, 6,
+         256, 4, False, dw, False),
+        ("fused_attention_residual_bwd_reg_dw n_seg=13 S=6 C=256 H=4", 13, 6,
+         256, 4, False, dw_r, False),
+        ("fused_attention_residual_bwd_reg_dw_bare n_seg=3 S=50 C=256 H=4",
+         3, 50, 256, 4, True, dw_rb, False),
+        ("fused_layernorm rows=37 C=256", 37, 256, ln, False),
+        ("block_diag_attention n_seg=13 S=6 C=256 H=4", 13, 6, 256, 4, bda,
+         False),
+        ("block_diag_attention n_seg=3 S=50 C=256 H=4", 3, 50, 256, 4, bda,
+         False),
     ]
     out = []
     for label, *args in specs:
@@ -1185,13 +1480,88 @@ def check_launches(failures, what, launches, want, names):
                             f"{name}, expected {want.get(name, 0)}")
 
 
+def legacy_grad_names(model, trainable):
+    """The legacy tensors whose card-vs-CPU gradients are compared: every
+    tensor of blocks 0 and depth-1, the head, the norm, the tokens and
+    position embeddings, the projection convs. Left out: the carried q/k
+    norms (no forward applies them, Q9) and the channel fusers (plain
+    torch convs and batch-stat BNs, no kernel of the port: at random init
+    the token's gradient hardly depends on the tile, so the BN backward's
+    mean subtraction cancels it to a remainder bf16 cannot resolve; the
+    CPU tests hold the fusers to JAX in float32)."""
+    last = len(model.transformer.blocks) - 1
+    keep = [f"transformer.blocks.{i}." for i in (0, last)] + [
+        "transformer.head.", "transformer.norm.", "transformer.pos_embed",
+        "transformer.cls_token", "projection."]
+    return [n for n in trainable if any(n.startswith(k) for k in keep)
+            and "_norm." not in n]
+
+
+def two_tile_grads(torch, m, names, image, seeds, device, dtype,
+                   tokens=None):
+    """Gradients of one backward of `m` on 2 tiles, both of label 0 (at
+    random init the CLS hardly depends on the tile, so with opposite
+    labels the gradients all but cancel) -> ({name: gradient}, the
+    tokens); given tokens, the transformer's gradients from them (of the
+    names under "transformer.")."""
+    from duoformer_tcga_tpu_torch import train as train_lib
+    from duoformer_tcga_tpu_torch.data import pipeline as data_lib
+    x = data_lib.preprocess_tiles(torch.as_tensor(image).to(device),
+                                  dtype=dtype)
+    labels = torch.zeros(len(image), dtype=torch.long).to(device)
+    params = dict(m.named_parameters())
+    wrt = (names if tokens is None
+           else [n for n in names if n.startswith("transformer.")])
+    if tokens is None:
+        tokens = m.tokens(m.features(x))
+    loss = train_lib.cross_entropy(m.transformer(tokens, seeds=seeds),
+                                   labels)
+    return (dict(zip(wrt, torch.autograd.grad(
+        loss, [params[n] for n in wrt]))), tokens.detach())
+
+
+def three_steps(torch, fa, failures, what, model, state, step, batches,
+                trainable, before, want, cases, dead=()):
+    """One step counted (every form of `cases` launched exactly
+    want.get(form, 0) times), then two more: finite losses, every trainable
+    tensor changed but a `dead` one (a name containing one of them) that
+    the loss does not reach and stays 0, every backbone tensor and BN
+    statistic unchanged. -> the counted step's launches."""
+    fa.reset_launch_counts()
+    state, m = step(state, batches[0])
+    torch.cuda.synchronize()
+    launches = dict(fa.launch_counts)
+    losses = [float(m["loss"])]
+    for b in batches[1:]:
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+    log(f"{what}: one step at B={B_TRAIN}, launches {launches}; losses of 3 "
+        f"steps {losses}")
+    check_launches(failures, f"{what} step", launches, want, cases)
+    if not all(np.isfinite(losses)):
+        failures.append(f"{what} losses {losses}")
+    after = model.state_dict()
+    same = [n for n in trainable if not (any(d in n for d in dead)
+                                         and not before[n].any())
+            and torch.equal(after[n], before[n])]
+    moved = [n for n in before if (n.startswith("backbone.") or n.endswith(
+        (".mean", ".var"))) and not torch.equal(after[n], before[n])]
+    log(f"{what}: {len(trainable)} trainable tensors, unchanged after 3 "
+        f"steps: {same}; backbone tensors and BN statistics changed: "
+        f"{moved}")
+    if same:
+        failures.append(f"{what}: trainable tensors unchanged: {same[:5]}")
+    if moved:
+        failures.append(f"{what}: frozen tensors changed: {moved[:5]}")
+    return launches
+
+
 def legacy_phase(torch, port, fa, failures, card, cases, others):
     """Phase 6: the legacy DuoFormer (build_model: channel token,
     LayerScale 1e-5, attention dropout 0.1, dropout 0.1) at full width,
     served at B=64 and trained at B=128. -> the launch counts of 3
     forwards and of one step."""
     from duoformer_tcga_tpu_torch import train as train_lib
-    from duoformer_tcga_tpu_torch.data import pipeline as data_lib
     from duoformer_tcga_tpu_torch.inference import Predictor
     from duoformer_tcga_tpu_torch.models.duoformer import draw_seeds
 
@@ -1263,45 +1633,19 @@ def legacy_phase(torch, port, fa, failures, card, cases, others):
     # through the transformer, the path of the kernels, at GRAD_REL_TOL;
     # and end to end from the tiles, where the bf16 pyramid's tokens (1%
     # off) move these gradients further (the MLP's fc1 and norm2 most;
-    # printed beside the first), at LEGACY_E2E_GRAD_TOL. Left out: the
-    # carried q/k norms (no forward applies them, Q9) and the channel
-    # fusers (plain torch convs and batch-stat BNs, no kernel of the
-    # port: at random init the token's gradient hardly depends on the
-    # tile, so the BN backward's mean subtraction cancels it to a
-    # remainder bf16 cannot resolve; the CPU tests hold the fusers to JAX
-    # in float32).
+    # printed beside the first), at LEGACY_E2E_GRAD_TOL
     cpu_model, _, _ = setup("cpu", torch.float32)
-    last = len(model.transformer.blocks) - 1
-    keep = [f"transformer.blocks.{i}." for i in (0, last)] + [
-        "transformer.head.", "transformer.norm.", "transformer.pos_embed",
-        "transformer.cls_token", "projection."]
-    names = [n for n in trainable if any(n.startswith(k) for k in keep)
-             and "_norm." not in n]
-    tf_names = [n for n in names if n.startswith("transformer.")]
+    names = legacy_grad_names(model, trainable)
     seeds = draw_seeds(model.transformer.num_seeds(),
                        torch.Generator().manual_seed(SEED))
-
-    def grads(m, device, dtype, tokens=None):
-        """-> (gradients of `names`, the tokens); given tokens, the
-        transformer's gradients from them."""
-        x = data_lib.preprocess_tiles(
-            torch.as_tensor(batches[0]["image"][:2]).to(device), dtype=dtype)
-        labels = torch.zeros(2, dtype=torch.long).to(device)
-        params = dict(m.named_parameters())
-        wrt = names if tokens is None else tf_names
-        if tokens is None:
-            tokens = m.tokens(m.features(x))
-        loss = train_lib.cross_entropy(m.transformer(tokens, seeds=seeds),
-                                       labels)
-        return (dict(zip(wrt, torch.autograd.grad(
-            loss, [params[n] for n in wrt]))), tokens.detach())
-
-    g_card, card_tokens = grads(model, "cuda", torch.bfloat16)
-    cpu_e2e, cpu_tokens = grads(cpu_model, "cpu", torch.float32)
-    cpu_same, _ = grads(cpu_model, "cpu", torch.float32,
-                        card_tokens.float().cpu())
+    grads = functools.partial(two_tile_grads, torch, names=names,
+                              image=batches[0]["image"][:2], seeds=seeds)
+    g_card, card_tokens = grads(model, device="cuda", dtype=torch.bfloat16)
+    cpu_e2e, cpu_tokens = grads(cpu_model, device="cpu", dtype=torch.float32)
+    cpu_same, _ = grads(cpu_model, device="cpu", dtype=torch.float32,
+                        tokens=card_tokens.float().cpu())
     del cpu_model
-    errs = {n: rel_err(g_card[n], cpu_same[n]) for n in tf_names}
+    errs = {n: rel_err(g_card[n], e) for n, e in cpu_same.items()}
     e2e = {n: rel_err(g_card[n], cpu_e2e[n]) for n in names}
     log(f"legacy train: set up and gradients on 2 tiles, same seeds "
         f"({time.perf_counter() - t0:.1f} s); tokens card vs CPU rel L2 "
@@ -1315,41 +1659,152 @@ def legacy_phase(torch, port, fa, failures, card, cases, others):
     failures += [f"legacy gradient of {n} (end to end): rel err {e:.3e}"
                  for n, e in e2e.items() if not e <= LEGACY_E2E_GRAD_TOL]
 
-    fa.reset_launch_counts()
-    state, m = step(state, batches[0])
-    torch.cuda.synchronize()
-    train_launches = dict(fa.launch_counts)
-    losses = [float(m["loss"])]
-    for b in batches[1:]:
-        state, m = step(state, b)
-        losses.append(float(m["loss"]))
-    log(f"legacy train: one step at B={B_TRAIN}, launches {train_launches}; "
-        f"losses of 3 steps {losses}")
-    check_launches(failures, "legacy train step", train_launches,
-                   LEGACY_TRAIN, cases)
-    if not all(np.isfinite(losses)):
-        failures.append(f"legacy train losses {losses}")
-    after = model.state_dict()
     # parameters the loss does not reach get a zero gradient and Adam's L2
     # term moves only those that are not 0: the carried q/k norms (Q9) and
     # attn2 of blocks 1..depth-2 (Q4: the region pass uses block 0's and
     # block depth-1's) keep their zero biases
-    dead = ("_norm.",) + tuple(f".blocks.{i}.attn2." for i in range(1, last))
-    same = [n for n in trainable if not (any(d in n for d in dead)
-                                         and not before[n].any())
-            and torch.equal(after[n], before[n])]
-    moved = [n for n in before if (n.startswith("backbone.") or n.endswith(
-        (".mean", ".var"))) and not torch.equal(after[n], before[n])]
-    log(f"legacy train: {len(trainable)} trainable tensors, unchanged after "
-        f"3 steps: {same}; backbone tensors and BN statistics changed: "
-        f"{moved}")
-    if same:
-        failures.append(f"legacy trainable tensors unchanged: {same[:5]}")
-    if moved:
-        failures.append(f"legacy frozen tensors changed: {moved[:5]}")
+    train_launches = three_steps(
+        torch, fa, failures, "legacy train", model, state, step, batches,
+        trainable, before, LEGACY_TRAIN, cases, legacy_dead(model))
     del before
     time_step(torch, model, state, step, batches, card, "legacy train")
     return serve_launches, train_launches
+
+
+def legacy_dead(model):
+    """The legacy parameters no loss reaches: the carried q/k norms (Q9)
+    and attn2 of blocks 1..depth-2 (Q4)."""
+    return ("_norm.",) + tuple(f".blocks.{i}.attn2." for i in
+                               range(1, len(model.transformer.blocks) - 1))
+
+
+def lean_phase(torch, port, fa, failures, card, cases):
+    """Phase 7: the memory-lean training step (make_train_step(
+    mlp_save_hidden=False, attn_bwd_dw=True), fused_ln=True) at full width
+    and B=128, release (apply_fc_norm=True) then legacy. -> {path: the
+    launch counts of one counted step}."""
+    from duoformer_tcga_tpu_torch import train as train_lib
+    from duoformer_tcga_tpu_torch.models.duoformer import draw_seeds
+    lean = dict(mlp_save_hidden=False, attn_bwd_dw=True)
+    out = {}
+    for family in ("release", "legacy"):
+        legacy = family == "legacy"
+
+        def setup(device, dtype):
+            if legacy:
+                model = port.build_model(
+                    depth=12, embed_dim=C, num_heads=HEADS, proj_dim=C,
+                    num_classes=2, fused_ln=True, device=device, seed=SEED)
+            else:
+                model = port.build_model_no_extra_params(
+                    num_layers=2, embed_dim=C, proj_dim=C, num_heads=HEADS,
+                    depth=12, apply_fc_norm=True, fused_ln=True,
+                    device=device, seed=SEED)
+            opt = train_lib.make_optimizer(
+                model, train_lib.onecycle_schedule(1e-4, 1000),
+                weight_decay=1e-4,
+                frozen_label_fn=train_lib.backbone_frozen_labels)
+            state = train_lib.init_train_state(model, opt)
+            return model, state, train_lib.make_train_step(model, dtype=dtype,
+                                                           **lean)
+
+        what = f"{family} lean train"
+        t0 = time.perf_counter()
+        model, state, step = setup("cuda", torch.bfloat16)
+        tf = model.transformer
+        trainable = {n for n, p in model.named_parameters() if p.requires_grad}
+        before = {n: t.detach().clone() for n, t in model.state_dict().items()}
+        rng = np.random.default_rng(SEED + 5 + int(legacy))
+        batches = [{"image": rng.integers(0, 256, (B_TRAIN, 224, 224, 3),
+                                          dtype=np.uint8),
+                    "label": rng.integers(0, 2, (B_TRAIN,))}
+                   for _ in range(3)]
+
+        # gradients of one backward on 2 tiles (the same seeds): card bf16
+        # against the port's CPU float32 run on the same routes, at phase
+        # 4's bar (release) or phase 6's (legacy: from the card's tokens,
+        # and end to end); and against the default routes on the card,
+        # same state and batch
+        cpu_model, _, _ = setup("cpu", torch.float32)
+        names = (legacy_grad_names(model, trainable) if legacy else
+                 grad_check_names(model) + ["transformer.fc_norm.scale",
+                                            "transformer.fc_norm.bias"])
+        seeds = (draw_seeds(tf.num_seeds(), torch.Generator().manual_seed(
+            SEED)) if tf.has_dropout else None)
+        grads = functools.partial(two_tile_grads, torch, names=names,
+                                  image=batches[0]["image"][:2], seeds=seeds)
+        g_card, card_tokens = grads(model, device="cuda",
+                                    dtype=torch.bfloat16)
+        cpu_e2e, _ = grads(cpu_model, device="cpu", dtype=torch.float32)
+        e2e = {n: rel_err(g_card[n], cpu_e2e[n]) for n in names}
+        e2e_tol = LEGACY_E2E_GRAD_TOL if legacy else GRAD_REL_TOL
+        same = {}
+        if legacy:
+            cpu_same, _ = grads(cpu_model, device="cpu", dtype=torch.float32,
+                                tokens=card_tokens.float().cpu())
+            same = {n: rel_err(g_card[n], e) for n, e in cpu_same.items()}
+        del cpu_model
+        train_lib.set_backward_routes(model)
+        g_default, _ = grads(model, device="cuda", dtype=torch.bfloat16)
+        train_lib.set_backward_routes(model, **lean)
+        route = {n: rel_err(g_card[n], g_default[n]) for n in names}
+        del g_default
+        log(f"{what}: set up and gradients on 2 tiles "
+            f"({time.perf_counter() - t0:.1f} s); rel L2 err card bf16 vs "
+            f"CPU float32 (" + (f"from the same tokens, tolerance "
+                                f"{GRAD_REL_TOL} | " if legacy else "") +
+            f"end to end, tolerance {e2e_tol}) || lean vs default routes on "
+            f"the card (tolerance {LEAN_ROUTE_TOL}):")
+        for n in names:
+            log(f"  {n}: " + (f"{same.get(n, float('nan')):.3e} | "
+                              if legacy else "")
+                + f"{e2e[n]:.3e} || {route[n]:.3e}")
+        failures += [f"{what} gradient of {n} (same tokens): {e:.3e}"
+                     for n, e in same.items() if not e <= GRAD_REL_TOL]
+        failures += [f"{what} gradient of {n} (end to end): {e:.3e}"
+                     for n, e in e2e.items() if not e <= e2e_tol]
+        failures += [f"{what} gradient of {n} (vs default routes): {e:.3e}"
+                     for n, e in route.items() if not e <= LEAN_ROUTE_TOL]
+
+        out[f"{what} (1 step)"] = three_steps(
+            torch, fa, failures, what, model, state, step, batches,
+            trainable, before,
+            LEAN_LEGACY_TRAIN if legacy else LEAN_RELEASE_TRAIN, cases,
+            legacy_dead(model) if legacy else ())
+        del before
+        time_step(torch, model, state, step, batches, card, what)
+        del model, state, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def block_attention_op_path(torch, fa, failures):
+    """The block_diag_attention op through its entry point: forward and
+    backward at the checked shapes (S=6 over 3136 segments, S=50 over 64),
+    counted. -> the launch counts."""
+    gen = torch.Generator().manual_seed(SEED + 7)
+    fa.reset_launch_counts()
+    res = []
+    for n_seg, S in ((B * 49, 6), (B, 50)):
+        qkv = (torch.randn(n_seg, S, 3 * C, generator=gen) * 1.5).to(
+            "cuda", torch.bfloat16).requires_grad_(True)
+        out = fa.block_diag_attention(qkv, HEADS, S, (C // HEADS) ** -0.5)
+        out.float().square().sum().backward()
+        ref = fa.block_diag_attention_plain(qkv.detach().float(), HEADS, S,
+                                            (C // HEADS) ** -0.5)
+        err = rel_err(out.detach(), ref)
+        ok = (tuple(out.shape) == (n_seg, S, C) and err <= BRANCH_REL_TOL
+              and bool(torch.isfinite(qkv.grad).all()))
+        res.append(f"S={S}: rel L2 err {err:.3e}, grad finite {ok}")
+        if not ok:
+            failures.append(f"block_diag_attention op at S={S}: {res[-1]}")
+    torch.cuda.synchronize()
+    launches = dict(fa.launch_counts)
+    log(f"block_diag_attention op: forward and backward at S=6 and S=50: "
+        f"{'; '.join(res)}; launches {launches}")
+    check_launches(failures, "block_diag_attention op", launches,
+                   {"block_diag_attention": 2}, ["block_diag_attention"])
+    return launches
 
 
 def main() -> int:
@@ -1479,12 +1934,22 @@ def main() -> int:
     # ---- 6. the legacy family: serving and training ----
     legacy_serve, legacy_train = legacy_phase(torch, port, fa, failures,
                                               card, cases, others)
+    torch.cuda.empty_cache()
+
+    # ---- 7. the memory-lean training steps; the block-diagonal op ----
+    lean_launches = lean_phase(torch, port, fa, failures, card, cases)
+    op_launches = block_attention_op_path(torch, fa, failures)
 
     paths = {f"serve ({len(batches)} forwards)": launches,
              "train (1 step)": train_launches,
              f"serve int8 ({len(batches)} forwards)": int8_launches,
              "legacy serve (3 forwards)": legacy_serve,
-             "legacy train (1 step)": legacy_train}
+             "legacy train (1 step)": legacy_train, **lean_launches,
+             "block_diag_attention op (2 calls)": op_launches}
+    idle = [name for name in cases
+            if not any(v.get(name, 0) for v in paths.values())]
+    if idle:
+        failures.append(f"kernel forms no path launched: {idle}")
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name],
                     launches=sum(v.get(name, 0) for v in paths.values()),

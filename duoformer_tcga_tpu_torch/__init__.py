@@ -13,7 +13,10 @@ with a frozen backbone (`train.py`); the legacy DuoFormer (`build_model`:
 channel token, LayerScale, dropout) served and trained the same way, and
 the release family's channel token, LayerScale and dropout; with the
 fused transformer kernels, their int8 and reg (dropout + LayerScale)
-forms, their backward kernels and the dropout mask passes in csrc/.
+forms, their backward kernels and the dropout mask passes in csrc/; and
+the memory-lean training routes (`make_train_step(mlp_save_hidden=False,
+attn_bwd_dw=True)`, `fused_ln=True`) with their kernels, and the
+block-diagonal attention op `ops.fused_attention.block_diag_attention`.
 
 Entry points run on the card unless the caller passes device="cpu";
 without a CUDA device and without that request they raise.
@@ -36,11 +39,13 @@ def build_model_no_extra_params(
     num_patches=49, proj_dim=768, mlp_ratio=4.0, attn_drop_rate=0.0,
     proj_drop_rate=0.0, freeze_backbone=True, backbone="r50",
     scale_token="random", patch_attn=True, remat=False,
-    apply_fc_norm=False, dtype=torch.float32, device=None, seed=0,
+    apply_fc_norm=False, fused_ln=False, dtype=torch.float32, device=None,
+    seed=0,
 ):
     """Release-variant DuoFormer (reference build_model_no_extra_params),
     initialised from torch.Generator(seed) on the CPU, in eval mode, moved
-    to `device` (None -> the card) and cast to `dtype`. Options of the JAX
+    to `device` (None -> the card) and cast to `dtype`. fused_ln: fc_norm
+    through the LayerNorm kernel (DUOFORMER_FUSED_LN=1). Options of the JAX
     factory that this slice does not cover raise NotImplementedError."""
     if remat:
         raise NotImplementedError(
@@ -54,7 +59,7 @@ def build_model_no_extra_params(
         attn_drop_rate=attn_drop_rate, proj_drop_rate=proj_drop_rate,
         proj_dim=proj_dim, freeze_backbone=freeze_backbone,
         backbone=backbone, scale_token=scale_token, patch_attn=patch_attn,
-        apply_fc_norm=apply_fc_norm,
+        apply_fc_norm=apply_fc_norm, fused_ln=fused_ln,
         generator=torch.Generator().manual_seed(seed))
     return model.eval().to(device=device, dtype=dtype)
 
@@ -62,15 +67,15 @@ def build_model_no_extra_params(
 def build_model(
     depth=12, embed_dim=768, num_heads=12, init_values=1e-5, num_classes=2,
     num_layers=2, proj_dim=768, pretrained=True, freeze=True, remat=False,
-    dtype=torch.float32, device=None, seed=0,
+    fused_ln=False, dtype=torch.float32, device=None, seed=0,
 ):
     """The legacy DuoFormer (reference build_model -> MyModel; the JAX
     package's build_model, duoformer_tcga_tpu/__init__.py:72-86):
     channel token, MultiscaleTransformer core, LayerScale init_values,
     attention dropout and dropout 0.1. Initialised from
     torch.Generator(seed) on the CPU, in eval mode, moved to `device`
-    (None -> the card) and cast to `dtype`. remat raises
-    NotImplementedError."""
+    (None -> the card) and cast to `dtype`. fused_ln: the final norm
+    through the LayerNorm kernel. remat raises NotImplementedError."""
     if remat:
         raise NotImplementedError(
             "remat (activation rematerialization) is not ported to the "
@@ -80,6 +85,6 @@ def build_model(
         depth=depth, embed_dim=embed_dim, num_heads=num_heads,
         num_classes=num_classes, num_layers=num_layers, proj_dim=proj_dim,
         init_values=init_values, freeze=freeze,
-        pretrained_backbone=pretrained,
+        pretrained_backbone=pretrained, fused_ln=fused_ln,
         generator=torch.Generator().manual_seed(seed))
     return model.eval().to(device=device, dtype=dtype)

@@ -12,11 +12,13 @@
 // and the float32 column sums dlns = sum(dln * xhat), dlnb = sum(dln),
 // dbqkv = sum(dqkv), dbproj = sum(g), each [C] or [3C]. The weight
 // gradients dwqkv = ln^T dqkv and dwproj = attn^T g are large products the
-// caller runs outside, as the JAX package leaves them to XLA.
+// caller runs outside, as the JAX package leaves them to XLA; or, in the
+// dw form below, this kernel forms them in place of ln, attn and dqkv.
 //
 // Replaces: duoformer_tcga_tpu/ops/pallas_attention.py,
-// _fused_block_bwd_kernel with dw=False (the default), driven by
-// _fused_block_bwd_impl. Both forms run in a training step's backward: the
+// _fused_block_bwd_kernel with dw=False (the default) and with dw=True,
+// driven by _fused_block_bwd_impl. Both forms run in a training step's
+// backward (dw=True in the memory-lean step): the
 // full form (LN + residual) in every ScaleBlock at S=6, the bare form
 // (use_ln = use_residual = 0) in every PatchBlock at S=50.
 //
@@ -66,6 +68,28 @@
 // parallel, so a second, small kernel adds the blocks' partials in a fixed
 // order. No atomics: the sums do not depend on the order blocks ran in.
 //
+// The dw form (_fused_block_bwd_kernel with dw=True, pallas_attention.py:
+// 885-895; switched on by non-null dwqkv and dwA): ln, attn and dqkv are
+// not written. Instead the block adds its rows' weight-gradient products
+// into two float32 accumulators the caller zeroed,
+//     dwqkv [C, 3C] += ln^T dqkv     (the bare form's ln is x)
+//     dwA   [C, C]  += attn^T gacc   (gacc = bf16(g * proj mask / keep)
+//                                     with the proj dropout on, else g),
+// bf16 operands with float32 sums, as the TPU kernel's. Per head h, after
+// step 3 the head's output o (bf16, kept in the dp buffer until step 4
+// needs it) times the block's gacc rows, streamed in 64-column slabs
+// through the same ring (the proj mask applied in shared memory), gives
+// rows [h*64, h*64 + 64) of dwA; after step 4 ln^T dqkv_h gives the
+// head's 192 columns of dwqkv, from sLN and sQKV as they stand. The TPU
+// kernel kept the two accumulators (9.4 MB at C=768) in VMEM over its
+// sequential grid; here every block runs in parallel and no SM could hold
+// them, so each block adds its products with float2 atomicAdd (red.global)
+// into the one accumulator in device memory, which stays in the 50 MB L2.
+// The order of those float32 additions changes from run to run, so dwqkv
+// and dwA are not bit-reproducible (two launches agree to float32 rounding
+// of the sums); every other output is. The proj-masked gacc is formed from
+// raw g in shared memory, so the dw form writes no gm.
+//
 // Layouts. wqkv [C, 3C] and wproj [C, C] come as the forward takes them,
 // the JAX package's (in, out) layout, not the TPU kernel's pre-transposed
 // copies (pallas_attention.py:990-991, made to save VMEM): ldmatrix reads
@@ -81,7 +105,12 @@
 // (about 8 MB at C=768) in 36 slabs per head with two block-wide barriers
 // each, on mma.sync. wgmma with TMA-fed slabs, multicast of the slabs
 // across a cluster and the dln product done per head chunk rather than
-// from a second pass over wqkv are the next steps.
+// from a second pass over wqkv are the next steps. The dw form adds
+// 8*rows*C^2 flops and, per block, 4C^2 float32 atomic additions (9.4 MB
+// at C=768) into L2: at 48 rows a block that traffic is about the weight
+// slabs' own, so the dw form is expected to cost more than the dw=False
+// kernel plus two large matmuls on this card. Wider row tiles in dw mode
+// (fewer additions per row) would cut it; they need more shared memory.
 
 #include "tile_ops.cuh"
 
@@ -104,7 +133,6 @@ struct Shape {
   static constexpr int MT = RT / 16;       // m16 row tiles
   static constexpr int NQ = C / KS;        // dln n8 tiles per warp
   static constexpr int SLABS = C / KS;     // slabs per phase of a head
-  static constexpr int PER_HEAD = 3 * SLABS;
   static constexpr int LN_LD = C + 8;
   static constexpr int S_LD = RT + 4;      // float32 p and dp
   static constexpr int P_LD = RT + 8;      // bf16 p, then ds
@@ -122,14 +150,31 @@ struct Shape {
 // (dattn) takes wproj rows [h*D, h*D + D) and the block's g rows, columns
 // [k*KS, k*KS + KS) of each. g rows at or past R are zeros. (The reg form
 // passes geff as g.)
-template <int RT, int C>
+// The dw form adds a phase between 1 and the dln phase: the block's raw g
+// rows, columns [k*KS, k*KS + KS), for dwA (rows at or past R zeros).
+// *p += (a, b) in device memory, one float2 reduction (sm_90).
+__device__ __forceinline__ void atomic_add2(float* p, float a, float b) {
+  atomicAdd(reinterpret_cast<float2*>(p), make_float2(a, b));
+}
+
+template <int RT, int C, bool DW>
 __device__ __forceinline__ void load_slab(bf16* dst, int h, int j,
                                           const bf16* wqkv,
                                           const bf16* wproj, const bf16* g,
-                                          long row0, int R) {
+                                          const bf16* graw, long row0,
+                                          int R) {
   typedef Shape<RT, C> Sh;
   const int phase = j / Sh::SLABS, k0 = (j % Sh::SLABS) * KS;
-  if (phase != 1) {
+  if (DW && phase == 2) {
+    for (int i = threadIdx.x; i < RT * (KS / 8); i += THREADS) {
+      const int row = i / (KS / 8), seg = i % (KS / 8);
+      bf16* d = dst + row * GS_LD + seg * 8;
+      if (row < R)
+        cp_async16(d, graw + (row0 + row) * C + k0 + seg * 8);
+      else
+        *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
+    }
+  } else if (phase != 1) {
     for (int i = threadIdx.x; i < KS * 3 * (D / 8); i += THREADS) {
       const int row = i / (3 * (D / 8)), rem = i % (3 * (D / 8));
       const int part = rem / (D / 8), seg = rem % (D / 8);
@@ -151,7 +196,9 @@ __device__ __forceinline__ void load_slab(bf16* dst, int h, int j,
   }
 }
 
-template <int RT, int C>
+// DW: the dw form (a template argument, so that the dw=False instantiation
+// carries none of its code or registers).
+template <int RT, int C, bool DW>
 __global__ void __launch_bounds__(THREADS, 1)
 attention_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
                      const bf16* __restrict__ gsrc,
@@ -162,12 +209,17 @@ attention_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
                      const bf16* __restrict__ wproj, bf16* __restrict__ dx,
                      bf16* __restrict__ ln_out, bf16* __restrict__ attn_out,
                      bf16* __restrict__ dqkv_out, float* __restrict__ part,
+                     float* __restrict__ dwqkv, float* __restrict__ dwA,
                      int n_seg, int S, float scale, float eps, int use_ln,
                      int use_residual, Drop adrop, Drop pdrop) {
   typedef Shape<RT, C> Sh;
   constexpr int MT = Sh::MT;
   constexpr int NQ = Sh::NQ;
   constexpr int DT = Sh::DT;
+  // the dw form keeps each head's bf16 o in the float32 dp buffer
+  static_assert(sizeof(float) * Sh::S_LD >= sizeof(bf16) * DO_LD,
+                "o does not fit the dp buffer");
+  constexpr bool dw = DW;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sLN = reinterpret_cast<bf16*>(smem);
   bf16* sQKV = sLN + RT * Sh::LN_LD;
@@ -177,6 +229,7 @@ attention_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
   float* sS = reinterpret_cast<float*>(stage0 + 2 * Sh::STAGE);
   float* sD = sS + RT * Sh::S_LD;
   float* sStat = sD + RT * Sh::S_LD;       // mean, 1/std per row
+  bf16* sO = reinterpret_cast<bf16*>(sD);  // dw: the head's o, steps 2-3
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -188,16 +241,17 @@ attention_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
   const long row0 = (long)seg0 * S;
   float* bpart = part + (long)blockIdx.x * 6 * C;
 
-  const int total = Sh::H * Sh::PER_HEAD;
+  const int per_head = (dw ? 4 : 3) * Sh::SLABS;
+  const int total = Sh::H * per_head;
   int s = 0;                                 // slab counter
-  load_slab<RT, C>(stage0, 0, 0, wqkv, wproj, gsrc, row0, R);
+  load_slab<RT, C, DW>(stage0, 0, 0, wqkv, wproj, gsrc, g, row0, R);
   cp_async_commit();
   // the next slab into the other buffer, then wait for slab s
   auto next_slab = [&]() -> const bf16* {
     if (s + 1 < total)
-      load_slab<RT, C>(stage0 + ((s + 1) & 1) * Sh::STAGE,
-                       (s + 1) / Sh::PER_HEAD, (s + 1) % Sh::PER_HEAD, wqkv,
-                       wproj, gsrc, row0, R);
+      load_slab<RT, C, DW>(stage0 + ((s + 1) & 1) * Sh::STAGE,
+                           (s + 1) / per_head, (s + 1) % per_head, wqkv,
+                           wproj, gsrc, g, row0, R);
     cp_async_commit();
     cp_async_wait_one();
     __syncthreads();
@@ -208,7 +262,7 @@ attention_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
   ln_rows<C, RT, WARPS>(x, row0, R, lns, lnb, eps, use_ln, sLN, Sh::LN_LD,
                         sStat);
   __syncthreads();
-  if (use_ln)
+  if (use_ln && ln_out != nullptr)
     for (int i = threadIdx.x; i < R * (C / 8); i += THREADS) {
       const int r = i / (C / 8), seg = i % (C / 8);
       *reinterpret_cast<uint4*>(ln_out + (row0 + r) * C + seg * 8) =
@@ -327,7 +381,7 @@ attention_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
       }
     }
     __syncthreads();
-    // ---- 2. o = P V, bf16, to attn (live rows) ----
+    // ---- 2. o = P V, bf16, to attn (live rows); dw: to sO (all rows) ----
     for (int task = warp; task < DT; task += WARPS) {
       const int mt = task % MT, nt = task / MT;
       float c[2][4] = {};
@@ -344,11 +398,15 @@ attention_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
 #pragma unroll
         for (int hr = 0; hr < 2; ++hr) {
           const int row = mt * 16 + gq + 8 * hr;
-          if (row < R)
+          const __nv_bfloat162 o2 =
+              __floats2bfloat162_rn(c[n][2 * hr], c[n][2 * hr + 1]);
+          if (dw)
+            *reinterpret_cast<__nv_bfloat162*>(
+                sO + row * DO_LD + nt * 16 + n * 8 + 2 * t) = o2;
+          else if (row < R)
             *reinterpret_cast<__nv_bfloat162*>(
                 attn_out + (row0 + row) * C + h * D + nt * 16 + n * 8 +
-                2 * t) = __floats2bfloat162_rn(c[n][2 * hr],
-                                               c[n][2 * hr + 1]);
+                2 * t) = o2;
         }
     }
 
@@ -380,6 +438,44 @@ attention_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
             sDO + (m * 16 + gq + 8 * hr) * DO_LD + warp * 8 + 2 * t) =
             __floats2bfloat162_rn(qacc[m][0][2 * hr], qacc[m][0][2 * hr + 1]);
     __syncthreads();
+
+    // ---- 3b (dw). dwA[h*D .. h*D + D, :] += o^T gacc, KS columns a slab:
+    // warp owns the m16 tile warp / 2 of the head's rows and 4 n8 tiles ----
+    if (dw)
+      for (int k = 0; k < Sh::SLABS; ++k, ++s) {
+        bf16* slab = const_cast<bf16*>(next_slab());
+        if (pdrop.on) {                    // gacc = bf16(g * mask / keep)
+          for (int i = threadIdx.x; i < R * KS; i += THREADS) {
+            const int r = i / KS, c = i % KS;
+            bf16* p = slab + r * GS_LD + c;
+            *p = __float2bfloat16(pdrop.apply(__bfloat162float(*p),
+                                              (uint32_t)(row0 + r),
+                                              k * KS + c));
+          }
+          __syncthreads();
+        }
+        const int mt = warp >> 1, n0 = (warp & 1) * 32;
+        float c4[4][4] = {};
+#pragma unroll
+        for (int k0 = 0; k0 < RT; k0 += 16) {
+          unsigned a[4], b0[4], b1[4];
+          ldsm_at(a, sO + k0 * DO_LD + mt * 16, DO_LD, lane);
+          ldsm_b2(b0, slab + k0 * GS_LD + n0, GS_LD, lane);
+          ldsm_b2(b1, slab + k0 * GS_LD + n0 + 16, GS_LD, lane);
+          mma16816(c4[0], a, b0[0], b0[1]);
+          mma16816(c4[1], a, b0[2], b0[3]);
+          mma16816(c4[2], a, b1[0], b1[1]);
+          mma16816(c4[3], a, b1[2], b1[3]);
+        }
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr)
+            atomic_add2(dwA + (long)(h * D + mt * 16 + gq + 8 * hr) * C +
+                            k * KS + n0 + n * 8 + 2 * t,
+                        c4[n][2 * hr], c4[n][2 * hr + 1]);
+        __syncthreads();
+      }
 
     // ---- 4. the softmax backward ----
     // dv = P^T do (held in registers until v is no longer read)
@@ -510,7 +606,7 @@ attention_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
     }
     __syncthreads();
     // dq | dk | dv to device memory, and their column sums over live rows
-    for (int i = threadIdx.x; i < R * 3 * (D / 8); i += THREADS) {
+    for (int i = threadIdx.x; i < (dw ? 0 : R) * 3 * (D / 8); i += THREADS) {
       const int r = i / (3 * (D / 8)), rem = i % (3 * (D / 8));
       const int p = rem / (D / 8), seg = rem % (D / 8);
       *reinterpret_cast<uint4*>(dqkv_out + (row0 + r) * (3 * C) + p * C +
@@ -523,6 +619,37 @@ attention_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
       for (int r = 0; r < R; ++r) cs += __bfloat162float(sQKV[r * QKV_LD + c]);
       bpart[2 * C + (c / D) * C + h * D + c % D] = cs;
     }
+    // ---- 4b (dw). dwqkv[:, the head's q | k | v columns] += ln^T dqkv_h:
+    // warp takes m16 tiles of ln's columns, each against all 192 columns
+    // (sLN and sQKV are read only until the next head's barriers) ----
+    if (dw)
+      for (int mt = warp; mt < C / 16; mt += WARPS) {
+        unsigned a[MT][4];
+#pragma unroll
+        for (int kt = 0; kt < MT; ++kt)
+          ldsm_at(a[kt], sLN + kt * 16 * Sh::LN_LD + mt * 16, Sh::LN_LD,
+                  lane);
+        for (int np = 0; np < 3 * D / 16; ++np) {
+          float c2[2][4] = {};
+#pragma unroll
+          for (int kt = 0; kt < MT; ++kt) {
+            unsigned b[4];
+            ldsm_b2(b, sQKV + kt * 16 * QKV_LD + np * 16, QKV_LD, lane);
+            mma16816(c2[0], a[kt], b[0], b[1]);
+            mma16816(c2[1], a[kt], b[2], b[3]);
+          }
+#pragma unroll
+          for (int n = 0; n < 2; ++n) {
+            const int col = np * 16 + n * 8 + 2 * t;     // within q | k | v
+            const int gcol = (col / D) * C + h * D + col % D;
+#pragma unroll
+            for (int hr = 0; hr < 2; ++hr)
+              atomic_add2(dwqkv + (long)(mt * 16 + gq + 8 * hr) * (3 * C) +
+                              gcol,
+                          c2[n][2 * hr], c2[n][2 * hr + 1]);
+          }
+        }
+      }
 
     // ---- 5. dln += dqkv_h wqkv[:, head]^T, KS output columns a slab ----
 #pragma unroll
@@ -681,7 +808,7 @@ __global__ void geff_kernel(const bf16* __restrict__ g,
     if (pdrop.on) {
       const __nv_bfloat162 m = __floats2bfloat162_rn(
           pdrop.apply(v.x, row, col), pdrop.apply(v.y, row, col + 1));
-      *reinterpret_cast<__nv_bfloat162*>(gm + i) = m;
+      if (gm != nullptr) *reinterpret_cast<__nv_bfloat162*>(gm + i) = m;
       v = __bfloat1622float2(m);
     }
     if (gamma != nullptr) {
@@ -710,13 +837,16 @@ template <int RT, int C>
 cudaError_t launch(const bf16* x, const bf16* g, const float* lns,
                    const float* lnb, const bf16* wqkv, const float* bqkv,
                    const bf16* wproj, bf16* dx, bf16* ln, bf16* attn,
-                   bf16* dqkv, float* sums, float* part, int n_seg, int S,
-                   float scale, float eps, int use_ln, int use_residual,
-                   const float* gamma, bf16* geff, bf16* gm, Drop adrop,
-                   Drop pdrop, cudaStream_t stream) {
+                   bf16* dqkv, float* sums, float* part, float* dwqkv,
+                   float* dwA, int n_seg, int S, float scale, float eps,
+                   int use_ln, int use_residual, const float* gamma,
+                   bf16* geff, bf16* gm, Drop adrop, Drop pdrop,
+                   cudaStream_t stream) {
   constexpr size_t smem = Shape<RT, C>::SMEM;
+  const bool dw = dwqkv != nullptr;
   cudaError_t err = cudaFuncSetAttribute(
-      attention_bwd_kernel<RT, C>,
+      dw ? attention_bwd_kernel<RT, C, true>
+         : attention_bwd_kernel<RT, C, false>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const bf16* gsrc = g;
@@ -732,9 +862,11 @@ cudaError_t launch(const bf16* x, const bf16* g, const float* lns,
   }
   const int G = RT / S;
   const int blocks = (n_seg + G - 1) / G;
-  attention_bwd_kernel<RT, C><<<blocks, THREADS, smem, stream>>>(
+  (dw ? attention_bwd_kernel<RT, C, true>
+      : attention_bwd_kernel<RT, C, false>)<<<blocks, THREADS, smem,
+                                               stream>>>(
       x, g, gsrc, lns, lnb, wqkv, bqkv, wproj, dx, ln, attn, dqkv, part,
-      n_seg, S, scale, eps, use_ln, use_residual, adrop, pdrop);
+      dwqkv, dwA, n_seg, S, scale, eps, use_ln, use_residual, adrop, pdrop);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   sum_partials_kernel<<<(6 * C + 255) / 256, 256, 0, stream>>>(
@@ -747,16 +879,18 @@ cudaError_t launch_rows(const bf16* x, const bf16* g, const float* lns,
                         const float* lnb, const bf16* wqkv,
                         const float* bqkv, const bf16* wproj, bf16* dx,
                         bf16* ln, bf16* attn, bf16* dqkv, float* sums,
-                        float* part, int n_seg, int S, float scale, float eps,
-                        int use_ln, int use_residual, const float* gamma,
-                        bf16* geff, bf16* gm, Drop adrop, Drop pdrop,
+                        float* part, float* dwqkv, float* dwA, int n_seg,
+                        int S, float scale, float eps, int use_ln,
+                        int use_residual, const float* gamma, bf16* geff,
+                        bf16* gm, Drop adrop, Drop pdrop,
                         cudaStream_t stream) {
   if (rows_per_block(S) == 48)
     return launch<48, C>(x, g, lns, lnb, wqkv, bqkv, wproj, dx, ln, attn,
-                         dqkv, sums, part, n_seg, S, scale, eps, use_ln,
-                         use_residual, gamma, geff, gm, adrop, pdrop, stream);
+                         dqkv, sums, part, dwqkv, dwA, n_seg, S, scale, eps,
+                         use_ln, use_residual, gamma, geff, gm, adrop, pdrop,
+                         stream);
   return launch<64, C>(x, g, lns, lnb, wqkv, bqkv, wproj, dx, ln, attn, dqkv,
-                       sums, part, n_seg, S, scale, eps, use_ln,
+                       sums, part, dwqkv, dwA, n_seg, S, scale, eps, use_ln,
                        use_residual, gamma, geff, gm, adrop, pdrop, stream);
 }
 
@@ -773,23 +907,28 @@ extern "C" {
 // null; geff a bf16 [rows, C] workspace, needed when gamma is given or the
 // proj dropout is on (else null); gm bf16 [rows, C], written when the proj
 // dropout is on (else null); seed, the thresholds (< 0: off) and keep
-// scales of the two dropout sites, as the forward took them.
+// scales of the two dropout sites, as the forward took them. The dw form:
+// dwqkv float32 [C, 3C] and dwA float32 [C, C], zeroed by the caller, both
+// given (else both null); ln, attn, dqkv and gm are then null.
 int launch_fused_attention_residual_bwd(
     const void* x, const void* g, const void* lns, const void* lnb,
     const void* wqkv, const void* bqkv, const void* wproj, void* dx,
-    void* ln, void* attn, void* dqkv, void* sums, void* part, int n_seg,
+    void* ln, void* attn, void* dqkv, void* sums, void* part, void* dwqkv,
+    void* dwA, int n_seg,
     int S, int C, int num_heads, float scale, float eps, int use_ln,
     int use_residual, const void* gamma, void* geff, void* gm, int seed,
     int attn_thr, float attn_scale, int proj_thr, float proj_scale,
     void* stream) {
-  if (S < 1 || S > 64 || C != num_heads * D || n_seg < 1)
+  if (S < 1 || S > 64 || C != num_heads * D || n_seg < 1 ||
+      (dwqkv == nullptr) != (dwA == nullptr))
     return (int)cudaErrorInvalidValue;
 #define ARGS                                                                 \
   (const bf16*)x, (const bf16*)g, (const float*)lns, (const float*)lnb,     \
       (const bf16*)wqkv, (const float*)bqkv, (const bf16*)wproj, (bf16*)dx, \
       (bf16*)ln, (bf16*)attn, (bf16*)dqkv, (float*)sums, (float*)part,      \
-      n_seg, S, scale, eps, use_ln, use_residual, (const float*)gamma,      \
-      (bf16*)geff, (bf16*)gm, make_drop(seed, SITE_ATTN, attn_thr, attn_scale), \
+      (float*)dwqkv, (float*)dwA, n_seg, S, scale, eps, use_ln,             \
+      use_residual, (const float*)gamma, (bf16*)geff, (bf16*)gm,            \
+      make_drop(seed, SITE_ATTN, attn_thr, attn_scale),                     \
       make_drop(seed, SITE_PROJ, proj_thr, proj_scale), (cudaStream_t)stream
   switch (C) {
     case 256: return (int)launch_rows<256>(ARGS);

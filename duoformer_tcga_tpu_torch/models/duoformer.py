@@ -103,7 +103,7 @@ class DuoFormer(_PyramidModel):
                  attn_drop_rate=0.0, proj_drop_rate=0.0, proj_dim=768,
                  freeze_backbone=True, backbone="r50", scale_token="random",
                  patch_attn=True, init_values=None, apply_fc_norm=False,
-                 generator=None):
+                 fused_ln=False, generator=None):
         super().__init__()
         if scale_token not in ("random", "channel"):
             raise ValueError(f"scale_token must be 'random' or 'channel', "
@@ -143,7 +143,7 @@ class DuoFormer(_PyramidModel):
             num_classes=num_classes, num_patches=num_patches,
             patch_attn=patch_attn, apply_fc_norm=apply_fc_norm,
             proj_drop_rate=proj_drop_rate, init_values=init_values,
-            generator=generator)
+            fused_ln=fused_ln, generator=generator)
         if scale_token == "random":
             # learned (1,1,1,proj_dim) token, normal std 0.036
             # (model_wo_extra_params.py:77-79)
@@ -158,12 +158,14 @@ class DuoFormerLegacy(_PyramidModel):
     (the reference's 1e-5, 0.1, 0.1). Only num_layers=2 runs in the
     reference (Q5), and only it is accepted, as in the JAX package.
     pretrained_backbone is accepted and ignored, as there: weights come
-    from a loaded tree. freeze: the frozen backbone."""
+    from a loaded tree. freeze: the frozen backbone. fused_ln: the final
+    norm through the LayerNorm kernel."""
 
     def __init__(self, depth=12, embed_dim=768, num_heads=12, num_classes=2,
                  num_layers=2, num_patches=49, proj_dim=768,
                  init_values=1e-5, freeze=True, attn_drop_rate=0.1,
-                 drop_rate=0.1, pretrained_backbone=True, generator=None):
+                 drop_rate=0.1, pretrained_backbone=True, fused_ln=False,
+                 generator=None):
         super().__init__()
         if num_layers != 2:
             raise ValueError(
@@ -189,7 +191,7 @@ class DuoFormerLegacy(_PyramidModel):
             embed_dim=embed_dim, qkv_bias=True, drop_rate=drop_rate,
             attn_drop_rate=attn_drop_rate, init_values=init_values,
             num_classes=num_classes, num_patches=num_patches,
-            generator=generator)
+            fused_ln=fused_ln, generator=generator)
 
 
 def fold_for_inference(model: nn.Module) -> nn.Module:

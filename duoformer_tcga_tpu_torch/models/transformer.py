@@ -21,6 +21,16 @@ family's region blocks 0 and depth-1 (`num_seeds()` of them). They are
 used in training mode only; without them a training forward runs without
 dropout, as the JAX package's does without an rng.
 
+Backward routes. Each ScaleBlock carries mlp_save_hidden (True: the MLP
+forward saves its pre-GELU hidden; False: it saves x and the backward
+recomputes from it) and attn_bwd_dw (True: the attention backward kernel
+forms the weight gradients itself), each PatchBlock attn_bwd_dw; the legacy
+region pass takes its block's. They are the JAX package's
+DUOFORMER_MLP_SAVE_HIDDEN and DUOFORMER_BWD_DW, as plain attributes that
+train.make_train_step sets; their defaults are the JAX package's. fused_ln
+(DUOFORMER_FUSED_LN) runs the LayerNorm outside the fused blocks, fc_norm
+and norm, through the LayerNorm kernel.
+
 Every weight and embedding is cast to the activations' dtype where it is
 used, as the JAX package's `.astype(x.dtype)`: float32 master parameters
 train through bf16 kernels; vectors (norms, biases) stay float32.
@@ -91,6 +101,8 @@ class ScaleBlock(nn.Module):
         self.attn = Attention(dim, num_heads, qkv_bias, generator)
         self.norm2 = ops.LayerNorm(dim, ln_eps)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), generator)
+        self.mlp_save_hidden = True          # backward routes (see module)
+        self.attn_bwd_dw = False
         if init_values is not None:
             self.ls1 = LayerScale(dim, init_values)
             self.ls2 = LayerScale(dim, init_values)
@@ -135,17 +147,20 @@ class ScaleBlock(nn.Module):
         if hasattr(self, "ls1") or attn_drop > 0.0 or proj_drop > 0.0:
             x = attention_residual_reg(
                 *args, self._gamma("ls1", x), seed_a, self.num_heads, S,
-                scale, self.ln_eps, attn_drop=attn_drop, proj_drop=proj_drop)
+                scale, self.ln_eps, attn_drop=attn_drop, proj_drop=proj_drop,
+                bwd_dw=self.attn_bwd_dw)
         else:
             x = attention_residual(*args, self.num_heads, S, scale,
-                                   self.ln_eps)
+                                   self.ln_eps, bwd_dw=self.attn_bwd_dw)
         margs = (x, self.norm2.scale, self.norm2.bias, fc1.w.to(dt), fc1.b,
                  fc2.w.to(dt), fc2.b)
         if hasattr(self, "ls2") or mlp_drop > 0.0:
             x = mlp_residual_reg(*margs, self._gamma("ls2", x), seed_m,
-                                 self.ln_eps, drop=mlp_drop)
+                                 self.ln_eps, drop=mlp_drop,
+                                 save_hidden=self.mlp_save_hidden)
         else:
-            x = mlp_residual(*margs, self.ln_eps)
+            x = mlp_residual(*margs, self.ln_eps,
+                             save_hidden=self.mlp_save_hidden)
         return x.reshape(*lead, S, C)
 
 
@@ -158,25 +173,28 @@ class PatchBlock(nn.Module):
         super().__init__()
         self.num_heads = num_heads
         self.attn_drop = attn_drop
+        self.attn_bwd_dw = False             # backward route (see module)
         self.attn = Attention(dim, num_heads, qkv_bias, generator)
 
     def forward(self, x, seed=None):
         return multihead_attention(self.attn, x, self.num_heads,
                                    attn_drop=self.attn_drop,
-                                   seed=seed if self.training else None)
+                                   seed=seed if self.training else None,
+                                   bwd_dw=self.attn_bwd_dw)
 
 
 class MultiscaleFormer(nn.Module):
     """`depth` ScaleBlocks over [B, 49, S, C], then `depth` chained
     PatchBlocks over [B, 50, C]; the head on the un-normalised CLS (Q7).
     patch_attn=False classifies from the mean of the per-region scale
-    tokens instead (the JAX package's extension)."""
+    tokens instead (the JAX package's extension). fused_ln: fc_norm
+    through the LayerNorm kernel."""
 
     def __init__(self, depth=12, scales=2, num_heads=12, embed_dim=768,
                  mlp_ratio=4.0, qkv_bias=True, num_classes=100,
                  num_patches=49, patch_attn=True, ln_eps=1e-6,
                  apply_fc_norm=False, proj_drop_rate=0.0, init_values=None,
-                 generator=None):
+                 fused_ln=False, generator=None):
         super().__init__()
         self.num_heads = num_heads
         self.embed_dim = embed_dim
@@ -203,7 +221,7 @@ class MultiscaleFormer(nn.Module):
             (1, num_patches + 1, embed_dim), 0.036, g))
         self.cls_token = nn.Parameter(init.normal((1, 1, embed_dim), 0.036, g))
         # fc_norm + head keep torch defaults (scale_attention.py:318-320)
-        self.fc_norm = ops.LayerNorm(embed_dim, ln_eps)
+        self.fc_norm = ops.LayerNorm(embed_dim, ln_eps, fused=fused_ln)
         self.head = ops.Linear(embed_dim, num_classes, True, "torch", g)
 
     def num_seeds(self) -> int:
@@ -271,13 +289,14 @@ class MultiscaleTransformer(nn.Module):
     dropout attn_drop_rate, proj and MLP dropout drop_rate), then the
     region pass over [B, 50, C] with attn2 (probability dropout drop_rate)
     of block 0 and then of block depth-1 on block 0's output (Q4), the
-    final norm on its CLS, the head, and the logits squeezed (Q13)."""
+    final norm on its CLS, the head, and the logits squeezed (Q13).
+    fused_ln: the final norm through the LayerNorm kernel."""
 
     def __init__(self, depth=12, scales=2, num_heads=6, embed_dim=384,
                  mlp_ratio=4.0, qkv_bias=True, qk_norm=None, drop_rate=0.0,
                  attn_drop_rate=0.0, drop_path_rate=0.0, init_values=1e-5,
                  num_classes=1000, num_patches=49, ln_eps=1e-6,
-                 generator=None):
+                 fused_ln=False, generator=None):
         super().__init__()
         if drop_path_rate:
             raise NotImplementedError(
@@ -306,7 +325,7 @@ class MultiscaleTransformer(nn.Module):
         self.pos_embed = nn.Parameter(init.trunc_normal(
             (1, num_patches + 1, embed_dim), 0.02, g))
         self.cls_token = nn.Parameter(init.normal((1, 1, embed_dim), 1e-6, g))
-        self.norm = ops.LayerNorm(embed_dim, ln_eps)
+        self.norm = ops.LayerNorm(embed_dim, ln_eps, fused=fused_ln)
         self.head = ops.Linear(embed_dim, num_classes, True, "vit", g)
 
     def num_seeds(self) -> int:
@@ -324,7 +343,8 @@ class MultiscaleTransformer(nn.Module):
         return multihead_attention(blk.attn2, tokens, self.num_heads,
                                    scale=self.attn_scale,
                                    attn_drop=self.drop_rate,
-                                   seed=seed if self.training else None)
+                                   seed=seed if self.training else None,
+                                   bwd_dw=blk.attn_bwd_dw)
 
     def cls_embedding(self, x, seeds=None):
         """Scale-stack output -> the post-norm CLS the head reads [B, C]

@@ -1,4 +1,5 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels, and the helpers their ctypes
+wrappers share (argument checks, pointers, the stream, the launch counts).
 
 Each `csrc/<name>.cu` is one kernel source with a plain C interface (the
 device helpers they share are in `csrc/*.cuh`).
@@ -13,6 +14,7 @@ falls back to the plain PyTorch versions.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -21,17 +23,25 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 KERNELS = ("fused_attention_residual", "fused_attention_residual_bwd",
            "fused_mlp_residual", "mlp_dz", "fused_attention_residual_int8",
-           "fused_mlp_residual_int8", "drop_ew")
+           "fused_mlp_residual_int8", "drop_ew", "fused_mlp_bwd",
+           "layernorm", "block_diag_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs: dict = {}
+
+# Launches of each kernel form since the last reset (ops/fused_attention.
+# reset_launch_counts); a wrapper adds one where it launches its kernel and
+# nowhere else.
+launch_counts: collections.Counter = collections.Counter()
 
 
 class KernelBuildError(RuntimeError):
@@ -114,3 +124,28 @@ def check(lib: ctypes.CDLL, status: int, what: str):
     if status != 0:
         msg = lib.kernel_error_string(status).decode()
         raise RuntimeError(f"{what}: CUDA error {status} ({msg})")
+
+
+def _require(cond, msg):
+    if not cond:
+        raise ValueError(msg)
+
+
+def _check_tensor(name, t, device, dtype, shape):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, x on {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    _require(tuple(t.shape) == tuple(shape),
+             f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    _require(t.is_contiguous(), f"{name} must be contiguous")
+    # the kernels copy rows in 16-byte cp.async chunks from aligned starts
+    _require(t.data_ptr() % 32 == 0, f"{name} must be 32-byte aligned")
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _stream(device):
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)

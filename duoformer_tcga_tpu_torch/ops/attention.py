@@ -51,12 +51,13 @@ def _bias(linear, width, like):
 
 
 def multihead_attention(attn: Attention, x, num_heads, scale=None,
-                        attn_drop=0.0, seed=None):
+                        attn_drop=0.0, seed=None, bwd_dw=False):
     """Bare MHSA over the second-to-last axis: x [..., S, C] -> same. A
     quantized Attention (QuantLinear qkv/proj) runs the bare int8 form
     (attention.py:209-217). attn_drop > 0: the bare reg form, dropping
     the probabilities with the mask of `seed` (an int32, given in
-    training) or, with seed None, not at all."""
+    training) or, with seed None, not at all. bwd_dw: the backward
+    kernel's dw form."""
     *lead, S, C = x.shape
     if scale is None:
         scale = (C // num_heads) ** -0.5
@@ -68,7 +69,7 @@ def multihead_attention(attn: Attention, x, num_heads, scale=None,
             _bias(attn.proj, C, x), x.new_ones(C, dtype=torch.float32),
             0 if seed is None else seed, num_heads, S, float(scale), 1e-6,
             use_ln=False, use_residual=False,
-            attn_drop=0.0 if seed is None else attn_drop)
+            attn_drop=0.0 if seed is None else attn_drop, bwd_dw=bwd_dw)
         return out.reshape(*lead, S, C)
     if isinstance(attn.qkv, QuantLinear):
         out = fused_attention_residual_int8(
@@ -81,7 +82,7 @@ def multihead_attention(attn: Attention, x, num_heads, scale=None,
         x.reshape(-1, S, C), zeros, zeros, attn.qkv.w.to(x.dtype),
         _bias(attn.qkv, 3 * C, x), attn.proj.w.to(x.dtype),
         _bias(attn.proj, C, x), num_heads, S, float(scale), 1e-6,
-        use_ln=False, use_residual=False)
+        use_ln=False, use_residual=False, bwd_dw=bwd_dw)
     return out.reshape(*lead, S, C)
 
 

@@ -14,13 +14,23 @@ and the drop_ew kernel are in ops/fused_reg.py).
     kernel: csrc/fused_mlp_residual.cu
   mlp_dz:                   dz = (g w2^T) * gelu'(z), db1 = colsum(dz)
     kernel: csrc/mlp_dz.cu
+  fused_mlp_bwd:            the MLP backward from x (no saved hidden): dx,
+    ln, h, dz and the column sums dlns, dlnb
+    kernel: csrc/fused_mlp_bwd.cu
+  block_diag_attention_fwd: softmax(q k^T * scale) v within each segment
+    kernel: csrc/block_diag_attention.cu
 
-`attention_residual` and `mlp_residual` are the differentiable entries the
-model calls (the JAX package's custom_vjp entries): the attention backward
-runs its kernel and then the weight-gradient products dwqkv = ln^T dqkv and
-dwproj = attn^T g; the MLP backward is the save-hidden one
-(pallas_attention.py:1802-1852), with the dz pass as a kernel and the four
-large products as plain matmuls, as the JAX package leaves them to XLA.
+`attention_residual`, `mlp_residual` and `block_diag_attention` are the
+differentiable entries (the JAX package's custom_vjp entries). The
+attention backward runs its kernel and then the weight-gradient products
+dwqkv = ln^T dqkv and dwproj = attn^T g, or with bwd_dw=True (the JAX
+package's DUOFORMER_BWD_DW=1) the kernel's dw form, which forms both
+itself. The MLP backward is the save-hidden one (pallas_attention.py:
+1802-1852), with the dz pass as a kernel and the four large products as
+plain matmuls, as the JAX package leaves them to XLA; or, with
+save_hidden=False (DUOFORMER_MLP_SAVE_HIDDEN=0), the recompute-from-x
+kernel and the two weight-gradient products (_fmr_bwd, :1870-1894).
+block_diag_attention's backward is autograd through its plain version.
 
 Dispatch is by the tensor's device and nothing else: a CPU tensor runs the
 plain version; a CUDA tensor launches the kernel or raises (wrong dtype,
@@ -43,18 +53,14 @@ name.
 
 from __future__ import annotations
 
-import collections
 import ctypes
 
 import torch
 
 from . import _build
 from . import dropout as dr
+from ._build import _check_tensor, _ptr, _require, _stream, launch_counts
 from .nn import layernorm
-
-# Launches of each kernel form since the last reset_launch_counts(); a
-# wrapper adds one where it launches its kernel and nowhere else.
-launch_counts: collections.Counter = collections.Counter()
 
 ATTN_MAX_SEG_LEN = 64         # a block holds at most 64 rows (csrc note)
 HEAD_DIM = 64                 # the attention kernel's head width
@@ -164,7 +170,8 @@ def fused_attention_residual_bwd_plain(x, g, ln_scale, ln_bias, wqkv, bqkv,
                                        wproj, num_heads, seg_len, scale,
                                        ln_eps=1e-6, use_ln=True,
                                        use_residual=True, gamma=None, seed=0,
-                                       attn_drop=0.0, proj_drop=0.0):
+                                       attn_drop=0.0, proj_drop=0.0,
+                                       dw=False):
     """Plain twin of the attention backward kernel
     (_fused_block_bwd_kernel, dw=False, pallas_attention.py:723-918). x, g
     [n_seg, seg_len, C] -> (dx [n_seg, seg_len, C], ln [rows, C], attn
@@ -178,7 +185,12 @@ def fused_attention_residual_bwd_plain(x, g, ln_scale, ln_bias, wqkv, bqkv,
     is dropped and rescaled, the Jacobian takes the undropped p; dbproj
     sums the float32 proj-masked g without gamma; the residual adds raw
     g. With proj_drop > 0 a ninth output gm = bf16(g * proj mask / keep)
-    [rows, C]."""
+    [rows, C].
+
+    dw=True (the dw form, :885-895, 932-934): (dx, dlns, dlnb, dbqkv,
+    dbproj, dwqkv, dwA) instead, dwqkv = ln^T dqkv [C, 3C] and dwA =
+    attn^T (gm if proj_drop > 0 else g) [C, C], float32 sums of the
+    rounded operands."""
     n_seg, S, C = x.shape
     if S != seg_len:
         raise ValueError(f"x has {S} tokens per segment, seg_len={seg_len}")
@@ -230,8 +242,13 @@ def fused_attention_residual_bwd_plain(x, g, ln_scale, ln_bias, wqkv, bqkv,
         dlns = dlnb = torch.zeros(C, dtype=torch.float32, device=x.device)
     if use_residual:
         dxf = dxf + g2.float()
-    out = (dxf.to(dt).view(n_seg, S, C), ln, attn, dqkv, dlns, dlnb,
-           dqkv.float().sum(0), gsum.sum(0))
+    dx = dxf.to(dt).view(n_seg, S, C)
+    if dw:
+        gacc = gm if proj_drop > 0.0 else g2
+        return (dx, dlns, dlnb, dqkv.float().sum(0), gsum.sum(0),
+                torch.matmul(ln.float().t(), dqkv.float()),
+                torch.matmul(attn.float().t(), gacc.float()))
+    out = (dx, ln, attn, dqkv, dlns, dlnb, dqkv.float().sum(0), gsum.sum(0))
     return out + (gm,) if proj_drop > 0.0 else out
 
 
@@ -252,34 +269,49 @@ def mlp_dz_plain(g2, z, w2):
     return dz, dz.float().sum(0)
 
 
+def fused_mlp_bwd_plain(x, g, ln_scale, ln_bias, w1, b1, w2, ln_eps=1e-6):
+    """Plain twin of the recompute-from-x MLP backward kernel
+    (_fused_mlp_bwd_kernel, pallas_attention.py:1597-1631): x, g [..., C]
+    -> (dx like x, ln [rows, C], h [rows, hidden], dz [rows, hidden], dlns,
+    dlnb). LN in float32, ln rounded; z = ln w1 + b1 in float32; h =
+    gelu(z) rounded from the float32 z; dz = (g w2^T) * gelu'(z) rounded;
+    dln from the rounded dz; dx = LN backward + g, rounded once."""
+    dt = x.dtype
+    C = x.shape[-1]
+    x2, g2 = x.reshape(-1, C), g.reshape(-1, C)
+    lnf, xhat, inv = ln_fwd_f32(x2.float(), ln_scale, ln_bias, ln_eps)
+    ln = lnf.to(dt)
+    z = torch.matmul(ln.float(), w1.float()) + b1.float()
+    phi = 0.5 * (1.0 + torch.erf(z * _SQRT1_2))
+    h = (z * phi).to(dt)
+    dh = torch.matmul(g2.float(), w2.float().t())
+    dz = (dh * (phi + z * (_INV_SQRT_2PI * torch.exp(-0.5 * z * z)))).to(dt)
+    dln = torch.matmul(dz.float(), w1.float().t())
+    dxf, dlns, dlnb = ln_bwd_f32(dln, ln_scale, xhat, inv)
+    return ((dxf + g2.float()).to(dt).view_as(x), ln, h, dz, dlns, dlnb)
+
+
+def block_diag_attention_plain(qkv, num_heads, seg_len, scale):
+    """Plain twin of the block-diagonal attention kernel (_kernel, the XLA
+    reference _xla_reference, pallas_attention.py:175-216, 266-278): qkv
+    [n_seg, seg_len, 3C], q | k | v with the heads contiguous -> [n_seg,
+    seg_len, C]. Scores in float32 times scale, float32 softmax, p rounded
+    to qkv's dtype for P.V, o rounded once."""
+    n_seg, S, C3 = qkv.shape
+    if S != seg_len:
+        raise ValueError(f"qkv has {S} tokens per segment, seg_len={seg_len}")
+    C = C3 // 3
+    D = C // num_heads
+    q, k, v = qkv.view(n_seg, S, 3, num_heads, D).permute(2, 0, 3, 1, 4)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    p = torch.softmax(s, dim=-1).to(qkv.dtype)
+    o = torch.matmul(p.float(), v.float()).to(qkv.dtype)     # [n, H, S, D]
+    return o.permute(0, 2, 1, 3).reshape(n_seg, S, C)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
-
-def _require(cond, msg):
-    if not cond:
-        raise ValueError(msg)
-
-
-def _check_tensor(name, t, device, dtype, shape):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, x on {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    _require(tuple(t.shape) == tuple(shape),
-             f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    _require(t.is_contiguous(), f"{name} must be contiguous")
-    # the kernels copy rows in 16-byte cp.async chunks from aligned starts
-    _require(t.data_ptr() % 32 == 0, f"{name} must be 32-byte aligned")
-
-
-def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _stream(device):
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-
 
 def _check_width(C, what):
     _require(C in SUPPORTED_C,
@@ -433,7 +465,8 @@ def fused_mlp_residual(x, ln_scale, ln_bias, w1, b1, w2, b2, ln_eps=1e-6,
 def fused_attention_residual_bwd(x, g, ln_scale, ln_bias, wqkv, bqkv, wproj,
                                  num_heads, seg_len, scale, ln_eps=1e-6,
                                  use_ln=True, use_residual=True, gamma=None,
-                                 seed=0, attn_drop=0.0, proj_drop=0.0):
+                                 seed=0, attn_drop=0.0, proj_drop=0.0,
+                                 dw=False):
     """The attention branch's backward without the weight gradients
     (_fused_block_bwd_impl, dw=False, pallas_attention.py:921-1049): x, g
     [n_seg, seg_len, C] -> (dx, ln [rows, C], attn [rows, C], dqkv
@@ -441,13 +474,18 @@ def fused_attention_residual_bwd(x, g, ln_scale, ln_bias, wqkv, bqkv, wproj,
     itself. On the card: as fused_attention_residual, g bf16 like x.
     gamma, seed, attn_drop, proj_drop: the reg form, as the forward took
     them; with proj_drop > 0 a ninth output gm [rows, C] (the proj-masked
-    g) and dbproj sums it (float32, without gamma)."""
+    g) and dbproj sums it (float32, without gamma).
+
+    dw=True (_fused_block_bwd_impl, dw=True, :921-1049): (dx, dlns, dlnb,
+    dbqkv, dbproj, dwqkv [C, 3C], dwA [C, C]), the weight gradients formed
+    in the kernel (float32, their sums in an order that varies between
+    launches) and no row-space tensor written."""
     reg = dict(gamma=gamma, seed=seed, attn_drop=attn_drop,
                proj_drop=proj_drop)
     if x.device.type == "cpu":
         return fused_attention_residual_bwd_plain(
             x, g, ln_scale, ln_bias, wqkv, bqkv, wproj, num_heads, seg_len,
-            scale, ln_eps, use_ln, use_residual, **reg)
+            scale, ln_eps, use_ln, use_residual, dw=dw, **reg)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     _require(x.dim() == 3, f"x must be [n_seg, seg_len, C], got "
@@ -475,19 +513,25 @@ def fused_attention_residual_bwd(x, g, ln_scale, ln_bias, wqkv, bqkv, wproj,
     p_thr, p_scale = drop_args(proj_drop)
     rows = n_seg * S
     dx = torch.empty_like(x)
-    ln = (torch.empty(rows, C, dtype=bf16, device=dev) if use_ln
-          else x.view(rows, C))
-    attn = torch.empty(rows, C, dtype=bf16, device=dev)
-    dqkv = torch.empty(rows, 3 * C, dtype=bf16, device=dev)
     sums = torch.zeros(6 * C, dtype=f32, device=dev)
-    out = (dx, ln, attn, dqkv, sums[:C], sums[C:2 * C], sums[2 * C:5 * C],
-           sums[5 * C:])
-    gm = (torch.empty(rows, C, dtype=bf16, device=dev) if proj_drop > 0.0
-          else None)
     geff = (torch.empty(rows, C, dtype=bf16, device=dev)
             if gamma is not None or proj_drop > 0.0 else None)
-    if gm is not None:
-        out = out + (gm,)
+    ln = attn = dqkv = gm = dwqkv = dwA = None
+    if dw:
+        dwqkv = torch.zeros(C, 3 * C, dtype=f32, device=dev)
+        dwA = torch.zeros(C, C, dtype=f32, device=dev)
+        out = (dx, sums[:C], sums[C:2 * C], sums[2 * C:5 * C], sums[5 * C:],
+               dwqkv, dwA)
+    else:
+        ln = (torch.empty(rows, C, dtype=bf16, device=dev) if use_ln
+              else x.view(rows, C))
+        attn = torch.empty(rows, C, dtype=bf16, device=dev)
+        dqkv = torch.empty(rows, 3 * C, dtype=bf16, device=dev)
+        out = (dx, ln, attn, dqkv, sums[:C], sums[C:2 * C],
+               sums[2 * C:5 * C], sums[5 * C:])
+        if proj_drop > 0.0:
+            gm = torch.empty(rows, C, dtype=bf16, device=dev)
+            out = out + (gm,)
     if n_seg == 0:
         return out
     lib = _build.load_library("fused_attention_residual_bwd")
@@ -496,25 +540,28 @@ def fused_attention_residual_bwd(x, g, ln_scale, ln_bias, wqkv, bqkv, wproj,
     part = torch.empty(lib.blocks_for(n_seg, S) * 6 * C, dtype=f32,
                        device=dev)
     fn = lib.launch_fused_attention_residual_bwd
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + \
+    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + \
         [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3 + \
         [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
                               ctypes.c_void_p]
     fn.restype = ctypes.c_int
+
+    def opt(t):
+        return None if t is None else _ptr(t)
+
     with torch.cuda.device(dev):
         status = fn(_ptr(x), _ptr(g), _ptr(ln_scale), _ptr(ln_bias),
                     _ptr(wqkv), _ptr(bqkv), _ptr(wproj), _ptr(dx),
-                    _ptr(ln) if use_ln else None, _ptr(attn), _ptr(dqkv),
-                    _ptr(sums), _ptr(part), n_seg, S, C, num_heads,
+                    opt(ln) if use_ln else None, opt(attn), opt(dqkv),
+                    _ptr(sums), _ptr(part), opt(dwqkv), opt(dwA), n_seg, S,
+                    C, num_heads,
                     float(scale), float(ln_eps), int(bool(use_ln)),
                     int(bool(use_residual)),
-                    None if gamma is None else _ptr(gamma),
-                    None if geff is None else _ptr(geff),
-                    None if gm is None else _ptr(gm), int32_seed(seed),
+                    opt(gamma), opt(geff), opt(gm), int32_seed(seed),
                     a_thr, a_scale, p_thr, p_scale, _stream(dev))
     _build.check(lib, status, "fused_attention_residual_bwd")
     name = _reg_name("fused_attention_residual_bwd", gamma, attn_drop,
-                     proj_drop)
+                     proj_drop) + ("_dw" if dw else "")
     launch_counts[name if use_ln else name + "_bare"] += 1
     return out
 
@@ -560,6 +607,95 @@ def mlp_dz(g2, z, w2):
     return dz, db1
 
 
+def fused_mlp_bwd(x, g, ln_scale, ln_bias, w1, b1, w2, ln_eps=1e-6):
+    """The MLP residual branch's backward from x, with no saved hidden
+    (_fused_mlp_bwd_impl, pallas_attention.py:1634-1693): x, g [..., C] ->
+    (dx like x, ln [rows, C], h [rows, hidden], dz [rows, hidden], dlns,
+    dlnb). dx includes the residual's g. On the card: bf16 x, g and
+    weights, float32 vectors, hidden a multiple of 128."""
+    if x.device.type == "cpu":
+        return fused_mlp_bwd_plain(x, g, ln_scale, ln_bias, w1, b1, w2,
+                                   ln_eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    C = x.shape[-1]
+    hidden = w1.shape[-1]
+    rows = x.numel() // C if C else 0
+    _check_width(C, "fused_mlp_bwd")
+    _require(hidden % 128 == 0 and hidden > 0,
+             f"hidden width {hidden} must be a positive multiple of 128")
+    dev, f32, bf16 = x.device, torch.float32, torch.bfloat16
+    _check_tensor("x", x, dev, bf16, x.shape)
+    _check_tensor("g", g, dev, bf16, x.shape)
+    _check_tensor("ln_scale", ln_scale, dev, f32, (C,))
+    _check_tensor("ln_bias", ln_bias, dev, f32, (C,))
+    _check_tensor("w1", w1, dev, bf16, (C, hidden))
+    _check_tensor("b1", b1, dev, f32, (hidden,))
+    _check_tensor("w2", w2, dev, bf16, (hidden, C))
+    dx = torch.empty_like(x)
+    ln = torch.empty(rows, C, dtype=bf16, device=dev)
+    h = torch.empty(rows, hidden, dtype=bf16, device=dev)
+    dz = torch.empty(rows, hidden, dtype=bf16, device=dev)
+    sums = torch.zeros(2 * C, dtype=f32, device=dev)
+    out = (dx, ln, h, dz, sums[:C], sums[C:])
+    if rows == 0:
+        return out
+    lib = _build.load_library("fused_mlp_bwd")
+    lib.mlp_bwd_blocks.argtypes = [ctypes.c_int]
+    lib.mlp_bwd_blocks.restype = ctypes.c_int
+    part = torch.empty(lib.mlp_bwd_blocks(rows) * 2 * C, dtype=f32,
+                       device=dev)
+    fn = lib.launch_fused_mlp_bwd
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 3 + \
+        [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        status = fn(_ptr(x), _ptr(g), _ptr(ln_scale), _ptr(ln_bias),
+                    _ptr(w1), _ptr(b1), _ptr(w2), _ptr(dx), _ptr(ln),
+                    _ptr(h), _ptr(dz), _ptr(sums), _ptr(part), rows, C,
+                    hidden, float(ln_eps), _stream(dev))
+    _build.check(lib, status, "fused_mlp_bwd")
+    launch_counts["fused_mlp_bwd"] += 1
+    return out
+
+
+def block_diag_attention_fwd(qkv, num_heads, seg_len, scale):
+    """softmax(q k^T * scale) v within each segment (_block_attention_impl,
+    pallas_attention.py:230-263): qkv [n_seg, seg_len, 3C] -> [n_seg,
+    seg_len, C]. On the card: bf16 qkv, head width 64, seg_len <= 64."""
+    if qkv.device.type == "cpu":
+        return block_diag_attention_plain(qkv, num_heads, seg_len, scale)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"no kernel for device {qkv.device}")
+    _require(qkv.dim() == 3, f"qkv must be [n_seg, seg_len, 3C], got "
+             f"{tuple(qkv.shape)}")
+    n_seg, S, C3 = qkv.shape
+    C = C3 // 3
+    _require(S == seg_len, f"qkv has {S} tokens per segment, "
+             f"seg_len={seg_len}")
+    _require(1 <= S <= ATTN_MAX_SEG_LEN,
+             f"seg_len {S} outside the kernel's 1..{ATTN_MAX_SEG_LEN}")
+    _require(C3 == 3 * C and num_heads * HEAD_DIM == C,
+             f"the kernel needs head width {HEAD_DIM}: 3C={C3}, "
+             f"num_heads={num_heads}")
+    dev = qkv.device
+    _check_tensor("qkv", qkv, dev, torch.bfloat16, (n_seg, S, C3))
+    out = torch.empty(n_seg, S, C, dtype=torch.bfloat16, device=dev)
+    if n_seg == 0:
+        return out
+    lib = _build.load_library("block_diag_attention")
+    fn = lib.launch_block_diag_attention
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + \
+        [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        status = fn(_ptr(qkv), _ptr(out), n_seg, S, C, float(scale),
+                    _stream(dev))
+    _build.check(lib, status, "block_diag_attention")
+    launch_counts["block_diag_attention"] += 1
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Autograd functions (the JAX package's custom_vjp entries)
 # ---------------------------------------------------------------------------
@@ -583,89 +719,152 @@ def _mm_f32(a, b):
 class _FusedAttentionResidual(torch.autograd.Function):
     """fused_attention_residual with the backward of _far_bwd
     (pallas_attention.py:1068-1113): the forward saves x and the weights
-    and nothing else; the backward kernel recomputes the rest."""
+    and nothing else; the backward kernel recomputes the rest, and with
+    bwd_dw forms the weight gradients too (:1082-1090)."""
 
     @staticmethod
     def forward(ctx, x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
-                num_heads, seg_len, scale, ln_eps, use_ln, use_residual):
+                num_heads, seg_len, scale, ln_eps, use_ln, use_residual,
+                bwd_dw):
         ctx.save_for_backward(x, ln_scale, ln_bias, wqkv, bqkv, wproj)
         ctx.cfg = (num_heads, seg_len, scale, ln_eps, use_ln, use_residual)
         ctx.bproj_dtype = bproj.dtype
+        ctx.dw = bwd_dw
         return fused_attention_residual(x, ln_scale, ln_bias, wqkv, bqkv,
                                         wproj, bproj, *ctx.cfg)
 
     @staticmethod
     def backward(ctx, g):
         x, ln_scale, ln_bias, wqkv, bqkv, wproj = ctx.saved_tensors
-        dx, ln, attn, dqkv, dlns, dlnb, dbqkv, dbproj = \
-            fused_attention_residual_bwd(x, g.contiguous(), ln_scale,
-                                         ln_bias, wqkv, bqkv, wproj,
-                                         *ctx.cfg)
+        outs = fused_attention_residual_bwd(x, g.contiguous(), ln_scale,
+                                            ln_bias, wqkv, bqkv, wproj,
+                                            *ctx.cfg, dw=ctx.dw)
         need = ctx.needs_input_grad
-        dwqkv = _wgrad(ln, dqkv, wqkv.dtype) if need[3] else None
-        dwproj = (_wgrad(attn, g.reshape(-1, x.shape[-1]), wproj.dtype)
-                  if need[5] else None)
+        if ctx.dw:
+            dx, dlns, dlnb, dbqkv, dbproj, dwqkv, dwproj = outs
+            dwqkv, dwproj = dwqkv.to(wqkv.dtype), dwproj.to(wproj.dtype)
+        else:
+            dx, ln, attn, dqkv, dlns, dlnb, dbqkv, dbproj = outs
+            dwqkv = _wgrad(ln, dqkv, wqkv.dtype) if need[3] else None
+            dwproj = (_wgrad(attn, g.reshape(-1, x.shape[-1]), wproj.dtype)
+                      if need[5] else None)
         return (dx, dlns.to(ln_scale.dtype), dlnb.to(ln_bias.dtype), dwqkv,
                 dbqkv.to(bqkv.dtype), dwproj, dbproj.to(ctx.bproj_dtype),
-                None, None, None, None, None, None)
+                None, None, None, None, None, None, None)
 
 
 class _FusedMLPResidual(torch.autograd.Function):
-    """fused_mlp_residual with the save-hidden backward (_fmr_fwd,
-    _fmr_bwd_saved_hidden, pallas_attention.py:1716-1852): the forward
-    runs the z form and saves z; the backward recomputes LN in float32,
-    runs the dz kernel and the four large products as plain matmuls."""
+    """fused_mlp_residual with a backward of _fmr_bwd (pallas_attention.py:
+    1716-1894). save_hidden: the forward runs the z form and saves z; the
+    backward recomputes LN in float32, runs the dz kernel and the four
+    large products as plain matmuls (_fmr_bwd_saved_hidden). Without: the
+    forward runs the serving form and saves x only; the backward runs the
+    recompute-from-x kernel and the two weight-gradient products."""
 
     @staticmethod
     def forward(ctx, x, ln_scale, ln_bias, w1, b1, w2, b2, ln_eps,
-                use_residual):
-        out, z = fused_mlp_residual(x, ln_scale, ln_bias, w1, b1, w2, b2,
-                                    ln_eps, use_residual, return_hidden=True)
-        ctx.save_for_backward(x, ln_scale, ln_bias, w1, w2, z)
-        ctx.cfg = (ln_eps, use_residual, b1.dtype, b2.dtype)
+                use_residual, save_hidden):
+        if save_hidden:
+            out, z = fused_mlp_residual(x, ln_scale, ln_bias, w1, b1, w2, b2,
+                                        ln_eps, use_residual,
+                                        return_hidden=True)
+        else:
+            out = fused_mlp_residual(x, ln_scale, ln_bias, w1, b1, w2, b2,
+                                     ln_eps, use_residual)
+            z = None
+        ctx.save_for_backward(x, ln_scale, ln_bias, w1, b1, w2, z)
+        ctx.cfg = (ln_eps, use_residual, b2.dtype)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        x, ln_scale, ln_bias, w1, w2, z = ctx.saved_tensors
-        ln_eps, use_residual, b1_dtype, b2_dtype = ctx.cfg
+        x, ln_scale, ln_bias, w1, b1, w2, z = ctx.saved_tensors
+        ln_eps, use_residual, b2_dtype = ctx.cfg
         C = x.shape[-1]
         x2, g2 = x.reshape(-1, C), g.reshape(-1, C).contiguous()
-        lnf, xhat, inv = ln_fwd_f32(x2.float(), ln_scale, ln_bias, ln_eps)
-        ln = lnf.to(x.dtype)
-        dz, db1 = mlp_dz(g2, z, w2)
-        # h = gelu(z): the exact GELU in float32 from the rounded z, rounded
-        # once to z's dtype (gelu computes bf16 in float32), in one pass
-        h = torch.nn.functional.gelu(z, approximate="none")
-        dw1 = _wgrad(ln, dz, w1.dtype)
-        dw2 = _wgrad(h, g2, w2.dtype)
-        del h
-        dln = _mm_f32(dz, w1.t())
-        dxf, dlns, dlnb = ln_bwd_f32(dln, ln_scale, xhat, inv)
-        if use_residual:
-            dxf += g2                        # float32 += bf16, in place
-        return (dxf.to(x.dtype).view_as(x), dlns.to(ln_scale.dtype),
-                dlnb.to(ln_bias.dtype), dw1, db1.to(b1_dtype), dw2,
-                g2.sum(0, dtype=torch.float32).to(b2_dtype), None, None)
+        if z is None:
+            dx, ln, h, dz, dlns, dlnb = fused_mlp_bwd(
+                x, g2.view_as(x), ln_scale, ln_bias, w1, b1, w2, ln_eps)
+            db1 = dz.sum(0, dtype=torch.float32)
+            dw1 = _wgrad(ln, dz, w1.dtype)
+            dw2 = _wgrad(h, g2, w2.dtype)
+        else:
+            lnf, xhat, inv = ln_fwd_f32(x2.float(), ln_scale, ln_bias,
+                                        ln_eps)
+            ln = lnf.to(x.dtype)
+            dz, db1 = mlp_dz(g2, z, w2)
+            # h = gelu(z): the exact GELU in float32 from the rounded z,
+            # rounded once to z's dtype (gelu computes bf16 in float32), in
+            # one pass
+            h = torch.nn.functional.gelu(z, approximate="none")
+            dw1 = _wgrad(ln, dz, w1.dtype)
+            dw2 = _wgrad(h, g2, w2.dtype)
+            del h
+            dln = _mm_f32(dz, w1.t())
+            dxf, dlns, dlnb = ln_bwd_f32(dln, ln_scale, xhat, inv)
+            if use_residual:
+                dxf += g2                    # float32 += bf16, in place
+            dx = dxf.to(x.dtype).view_as(x)
+        return (dx, dlns.to(ln_scale.dtype), dlnb.to(ln_bias.dtype), dw1,
+                db1.to(b1.dtype), dw2,
+                g2.sum(0, dtype=torch.float32).to(b2_dtype), None, None,
+                None)
+
+
+class _BlockDiagAttention(torch.autograd.Function):
+    """block_diag_attention (pallas_attention.py:2129-2150): the kernel
+    forward; the backward recomputes from qkv through the plain version's
+    autograd, as _bwd takes the XLA reference's vjp."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads, seg_len, scale):
+        ctx.save_for_backward(qkv)
+        ctx.cfg = (num_heads, seg_len, scale)
+        return block_diag_attention_fwd(qkv, num_heads, seg_len, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        (qkv,) = ctx.saved_tensors
+        with torch.enable_grad():
+            t = qkv.detach().requires_grad_(True)
+            out = block_diag_attention_plain(t, *ctx.cfg)
+            (dqkv,) = torch.autograd.grad(out, t, g)
+        return dqkv, None, None, None
 
 
 def attention_residual(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
                        num_heads, seg_len, scale, ln_eps=1e-6, use_ln=True,
-                       use_residual=True):
-    """fused_attention_residual, differentiable (pallas_attention.py:1053)."""
+                       use_residual=True, bwd_dw=False):
+    """fused_attention_residual, differentiable (pallas_attention.py:1053).
+    bwd_dw: the backward's dw form (DUOFORMER_BWD_DW=1)."""
     return _FusedAttentionResidual.apply(
         x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, num_heads, seg_len,
-        scale, ln_eps, use_ln, use_residual)
+        scale, ln_eps, use_ln, use_residual, bwd_dw)
 
 
 def mlp_residual(x, ln_scale, ln_bias, w1, b1, w2, b2, ln_eps=1e-6,
-                 use_residual=True):
-    """fused_mlp_residual, differentiable (pallas_attention.py:1696): the z
-    form and its saved hidden only where a gradient will be taken, the
-    serving form otherwise."""
+                 use_residual=True, save_hidden=True):
+    """fused_mlp_residual, differentiable (pallas_attention.py:1696): where
+    a gradient will be taken, the z form and its saved hidden, or with
+    save_hidden=False (DUOFORMER_MLP_SAVE_HIDDEN=0) the serving form and
+    the recompute-from-x backward; the serving form otherwise.
+    use_residual=False without a saved hidden (the JAX package's TP shards)
+    raises NotImplementedError."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, ln_scale, ln_bias, w1, b1, w2, b2)):
+        if not save_hidden and not use_residual:
+            raise NotImplementedError(
+                "the recompute-from-x MLP backward without the residual "
+                "(tensor-parallel shards) is not ported to the PyTorch "
+                "package yet")
         return _FusedMLPResidual.apply(x, ln_scale, ln_bias, w1, b1, w2, b2,
-                                       ln_eps, use_residual)
+                                       ln_eps, use_residual, save_hidden)
     return fused_mlp_residual(x, ln_scale, ln_bias, w1, b1, w2, b2, ln_eps,
                               use_residual)
+
+
+def block_diag_attention(qkv, num_heads, seg_len, scale):
+    """Attention over independent fixed-length segments, differentiable
+    (pallas_attention.py:2129): qkv [n_seg, seg_len, 3C] (q | k | v, heads
+    contiguous in each) -> [n_seg, seg_len, C]."""
+    return _BlockDiagAttention.apply(qkv, num_heads, seg_len, scale)

@@ -16,7 +16,10 @@ the backwards follow _far_reg_bwd (:1228-1278) and _fmr_reg_bwd
 XLA there, and LayerScale's gradients come from identities outside the
 kernels, dgamma = sum_k A * W + b * colsum(gm) and dW = A * gamma, with A
 the one product attn^T gm (h_d^T gm for the MLP), so the branch output is
-never formed again. The seed gets no gradient.
+never formed again. The seed gets no gradient. With bwd_dw=True the
+attention backward kernel's dw form gives A itself (:1239-1245); with
+save_hidden=False the MLP forward saves no z and the backward recomputes
+it from x before the same mask passes (:2069-2077).
 
 gamma is a float32 [C] tensor on every call (ones where a block has no
 LayerScale, as the JAX package passes); seed is a Python int (an int32
@@ -120,11 +123,12 @@ class _AttentionResidualReg(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, gamma,
                 seed, num_heads, seg_len, scale, ln_eps, use_ln,
-                use_residual, attn_drop, proj_drop):
+                use_residual, attn_drop, proj_drop, bwd_dw):
         ctx.save_for_backward(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
                               gamma)
         ctx.cfg = (num_heads, seg_len, scale, ln_eps, use_ln, use_residual)
         ctx.reg = dict(seed=seed, attn_drop=attn_drop, proj_drop=proj_drop)
+        ctx.dw = bwd_dw
         return fused_attention_residual(x, ln_scale, ln_bias, wqkv, bqkv,
                                         wproj, bproj, *ctx.cfg, gamma=gamma,
                                         **ctx.reg)
@@ -135,47 +139,61 @@ class _AttentionResidualReg(torch.autograd.Function):
             ctx.saved_tensors
         outs = fused_attention_residual_bwd(
             x, g.contiguous(), ln_scale, ln_bias, wqkv, bqkv, wproj,
-            *ctx.cfg, gamma=gamma, **ctx.reg)
-        dx, ln, attn, dqkv, dlns, dlnb, dbqkv, dbp = outs[:8]
-        C = x.shape[-1]
-        gm = outs[8] if len(outs) > 8 else g.reshape(-1, C)
-        dwqkv = _wgrad(ln, dqkv, wqkv.dtype)
-        # A = attn^T gm yields dwproj and dgamma's weight term
-        A = _mm_f32(attn.t(), gm)
+            *ctx.cfg, gamma=gamma, dw=ctx.dw, **ctx.reg)
+        if ctx.dw:
+            dx, dlns, dlnb, dbqkv, dbp, dwqkv, A = outs
+            dwqkv = dwqkv.to(wqkv.dtype)
+        else:
+            dx, ln, attn, dqkv, dlns, dlnb, dbqkv, dbp = outs[:8]
+            C = x.shape[-1]
+            gm = outs[8] if len(outs) > 8 else g.reshape(-1, C)
+            dwqkv = _wgrad(ln, dqkv, wqkv.dtype)
+            # A = attn^T gm yields dwproj and dgamma's weight term
+            A = _mm_f32(attn.t(), gm)
         gf = gamma.float()
         dwproj = (A * gf).to(wproj.dtype)
         dgamma = (A * wproj.float()).sum(0) + bproj.float() * dbp
         return (dx, dlns.to(ln_scale.dtype), dlnb.to(ln_bias.dtype), dwqkv,
                 dbqkv.to(bqkv.dtype), dwproj, (gf * dbp).to(bproj.dtype),
                 dgamma.to(gamma.dtype), None, None, None, None, None, None,
-                None, None, None)
+                None, None, None, None)
 
 
 class _MLPResidualReg(torch.autograd.Function):
-    """fused_mlp_residual_reg with the save-hidden backward of
-    _fmr_reg_bwd (pallas_attention.py:2038-2122): the forward runs the z
-    form (z before dropout) and saves z; the backward regenerates the
-    masks with drop_ew (gm, hd, dz), or, without dropout, runs the dz
-    kernel on g * gamma; the products are plain matmuls."""
+    """fused_mlp_residual_reg with the backward of _fmr_reg_bwd
+    (pallas_attention.py:2038-2122): the forward runs the z form (z before
+    dropout) and saves z, or with save_hidden=False the serving form and
+    no z, which the backward recomputes, z = bf16(ln w1 + b1); the
+    backward regenerates the masks with drop_ew (gm, hd, dz), or, without
+    dropout, runs the dz kernel on g * gamma; the products are plain
+    matmuls."""
 
     @staticmethod
     def forward(ctx, x, ln_scale, ln_bias, w1, b1, w2, b2, gamma, seed,
-                ln_eps, use_residual, drop):
-        out, z = fused_mlp_residual(x, ln_scale, ln_bias, w1, b1, w2, b2,
-                                    ln_eps, use_residual, return_hidden=True,
-                                    gamma=gamma, seed=seed, drop=drop)
-        ctx.save_for_backward(x, ln_scale, ln_bias, w1, w2, b2, gamma, z)
-        ctx.cfg = (seed, ln_eps, use_residual, drop, b1.dtype)
+                ln_eps, use_residual, drop, save_hidden):
+        flags = dict(gamma=gamma, seed=seed, drop=drop)
+        if save_hidden:
+            out, z = fused_mlp_residual(x, ln_scale, ln_bias, w1, b1, w2, b2,
+                                        ln_eps, use_residual,
+                                        return_hidden=True, **flags)
+        else:
+            out = fused_mlp_residual(x, ln_scale, ln_bias, w1, b1, w2, b2,
+                                     ln_eps, use_residual, **flags)
+            z = None
+        ctx.save_for_backward(x, ln_scale, ln_bias, w1, b1, w2, b2, gamma, z)
+        ctx.cfg = (seed, ln_eps, use_residual, drop)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        x, ln_scale, ln_bias, w1, w2, b2, gamma, z = ctx.saved_tensors
-        seed, ln_eps, use_residual, drop, b1_dtype = ctx.cfg
+        x, ln_scale, ln_bias, w1, b1, w2, b2, gamma, z = ctx.saved_tensors
+        seed, ln_eps, use_residual, drop = ctx.cfg
         C, dt = x.shape[-1], x.dtype
         x2, g2 = x.reshape(-1, C), g.reshape(-1, C).contiguous()
         lnf, xhat, inv = ln_fwd_f32(x2.float(), ln_scale, ln_bias, ln_eps)
         ln = lnf.to(dt)
+        if z is None:             # recompute-from-x, then the same passes
+            z = (_mm_f32(ln, w1) + b1.float()).to(dt)
         gf = gamma.float()
         if drop > 0.0:
             gm2b = drop_ew(g2, seed, drop, dr._SITE_MLP_OUT, "gm")
@@ -201,31 +219,36 @@ class _MLPResidualReg(torch.autograd.Function):
         if use_residual:
             dxf += g2                        # float32 += bf16, in place
         return (dxf.to(dt).view_as(x), dlns.to(ln_scale.dtype),
-                dlnb.to(ln_bias.dtype), dw1, db1.to(b1_dtype), dw2,
+                dlnb.to(ln_bias.dtype), dw1, db1.to(b1.dtype), dw2,
                 (gf * colsum).to(b2.dtype), dgamma.to(gamma.dtype), None,
-                None, None, None)
+                None, None, None, None)
 
 
 def attention_residual_reg(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
                            gamma, seed, num_heads, seg_len, scale,
                            ln_eps=1e-6, use_ln=True, use_residual=True,
-                           attn_drop=0.0, proj_drop=0.0):
-    """fused_attention_residual_reg, differentiable (:1202)."""
+                           attn_drop=0.0, proj_drop=0.0, bwd_dw=False):
+    """fused_attention_residual_reg, differentiable (:1202). bwd_dw: the
+    backward kernel's dw form (DUOFORMER_BWD_DW=1)."""
     return _AttentionResidualReg.apply(
         x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, gamma, seed,
         num_heads, seg_len, scale, ln_eps, use_ln, use_residual, attn_drop,
-        proj_drop)
+        proj_drop, bwd_dw)
 
 
 def mlp_residual_reg(x, ln_scale, ln_bias, w1, b1, w2, b2, gamma, seed,
-                     ln_eps=1e-6, use_residual=True, drop=0.0):
-    """fused_mlp_residual_reg, differentiable (:1940): the z form where a
-    gradient will be taken, the serving form otherwise."""
+                     ln_eps=1e-6, use_residual=True, drop=0.0,
+                     save_hidden=True):
+    """fused_mlp_residual_reg, differentiable (:1940): where a gradient will
+    be taken the z form, or with save_hidden=False
+    (DUOFORMER_MLP_SAVE_HIDDEN=0) the serving form and a backward that
+    recomputes z; the serving form otherwise."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, ln_scale, ln_bias, w1, b1, w2, b2,
                                       gamma)):
         return _MLPResidualReg.apply(x, ln_scale, ln_bias, w1, b1, w2, b2,
-                                     gamma, seed, ln_eps, use_residual, drop)
+                                     gamma, seed, ln_eps, use_residual, drop,
+                                     save_hidden)
     return fused_mlp_residual(x, ln_scale, ln_bias, w1, b1, w2, b2, ln_eps,
                               use_residual, gamma=gamma, seed=seed,
                               drop=drop)

@@ -2,6 +2,10 @@
 duoformer_tcga_tpu/ops/nn.py), as plain functions plus the small
 parameter-holding modules built on them.
 
+`fused_layernorm` is the row LayerNorm kernel (csrc/layernorm.cu, the JAX
+package's ops/pallas_norm.py), which LayerNorm(fused=True) takes for a
+width that is a multiple of 128, as pallas_norm.use_fused_ln gates it.
+
 Layouts: linear weights are kept (in, out), as in the JAX package, so the
 fused kernels take them as they are. Convolutions run NCHW with OIHW
 weights, the layout cuDNN expects; the models keep both in channels_last
@@ -12,11 +16,15 @@ in every serving dtype: the JAX package reads them as float32 too.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from . import _build
 from . import initializers as init
+from ._build import _check_tensor, _ptr, _require, _stream, launch_counts
 
 
 # ---------------------------------------------------------------------------
@@ -40,6 +48,71 @@ def layernorm(x, scale, bias, eps=1e-6):
     var = (xf - mean).square().mean(-1, keepdim=True)
     y = (xf - mean) * torch.rsqrt(var + eps)
     return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+def fused_layernorm_plain(x, scale, bias, eps=1e-6):
+    """Plain twin of the LayerNorm kernel (_ln_kernel, pallas_norm.py:47-53):
+    float32 mean and two-pass variance, one rounding to x's dtype."""
+    return layernorm(x, scale, bias, eps)
+
+
+def _fused_layernorm_fwd(x, scale, bias, eps):
+    """The LayerNorm kernel (pallas_norm._impl, :65-93): x [..., C] -> like
+    x. On the card: bf16 x, float32 scale and bias, C a multiple of 128."""
+    if x.device.type == "cpu":
+        return fused_layernorm_plain(x, scale, bias, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    C = x.shape[-1]
+    _require(C > 0 and C % 128 == 0,
+             f"the LayerNorm kernel needs C a multiple of 128, got {C}")
+    dev = x.device
+    _check_tensor("x", x, dev, torch.bfloat16, x.shape)
+    _check_tensor("scale", scale, dev, torch.float32, (C,))
+    _check_tensor("bias", bias, dev, torch.float32, (C,))
+    out = torch.empty_like(x)
+    rows = x.numel() // C
+    if rows == 0:
+        return out
+    lib = _build.load_library("layernorm")
+    fn = lib.launch_layernorm
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_long, ctypes.c_int,
+                                           ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        status = fn(_ptr(x), _ptr(scale), _ptr(bias), _ptr(out), rows, C,
+                    float(eps), _stream(dev))
+    _build.check(lib, status, "layernorm")
+    launch_counts["fused_layernorm"] += 1
+    return out
+
+
+class _FusedLayerNorm(torch.autograd.Function):
+    """fused_layernorm (pallas_norm.py:96-112): the kernel forward; the
+    backward recomputes through the plain version's autograd, as _bwd
+    takes the XLA reference's vjp."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps):
+        ctx.save_for_backward(x, scale, bias)
+        ctx.eps = eps
+        return _fused_layernorm_fwd(x, scale, bias, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        leaves = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = fused_layernorm_plain(*leaves, ctx.eps)
+            grads = torch.autograd.grad(out, leaves, g)
+        return (*grads, None)
+
+
+def fused_layernorm(x, scale, bias, eps=1e-6):
+    """LayerNorm over the last axis through the kernel, differentiable
+    (pallas_norm.fused_layernorm); x [..., C], C % 128 == 0. A strided x
+    (the CLS rows of a token batch) is copied to rows first, as the JAX
+    package's reshape does."""
+    return _FusedLayerNorm.apply(x.contiguous(), scale, bias, eps)
 
 
 def _same_padding(size, k, s):
@@ -149,13 +222,20 @@ class Linear(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    def __init__(self, dim, eps=1e-6):
+    """fused: run the LayerNorm kernel where the width is a multiple of 128
+    (the JAX package's DUOFORMER_FUSED_LN=1 and its gate,
+    pallas_norm.py:35-44), the plain layernorm otherwise."""
+
+    def __init__(self, dim, eps=1e-6, fused=False):
         super().__init__()
         self.eps = eps
+        self.fused = fused
         self.scale = nn.Parameter(init.ones((dim,)))
         self.bias = nn.Parameter(init.zeros((dim,)))
 
     def forward(self, x):
+        if self.fused and x.shape[-1] % 128 == 0:
+            return fused_layernorm(x, self.scale, self.bias, self.eps)
         return layernorm(x, self.scale, self.bias, self.eps)
 
 

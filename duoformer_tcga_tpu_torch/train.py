@@ -174,17 +174,35 @@ def init_train_state(model, optimizer) -> dict:
             "step": 0}
 
 
+def set_backward_routes(model, mlp_save_hidden=True, attn_bwd_dw=False):
+    """Set the backward routes of every block of `model` (the JAX package's
+    DUOFORMER_MLP_SAVE_HIDDEN and DUOFORMER_BWD_DW; models/transformer.py):
+    mlp_save_hidden=False saves no MLP hidden and recomputes it from x in
+    the backward kernel; attn_bwd_dw=True forms the attention weight
+    gradients in the backward kernel. Returns `model`."""
+    from .models.transformer import PatchBlock, ScaleBlock
+    for m in model.modules():
+        if isinstance(m, ScaleBlock):
+            m.mlp_save_hidden = mlp_save_hidden
+        if isinstance(m, (ScaleBlock, PatchBlock)):
+            m.attn_bwd_dw = attn_bwd_dw
+    return model
+
+
 def make_train_step(model, dtype=torch.bfloat16, label_smoothing=0.0,
                     class_weights=None, accum_steps=1, augment="none",
                     jitter=0.0, mixup=0.0, ema=0.0, bn_stats=False,
                     mesh=None, pp_microbatches=None, remat=False,
-                    dropout_seed=0):
+                    dropout_seed=0, mlp_save_hidden=True, attn_bwd_dw=False):
     """-> step(state, batch, seeds=None) -> (state, {"loss", "accuracy"});
     batch is {"image": [B, 224, 224, 3] uint8 tiles (normalised on the
     device) or an already normalised float batch, "label": [B] int}.
     A model with dropout draws each step's seeds from
     torch.Generator().manual_seed(dropout_seed), owned by the step, unless
-    `seeds` are given.
+    `seeds` are given. mlp_save_hidden=False and attn_bwd_dw=True are the
+    memory-lean step's backward routes (set_backward_routes): no saved MLP
+    hidden, and no row-space tensor of the attention backward in device
+    memory.
 
     Prepares the model in place: training mode, and with a frozen backbone
     its weights cast once to `dtype` (the JAX step's per-step astype of
@@ -201,6 +219,7 @@ def make_train_step(model, dtype=torch.bfloat16, label_smoothing=0.0,
             raise NotImplementedError(
                 f"{name} is not ported to the PyTorch package yet")
     model.train()
+    set_backward_routes(model, mlp_save_hidden, attn_bwd_dw)
     device = next(model.parameters()).device
     if model.freeze_backbone:
         cast_weights_(model.backbone, dtype)

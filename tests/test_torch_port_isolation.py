@@ -13,6 +13,7 @@ import torch
 import duoformer_tcga_tpu_torch as port
 from duoformer_tcga_tpu_torch.ops import _build
 from duoformer_tcga_tpu_torch.ops import fused_attention as fa
+from duoformer_tcga_tpu_torch.ops import nn as tnn
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -72,6 +73,15 @@ def test_wrappers_refuse_devices_without_a_kernel():
         fa.fused_attention_residual_bwd(x, x, v, v, x, v, x, 2, 6, 0.125)
     with pytest.raises(ValueError, match="no kernel"):
         fa.mlp_dz(x, x, x)
+    with pytest.raises(ValueError, match="no kernel"):
+        fa.fused_attention_residual_bwd(x, x, v, v, x, v, x, 2, 6, 0.125,
+                                        dw=True)
+    with pytest.raises(ValueError, match="no kernel"):
+        fa.fused_mlp_bwd(x, x, v, v, x, v, x)
+    with pytest.raises(ValueError, match="no kernel"):
+        fa.block_diag_attention_fwd(x, 2, 6, 0.125)
+    with pytest.raises(ValueError, match="no kernel"):
+        tnn._fused_layernorm_fwd(x, v, v, 1e-6)
     assert sum(fa.launch_counts.values()) == 0
 
 

@@ -1,0 +1,472 @@
+"""The PyTorch port's memory-lean training routes against the JAX package,
+on the CPU in float32: the recompute-from-x MLP backward
+(mlp_save_hidden=False), the attention backward's dw form
+(attn_bwd_dw=True), the fused LayerNorm (fused_ln=True) and the
+block-diagonal attention op.
+
+The port's wrappers run their plain versions here (CPU tensors); the JAX
+side runs its Pallas kernels in interpret mode, with its switches set by
+monkeypatch as tests/test_pallas_backward.py sets them
+(DUOFORMER_MLP_SAVE_HIDDEN=0 with DUOFORMER_PALLAS_MLP_BWD=1,
+DUOFORMER_BWD_DW=1, DUOFORMER_FUSED_LN=1). Inputs come from numpy with a
+seed and go to both sides unchanged.
+
+Bars:
+  * the plain versions and the differentiable entries: atol = rtol = 3e-5
+    in units of each output's RMS, the bar of
+    tests/test_torch_port_kernels.py (float32 on both sides; only the
+    summation order and JAX's polynomial erf, within 1.5e-7, differ);
+  * mlp_residual without a saved hidden against the JAX package's XLA vjp
+    (DUOFORMER_PALLAS_MLP_BWD=0): 1e-4, the repo's parity bar
+    (tests/test_parity.py:19-29): XLA differentiates its own composition,
+    whose sums run in another order than the kernel's;
+  * the training steps: the bars of tests/test_torch_port_train.py
+    (release) and tests/test_torch_port_reg.py (legacy), whose helpers
+    this file uses.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from duoformer_tcga_tpu import train as jtrain
+from duoformer_tcga_tpu.data import pipeline as jpipeline
+from duoformer_tcga_tpu.models.duoformer import (
+    DuoFormer as JaxDuoFormer, DuoFormerLegacy as JaxLegacy)
+from duoformer_tcga_tpu.ops import pallas_attention as pa
+from duoformer_tcga_tpu.ops import pallas_norm as pn
+
+import duoformer_tcga_tpu_torch as port
+from duoformer_tcga_tpu_torch import train as ttrain
+from duoformer_tcga_tpu_torch.ops import fused_attention as fa
+from duoformer_tcga_tpu_torch.ops import fused_reg as fr
+from duoformer_tcga_tpu_torch.ops import nn as tnn
+from duoformer_tcga_tpu_torch.utils.convert import (export_jax_params,
+                                                    load_jax_params)
+
+from test_torch_port_reg import (_arr, _attention_args, _close_in_rms_units,
+                                 _flat, _gamma, _rel_l2, _rms, legacy_seeds)
+
+TOL = dict(atol=3e-5, rtol=3e-5)
+PARITY = dict(atol=1e-4, rtol=1e-4)
+SEED = 12345
+CFG = dict(depth=2, embed_dim=128, num_heads=2, proj_dim=128, num_classes=3)
+LEAN_ENV = {"DUOFORMER_FUSED_ATTN": "1", "DUOFORMER_MEGAFUSE": "1",
+            "DUOFORMER_PALLAS_BWD": "1", "DUOFORMER_MLP_SAVE_HIDDEN": "0",
+            "DUOFORMER_PALLAS_MLP_BWD": "1", "DUOFORMER_BWD_DW": "1",
+            "DUOFORMER_FUSED_LN": "1"}
+
+
+def _j(arrays):
+    return [jnp.asarray(a) for a in arrays]
+
+
+def _leaves(arrays):
+    return [torch.tensor(a, requires_grad=True) for a in arrays]
+
+
+def _check_grads(names, leaves, ref_grads, tol=TOL):
+    for name, t, r in zip(names, leaves, ref_grads):
+        _close_in_rms_units(t.grad, r, tol, name)
+
+
+def _mlp_args(rng, rows, C=128, hidden=512):
+    return [_arr(rng, rows, C), _arr(rng, C, std=0.1, mean=1.0),
+            _arr(rng, C, std=0.1), _arr(rng, C, hidden, std=0.1),
+            _arr(rng, hidden, std=0.1), _arr(rng, hidden, C, std=0.05),
+            _arr(rng, C, std=0.1)]
+
+
+MLP_GRADS = ("dx", "dlns", "dlnb", "dw1", "db1", "dw2", "db2")
+ATTN_GRADS = ("dx", "dlns", "dlnb", "dwqkv", "dbqkv", "dwproj", "dbproj",
+              "dgamma")
+
+
+# ---------------------------------------------------------------------------
+# The recompute-from-x MLP backward
+# ---------------------------------------------------------------------------
+
+def test_fused_mlp_bwd_plain_matches_pallas():
+    """All six outputs against _fused_mlp_bwd_impl at ragged rows (77: the
+    TPU kernel pads to its row tile, the port does not)."""
+    rng = np.random.default_rng(0)
+    rows = 77
+    x, lns, lnb, w1, b1, w2, _ = _mlp_args(rng, rows)
+    g = _arr(rng, rows, 128)
+    ref = pa._fused_mlp_bwd_impl(*_j((x, g, lns, lnb, w1, b1, w2)), 1e-6)
+    got = fa.fused_mlp_bwd(*(torch.from_numpy(a) for a in
+                             (x, g, lns, lnb, w1, b1, w2)), 1e-6)
+    for name, t, r in zip(("dx", "ln", "h", "dz", "dlns", "dlnb"), got, ref):
+        r = np.asarray(r)
+        _close_in_rms_units(t, r[:rows] if r.ndim == 2 else r, TOL, name)
+
+
+@pytest.mark.parametrize("pallas_mlp_bwd,tol", [("1", TOL), ("0", PARITY)],
+                         ids=["kernel", "xla_vjp"])
+def test_mlp_residual_without_saved_hidden_matches_jax_vjp(
+        monkeypatch, pallas_mlp_bwd, tol):
+    """mlp_residual(save_hidden=False): the output and every gradient
+    against jax.vjp of fused_mlp_residual without a saved hidden, on the
+    kernel route (DUOFORMER_PALLAS_MLP_BWD=1) and the XLA vjp (=0)."""
+    monkeypatch.setenv("DUOFORMER_MLP_SAVE_HIDDEN", "0")
+    monkeypatch.setenv("DUOFORMER_PALLAS_MLP_BWD", pallas_mlp_bwd)
+    rng = np.random.default_rng(1)
+    args = _mlp_args(rng, 7)
+    args[0] = _arr(rng, 7, 11, 128)
+    g = _arr(rng, 7, 11, 128)
+    ref, vjp = jax.vjp(lambda *a: pa.fused_mlp_residual(*a, 1e-6),
+                       *_j(args))
+    ts = _leaves(args)
+    out = fa.mlp_residual(*ts, 1e-6, save_hidden=False)
+    out.backward(torch.from_numpy(g))
+    _close_in_rms_units(out.detach(), ref, tol, "y")
+    _check_grads(MLP_GRADS, ts, vjp(jnp.asarray(g)), tol)
+
+
+def test_mlp_residual_without_saved_hidden_or_residual_raises():
+    ts = _leaves(_mlp_args(np.random.default_rng(2), 5))
+    with pytest.raises(NotImplementedError):
+        fa.mlp_residual(*ts, 1e-6, use_residual=False, save_hidden=False)
+
+
+@pytest.mark.parametrize("drop", [0.1, 0.0])
+def test_mlp_reg_without_saved_hidden_matches_jax_vjp(monkeypatch, drop):
+    """mlp_residual_reg(save_hidden=False) against jax.vjp of
+    fused_mlp_residual_reg under DUOFORMER_MLP_SAVE_HIDDEN=0: _fmr_reg_bwd
+    with z None, which recomputes z and takes the mask passes."""
+    monkeypatch.setenv("DUOFORMER_MLP_SAVE_HIDDEN", "0")
+    rng = np.random.default_rng(3)
+    args = _mlp_args(rng, 77) + [_gamma(rng, 128)]
+    g = _arr(rng, 77, 128)
+    ref, vjp = jax.vjp(
+        lambda *a: pa.fused_mlp_residual_reg(*a, jnp.int32(SEED), 1e-6, True,
+                                             drop), *_j(args))
+    ts = _leaves(args)
+    out = fr.mlp_residual_reg(*ts, SEED, 1e-6, True, drop, save_hidden=False)
+    out.backward(torch.from_numpy(g))
+    _close_in_rms_units(out.detach(), ref, TOL, "y")
+    _check_grads(MLP_GRADS + ("dgamma",), ts, vjp(jnp.asarray(g)))
+
+
+# ---------------------------------------------------------------------------
+# The attention backward's dw form
+# ---------------------------------------------------------------------------
+
+# (use_ln, gamma and dropout): the full and bare inert forms, the legacy
+# scale blocks' reg form and its region pass
+DW_FORMS = [(True, False), (False, False), (True, True), (False, True)]
+DW_IDS = ["full", "bare", "reg_full", "reg_bare"]
+
+
+@pytest.mark.parametrize("use_ln,reg", DW_FORMS, ids=DW_IDS)
+def test_attention_bwd_dw_plain_matches_pallas(use_ln, reg):
+    """fused_attention_residual_bwd(dw=True) against
+    _fused_block_bwd_impl(dw=True): dx, the four column sums, dwqkv and
+    dwA (attn^T gm with the proj dropout)."""
+    rng = np.random.default_rng(4)
+    n_seg, S, H = (13, 6, 2) if use_ln else (3, 50, 2)
+    x, lns, lnb, wqkv, bqkv, wproj, _, gamma = _attention_args(rng, n_seg, S,
+                                                               128)
+    g = _arr(rng, n_seg, S, 128)
+    kw = {}
+    if reg:
+        kw = dict(attn_drop=0.1, proj_drop=0.1 if use_ln else 0.0)
+    ref = pa._fused_block_bwd_impl(
+        *_j((x, g, lns, lnb, wqkv, bqkv, wproj)), H, S, 0.3, 1e-6, use_ln,
+        use_ln, gamma=jnp.asarray(gamma) if reg else None,
+        seed=jnp.int32(SEED) if reg else None, dw=True, **kw)
+    got = fa.fused_attention_residual_bwd(
+        *(torch.from_numpy(a) for a in (x, g, lns, lnb, wqkv, bqkv, wproj)),
+        H, S, 0.3, 1e-6, use_ln, use_ln,
+        gamma=torch.from_numpy(gamma) if reg else None, seed=SEED, dw=True,
+        **kw)
+    names = ("dx", "dlns", "dlnb", "dbqkv", "dbproj", "dwqkv", "dwA")
+    assert len(got) == len(ref) == len(names)
+    for name, t, r in zip(names, got, ref):
+        if not use_ln and name in ("dlns", "dlnb"):
+            assert not np.any(np.asarray(r)) and not t.any()
+            continue
+        _close_in_rms_units(t, r, TOL, name)
+
+
+@pytest.mark.parametrize("use_ln,reg", DW_FORMS, ids=DW_IDS)
+def test_attention_autograd_dw_matches_jax_vjp(monkeypatch, use_ln, reg):
+    """attention_residual and attention_residual_reg with bwd_dw=True: the
+    output and every gradient against jax.vjp of the JAX entries under
+    DUOFORMER_BWD_DW=1 (_far_bwd, _far_reg_bwd)."""
+    monkeypatch.setenv("DUOFORMER_BWD_DW", "1")
+    rng = np.random.default_rng(5)
+    n_seg, S, H = (13, 6, 2) if use_ln else (3, 50, 2)
+    args = _attention_args(rng, n_seg, S, 128)
+    g = _arr(rng, n_seg, S, 128)
+    if reg:
+        rates = (0.1, 0.1 if use_ln else 0.0)
+        ref, vjp = jax.vjp(
+            lambda *a: pa.fused_attention_residual_reg(
+                *a, jnp.int32(SEED), H, S, 0.3, 1e-6, use_ln, use_ln,
+                *rates), *_j(args))
+        ts = _leaves(args)
+        out = fr.attention_residual_reg(*ts, SEED, H, S, 0.3, 1e-6, use_ln,
+                                        use_ln, *rates, bwd_dw=True)
+    else:
+        ref, vjp = jax.vjp(
+            lambda *a: pa.fused_attention_residual(*a, H, S, 0.3, 1e-6,
+                                                   use_ln, use_ln),
+            *_j(args[:7]))
+        ts = _leaves(args[:7])
+        out = fa.attention_residual(*ts, H, S, 0.3, 1e-6, use_ln, use_ln,
+                                    bwd_dw=True)
+    out.backward(torch.from_numpy(g))
+    _close_in_rms_units(out.detach(), ref, TOL, "y")
+    for name, t, r in zip(ATTN_GRADS, ts, vjp(jnp.asarray(g))):
+        if not use_ln and name in ("dlns", "dlnb"):
+            assert not np.any(np.asarray(r)) and not t.grad.any()
+            continue
+        _close_in_rms_units(t.grad, r, TOL, name)
+
+
+# ---------------------------------------------------------------------------
+# The fused LayerNorm and the block-diagonal attention op
+# ---------------------------------------------------------------------------
+
+def test_fused_layernorm_and_gradient_match_pallas():
+    rng = np.random.default_rng(6)
+    args = [_arr(rng, 5, 7, 256, std=2.0, mean=0.5),
+            _arr(rng, 256, std=0.1, mean=1.0), _arr(rng, 256, std=0.1)]
+    g = _arr(rng, 5, 7, 256)
+    ref, vjp = jax.vjp(lambda *a: pn.fused_layernorm(*a, 1e-6), *_j(args))
+    ts = _leaves(args)
+    out = tnn.fused_layernorm(*ts, 1e-6)
+    out.backward(torch.from_numpy(g))
+    _close_in_rms_units(out.detach(), ref, TOL, "y")
+    _check_grads(("dx", "dscale", "dbias"), ts, vjp(jnp.asarray(g)))
+
+
+@pytest.mark.parametrize("C", [64, 128, 192, 256])
+def test_layernorm_takes_the_kernel_where_jax_gates_it(monkeypatch, C):
+    """LayerNorm(fused=True) routes to fused_layernorm exactly where
+    pallas_norm.use_fused_ln does under DUOFORMER_FUSED_LN=1 (C % 128 ==
+    0), and LayerNorm() never; both agree with the plain layernorm."""
+    monkeypatch.setenv("DUOFORMER_FUSED_LN", "1")
+    calls = []
+    real = tnn.fused_layernorm
+
+    def spy(*a):
+        calls.append(a[0].shape[-1])
+        return real(*a)
+
+    monkeypatch.setattr(tnn, "fused_layernorm", spy)
+    x = torch.randn(3, C)
+    plain = tnn.LayerNorm(C)(x)
+    fused = tnn.LayerNorm(C, fused=True)(x)
+    assert calls == ([C] if pn.use_fused_ln(jnp.zeros((3, C))) else [])
+    torch.testing.assert_close(fused, plain, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("n_seg,S", [(13, 6), (3, 50)])
+def test_block_diag_attention_and_gradient_match_jax(n_seg, S):
+    rng = np.random.default_rng(7)
+    qkv = _arr(rng, n_seg, S, 3 * 128, std=2.0)
+    g = _arr(rng, n_seg, S, 128)
+    ref, vjp = jax.vjp(lambda a: pa.block_diag_attention(a, 2, S, 0.125),
+                       jnp.asarray(qkv))
+    t = torch.tensor(qkv, requires_grad=True)
+    out = fa.block_diag_attention(t, 2, S, 0.125)
+    out.backward(torch.from_numpy(g))
+    _close_in_rms_units(out.detach(), ref, TOL, "out")
+    _close_in_rms_units(t.grad, vjp(jnp.asarray(g))[0], TOL, "dqkv")
+
+
+def test_new_entries_count_no_launch_on_the_cpu():
+    fa.reset_launch_counts()
+    x = torch.randn(4, 6, 128)
+    tnn.fused_layernorm(x, torch.ones(128), torch.zeros(128))
+    fa.block_diag_attention(torch.randn(4, 6, 384), 2, 6, 0.125)
+    fa.fused_mlp_bwd(x, x, torch.ones(128), torch.zeros(128),
+                     torch.zeros(128, 256), torch.zeros(256),
+                     torch.zeros(256, 128))
+    assert sum(fa.launch_counts.values()) == 0
+
+
+# ---------------------------------------------------------------------------
+# The memory-lean training step, release and legacy
+# ---------------------------------------------------------------------------
+
+def _jax_step(jm, steps, seeds_of=None):
+    """JAX: the first gradients and `steps` steps of make_train_step on 2
+    tiles from PRNGKey(0)'s params, under LEAN_ENV. -> (params0, grads,
+    losses, params after each step, the port's input, labels, the step
+    rng's seeds for the port)."""
+    tiles = np.random.default_rng(0).integers(0, 256, (2, 224, 224, 3),
+                                              dtype=np.uint8)
+    labels = np.array([0, 2], np.int32)
+    mp = pytest.MonkeyPatch()
+    for k, v in LEAN_ENV.items():
+        mp.setenv(k, v)
+    try:
+        opt = jtrain.make_optimizer(
+            jtrain.onecycle_schedule(1e-3, 10), 1e-4,
+            frozen_label_fn=jtrain.backbone_frozen_labels)
+        state = jtrain.init_train_state(jm, jax.random.PRNGKey(0), opt)
+        p0 = jax.tree.map(np.asarray, state["params"])
+        x = jpipeline.preprocess_tiles(jnp.asarray(tiles), dtype=jnp.float32)
+        batch = {"image": x, "label": jnp.asarray(labels)}
+        rng = jax.random.PRNGKey(1)
+        step_rng = jax.random.fold_in(rng, 0)       # train.py:532, step 0
+
+        def loss_fn(p):
+            frozen = jtrain.backbone_frozen_labels(p)
+            p = jax.tree.map(lambda a, lab: jax.lax.stop_gradient(a)
+                             if lab == "frozen" else a, p, frozen)
+            return jtrain.cross_entropy(
+                jm.apply(p, x, rng=step_rng, train=True), batch["label"])
+
+        grads = _flat(jax.jit(jax.grad(loss_fn))(state["params"]))
+        step = jtrain.make_train_step(
+            jm, opt, donate=False,
+            frozen_label_fn=jtrain.backbone_frozen_labels)
+        losses, params = [], []
+        for _ in range(steps):
+            state, m = step(state, batch, rng)
+            losses.append(float(m["loss"]))
+            params.append(_flat(state["params"]))
+    finally:
+        mp.undo()
+    seeds = seeds_of(step_rng, CFG["depth"]) if seeds_of else None
+    return (p0, grads, losses, params, np.array(x), labels, seeds)
+
+
+def _port_step(model, p0, x, labels, steps, seeds=None):
+    load_jax_params(model, p0)
+    opt = ttrain.make_optimizer(model, ttrain.onecycle_schedule(1e-3, 10),
+                                1e-4, ttrain.backbone_frozen_labels)
+    state = ttrain.init_train_state(model, opt)
+    step = ttrain.make_train_step(model, dtype=torch.float32,
+                                  mlp_save_hidden=False, attn_bwd_dw=True)
+    batch = {"image": torch.from_numpy(x), "label": torch.from_numpy(labels)}
+    losses, params, grads = [], [], None
+    for i in range(steps):
+        state, m = step(state, batch, seeds=seeds)
+        losses.append(float(m["loss"]))
+        if i == 0:
+            grads = _flat(export_jax_params(model, grads=True))
+        params.append(_flat(export_jax_params(model)))
+    return grads, losses, params
+
+
+@pytest.fixture(scope="module")
+def release_lean():
+    """The release DuoFormer with the Q7 fix (apply_fc_norm=True), 2 steps
+    on each side: the port with fused_ln and the lean step options."""
+    p0, j_grads, j_losses, j_params, x, labels, _ = _jax_step(
+        JaxDuoFormer(**CFG, num_layers=2, apply_fc_norm=True), 2)
+    model = port.DuoFormer(**CFG, num_layers=2, apply_fc_norm=True,
+                           fused_ln=True)
+    t_grads, t_losses, t_params = _port_step(model, p0, x, labels, 2)
+    return dict(p0=_flat(p0), labels=_flat(jtrain.backbone_frozen_labels(p0)),
+                j_grads=j_grads, j_losses=j_losses, j_params=j_params,
+                t_grads=t_grads, t_losses=t_losses, t_params=t_params,
+                model=model)
+
+
+@pytest.fixture(scope="module")
+def legacy_lean():
+    """The legacy DuoFormer, 1 step on each side with the seeds JAX
+    derives: the port with fused_ln and the lean step options."""
+    p0, j_grads, j_losses, j_params, x, labels, seeds = _jax_step(
+        JaxLegacy(**CFG), 1, legacy_seeds)
+    model = port.DuoFormerLegacy(**CFG, fused_ln=True)
+    t_grads, t_losses, t_params = _port_step(model, p0, x, labels, 1, seeds)
+    return dict(p0=_flat(p0), labels=_flat(jtrain.backbone_frozen_labels(p0)),
+                j_grads=j_grads, j_losses=j_losses, j_params=j_params,
+                t_grads=t_grads, t_losses=t_losses, t_params=t_params,
+                model=model)
+
+
+def test_release_lean_step_matches_jax(release_lean):
+    """Losses of 2 steps at 1e-4; step 1's gradient of every trainable
+    tensor in units of its RMS (fc_norm's now nonzero: the head reads the
+    normalised CLS; tests/test_torch_port_train.py); every leaf after each
+    step at 1e-4, and each trainable leaf's update at a relative L2 error
+    of 1e-2 (tests/test_torch_port_reg.py: elementwise, Adam's first steps
+    turn summation differences of a gradient near eps into update
+    differences of its own size)."""
+    r = release_lean
+    np.testing.assert_allclose(r["t_losses"], r["j_losses"], **PARITY)
+    train = {k for k, lab in r["labels"].items() if lab == "train"}
+    assert set(r["t_grads"]) == train
+    assert np.any(r["j_grads"]["['transformer']['fc_norm']['scale']"])
+    for k, g in r["t_grads"].items():
+        _close_in_rms_units(g, r["j_grads"][k], PARITY, k)
+    for t, j in zip(r["t_params"], r["j_params"]):
+        assert set(t) == set(j)
+        for k in j:
+            np.testing.assert_allclose(t[k], j[k], err_msg=k, **PARITY)
+            if k in train:
+                assert _rel_l2(t[k] - r["p0"][k], j[k] - r["p0"][k]) <= 1e-2, k
+
+
+def test_legacy_lean_step_matches_jax(legacy_lean):
+    """The loss at 1e-4, each gradient at a relative L2 error of 1e-4 (the
+    channel fusers' conv biases, analytically 0, under 1e-4 of their
+    weight gradient's RMS), the params at 1e-4 and each trainable leaf's
+    update at a relative L2 error of 1e-2 (tests/test_torch_port_reg.py)."""
+    r = legacy_lean
+    np.testing.assert_allclose(r["t_losses"], r["j_losses"], **PARITY)
+    train = {k for k, lab in r["labels"].items() if lab == "train"}
+    assert set(r["t_grads"]) == train
+    for k, g in r["t_grads"].items():
+        ref = r["j_grads"][k]
+        if "['fuse']" in k and k.endswith("['b']"):
+            unit = _rms(r["j_grads"][k[:-len("['b']")] + "['w']"])
+            assert np.abs(g).max() < 1e-4 * unit, k
+            assert np.abs(ref).max() < 1e-4 * unit, k
+            continue
+        assert _rel_l2(g, ref) <= 1e-4, (k, _rel_l2(g, ref))
+    t, j, p0 = r["t_params"][0], r["j_params"][0], r["p0"]
+    for k in j:
+        np.testing.assert_allclose(t[k], j[k], err_msg=k, **PARITY)
+        if k in train:
+            assert _rel_l2(t[k] - p0[k], j[k] - p0[k]) <= 1e-2, k
+
+
+@pytest.mark.parametrize("family", ["release", "legacy"])
+def test_predictor_serves_a_fused_ln_model(family):
+    """Predictor serves a model built with fused_ln=True as it serves the
+    same weights without: the LayerNorm outside the blocks through
+    fused_layernorm, the same embed()."""
+    def build(fused_ln):
+        if family == "legacy":
+            return port.build_model(**CFG, fused_ln=fused_ln, device="cpu")
+        return port.build_model_no_extra_params(
+            **CFG, apply_fc_norm=True, fused_ln=fused_ln, device="cpu")
+
+    tiles = np.random.default_rng(8).integers(0, 256, (2, 224, 224, 3),
+                                              dtype=np.uint8)
+    plain = port.Predictor(build(False), device="cpu", dtype=torch.float32)
+    fused = port.Predictor(build(True), device="cpu", dtype=torch.float32)
+    norm = (fused.model.transformer.norm if family == "legacy"
+            else fused.model.transformer.fc_norm)
+    assert norm.fused
+    for a, b in zip(fused.embed(tiles), plain.embed(tiles)):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("family", ["release", "legacy"])
+def test_lean_step_sets_the_routes(release_lean, legacy_lean, family):
+    """make_train_step put every block on the lean routes, and the
+    LayerNorm outside the kernels on the kernel."""
+    model = (release_lean if family == "release" else legacy_lean)["model"]
+    blocks = [m for m in model.modules()
+              if hasattr(m, "attn_bwd_dw")]
+    assert len(blocks) >= 2 and all(b.attn_bwd_dw for b in blocks)
+    assert all(not b.mlp_save_hidden for b in blocks
+               if hasattr(b, "mlp_save_hidden"))
+    norm = (model.transformer.fc_norm if family == "release"
+            else model.transformer.norm)
+    assert norm.fused
+    ttrain.set_backward_routes(model)
+    assert not any(b.attn_bwd_dw for b in blocks)
