@@ -43,6 +43,9 @@ EW = f"{PKG}/csrc/drop_ew.cu"
 MLPB = f"{PKG}/csrc/fused_mlp_bwd.cu"
 LN = f"{PKG}/csrc/layernorm.cu"
 BDA = f"{PKG}/csrc/block_diag_attention.cu"
+ATTN86 = f"{PKG}/csrc/fused_attention_residual_s86.cu"
+ATTN886 = f"{PKG}/csrc/fused_attention_residual_int8_s86.cu"
+STRIP_CALL = "strip_attention<RT>(sQKV, QKV_LD, warp, S, scale, lane);"
 PARALLEL = 8
 
 # name: (file, text, replacement, the kernel form whose cases must fail
@@ -172,6 +175,30 @@ FAULTS = {
         BDA, "in[u] = live && c >= c0 && c < c0 + S;",
         "in[u] = live && c >= c0 - S && c < c0 + S;",
         "block_diag_attention"),
+    "score mask sees the padding rows 86..95 (s86)": (
+        ATTN86, STRIP_CALL, STRIP_CALL.replace(", S,", ", RT,"),
+        "fused_attention_residual_s86"),
+    "head 1's o over head 0's columns (s86)": (
+        ATTN86, "store_strip(sQKV, QKV_LD, warp, S, o, row0, C, h * D, lane);",
+        "store_strip(sQKV, QKV_LD, warp, S, o, row0, C, (h == 1 ? 0 : h) * "
+        "D, lane);", "fused_attention_residual_s86"),
+    "last query strip skipped (s86)": (
+        ATTN86, "if (warp < MT && warp * 16 < S) {",
+        "if (warp < MT - 1 && warp * 16 < S) {",
+        "fused_attention_residual_s86"),
+    "residual left out (s86 proj)": (
+        ATTN86, "        if (use_residual) {", "        if (false) {",
+        "fused_attention_residual_s86_proj"),
+    "score mask sees the padding rows 86..95 (int8 s86)": (
+        ATTN886, STRIP_CALL, STRIP_CALL.replace(", S,", ", RT,"),
+        "fused_attention_residual_int8_s86"),
+    "o row scale from its first 128 columns only (int8 s86 proj)": (
+        ATTN886, "          amax = fmaxf(amax, fmaxf(fabsf(v[u][i].x), "
+                 "fabsf(v[u][i].y)));",
+        "          if (2 * (lane + 32 * i) < BN)\n"
+        "            amax = fmaxf(amax, fmaxf(fabsf(v[u][i].x), "
+        "fabsf(v[u][i].y)));",
+        "fused_attention_residual_int8_s86_proj"),
 }
 
 CHILD = """

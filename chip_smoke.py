@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-1. Builds the ten CUDA kernel sources from the checkout (one nvcc each,
-   started together) and prints each kernel's register and spill report.
+1. Builds the twelve CUDA kernel sources from the checkout (one nvcc
+   each, started together) and prints each kernel's register and spill
+   report.
 2. Holds every kernel form against its plain PyTorch version on the card:
    the serving forms at the serving path's shapes (C=768, 12 heads, B=64),
    the training forms (the MLP's z form, the attention backward in both
@@ -16,8 +17,13 @@
    memory-lean step's forms at its shapes (B=128: the recompute-from-x MLP
    backward, the attention backward's dw form inert, bare and reg, the
    LayerNorm on the CLS, also at [18816, 768]), the block-diagonal
-   attention op at S=6 (3136 segments) and S=50 (64), and each at one
-   small odd shape: kernel in bf16,
+   attention op at S=6 (3136 segments) and S=50 (64), the 86-token forms
+   of the 3- and 4-scale serving paths (B=64: each of the two launches of
+   the bf16 and of the int8 branch alone at 3136 segments of S=86, both
+   launches through the wrappers there, at 7 segments, bare at 5 and at
+   S=65; a second launch of each launch alone bit-identical), the S<=64
+   kernels at S=22 (3136 segments), and each at one small odd shape:
+   kernel in bf16,
    plain version on the same inputs upcast to float32 (the int8 forms'
    plain versions take the same bf16 x and int8 weights, so both round at
    the same points, with the int8 products exact). Every output of a case
@@ -116,8 +122,24 @@
    over 3 steps a finite loss, every trainable tensor moved, the backbone
    bit-identical; tiles/s, split, peak memory and profile as in 4. Then
    the block_diag_attention op forward and backward at S=6 and S=50,
-   counted (2 launches). Every kernel form must have launched on some
-   path.
+   counted (2 launches).
+8. Runs last: the release DuoFormer at 3 and 4 scales (S=22 and S=86 a
+   region; full width, depth 12, random weights from a fixed seed),
+   served at B=64 through Predictor in bf16 and through
+   Predictor(quantize=True) in int8: 3 forwards each, counted (exactly
+   the launches of SCALES_SERVE and no other form), finite logits,
+   embed() on 2 tiles and the region tokens the scale stack hands the
+   patch stack against the port's CPU float32 run of the same weights
+   (the int8 ones against the CPU int8 path; relative L2 <= 0.05: bf16
+   the CLS, the logits and the region tokens; int8 the logits and the
+   region tokens, its CLS printed beside how far the CPU int8 path's own
+   CLS moves under a 1e-6 relative change of its tokens, about as far:
+   the 12 residual-free int8 PatchBlocks at random init turn any
+   perturbation into compounding code flips; the CPU run in bf16 printed
+   beside), int8 logits within 0.05 * (max|bf16| + 1) of bf16's, the
+   stage times, memory resident and peak during the forwards, and both
+   Predictors' tiles/s in interleaved windows. Every kernel form must have
+   launched on some path.
 Prints the card's name and power limit, one JSON line {"kernels": [...]},
 and as its last line {"ok": true, "device": {...}}. Exits non-zero, with
 no result line, when there is no CUDA device, when the port is not beside
@@ -193,6 +215,13 @@ SOURCES = {
         CSRC + "fused_attention_residual_bwd.cu",
     "fused_layernorm": CSRC + "layernorm.cu",
     "block_diag_attention": CSRC + "block_diag_attention.cu",
+    "fused_attention_residual_s86": CSRC + "fused_attention_residual_s86.cu",
+    "fused_attention_residual_s86_proj":
+        CSRC + "fused_attention_residual_s86.cu",
+    "fused_attention_residual_int8_s86":
+        CSRC + "fused_attention_residual_int8_s86.cu",
+    "fused_attention_residual_int8_s86_proj":
+        CSRC + "fused_attention_residual_int8_s86.cu",
 }
 REPLACES = {
     "fused_attention_residual": PALLAS + "311",
@@ -221,6 +250,10 @@ REPLACES = {
     "fused_attention_residual_bwd_reg_dw_bare": PALLAS + "723",
     "fused_layernorm": "duoformer_tcga_tpu/ops/pallas_norm.py:47",
     "block_diag_attention": PALLAS + "175",
+    "fused_attention_residual_s86": PALLAS + "311",
+    "fused_attention_residual_s86_proj": PALLAS + "311",
+    "fused_attention_residual_int8_s86": PALLAS + "442",
+    "fused_attention_residual_int8_s86_proj": PALLAS + "442",
 }
 SERVING_FORMS = ("fused_attention_residual", "fused_attention_residual_bare",
                  "fused_mlp_residual")
@@ -261,6 +294,25 @@ LEAN_LEGACY_TRAIN = {"fused_attention_residual_reg": 12,
 # state, batch and seeds: both bf16, rounded at other points (h from the
 # float32 z, the weight gradients' sums in the kernel)
 LEAN_ROUTE_TOL = GRAD_REL_TOL
+# launches per 3- and 4-scale serving forward (phase 8; 12 ScaleBlocks at
+# S=22 or S=86, 12 PatchBlocks at S=50), bf16 and int8; every other form
+# none
+SCALES_SERVE = {
+    (3, "bf16"): {"fused_attention_residual": 12,
+                  "fused_attention_residual_bare": 12,
+                  "fused_mlp_residual": 12},
+    (4, "bf16"): {"fused_attention_residual_s86": 12,
+                  "fused_attention_residual_s86_proj": 12,
+                  "fused_attention_residual_bare": 12,
+                  "fused_mlp_residual": 12},
+    (3, "int8"): {"fused_attention_residual_int8": 12,
+                  "fused_attention_residual_int8_bare": 12,
+                  "fused_mlp_residual_int8": 12},
+    (4, "int8"): {"fused_attention_residual_int8_s86": 12,
+                  "fused_attention_residual_int8_s86_proj": 12,
+                  "fused_attention_residual_int8_bare": 12,
+                  "fused_mlp_residual_int8": 12},
+}
 # the serving-shape cases of the legacy forward's forms, with launches
 LEGACY_SERVING_CASES = (
     ("fused_attention_residual_reg gamma alone n_seg=3136 (serving)", 12),
@@ -1018,6 +1070,143 @@ def mlp_int8_case(torch, F, fa, gen, rows, c, hidden, timed):
     return res
 
 
+def check_repeat(torch, res, first, kernel):
+    """A second launch on the same inputs must give the same bits."""
+    same = bool(torch.equal(first, kernel()))
+    res.update(repeat_identical=same, ok=res["ok"] and same)
+    return res
+
+
+def attention_s86_case(torch, F, fa, gen, n_seg, S, c, heads, bare, timed,
+                       what, int8=False):
+    """One launch of the 65..86-token attention branch alone: what="core"
+    (o = attention(qkv([LN] x))) or "proj" (y = [x +] proj(o) on a random
+    o), bf16 or int8, against its plain twin (bf16: on the same inputs
+    upcast to float32; int8: on the same bf16 inputs and int8 weights); a
+    second launch must give the same bits."""
+    from duoformer_tcga_tpu_torch.ops import fused_int8 as fi
+    dev, bf16 = "cuda", torch.bfloat16
+
+    def rnd(*shape, std=1.0, mean=0.0):
+        return torch.randn(*shape, generator=gen) * std + mean
+
+    x = rnd(n_seg, S, c).to(dev, bf16)
+    if bare:
+        lns = torch.zeros(c, device=dev)
+        lnb = torch.zeros(c, device=dev)
+    else:
+        lns, lnb = rnd(c, std=0.1, mean=1.0).cuda(), rnd(c, std=0.1).cuda()
+    wqkv = rnd(c, 3 * c, std=QKV_STD * c ** -0.5)
+    bqkv = rnd(3 * c, std=0.01).cuda()
+    wproj = rnd(c, c, std=c ** -0.5)
+    bproj = rnd(c, std=0.01).cuda()
+    o = rnd(n_seg, S, c).to(dev, bf16)
+    scale = (c // heads) ** -0.5
+    rows, D = n_seg * S, c // heads
+    lns_b, lnb_b = lns.to(bf16), lnb.to(bf16)
+    if int8:
+        wq, sq = _int8_weight(torch, wqkv)
+        wp, sp = _int8_weight(torch, wproj)
+        if what == "core":
+            args = (x, lns, lnb, wq, sq, bqkv, heads, S, scale, 1e-6,
+                    not bare)
+
+            def kernel():
+                return fi.attention_core_int8_s86(*args)
+
+            def plain():
+                return fi.attention_core_int8_plain(*args).float()
+        else:
+            args = (o, x, wp, sp, bproj, not bare)
+
+            def kernel():
+                return fi.attention_proj_int8(*args)
+
+            def plain():
+                return fi.attention_proj_int8_plain(*args).float()
+    else:
+        wqkv, wproj = wqkv.to(dev, bf16), wproj.to(dev, bf16)
+        if what == "core":
+            def kernel():
+                return fa.attention_core_s86(x, lns, lnb, wqkv, bqkv, heads,
+                                             S, scale, use_ln=not bare)
+
+            def plain():
+                return fa.attention_core_plain(
+                    x.float(), lns, lnb, wqkv.float(), bqkv, heads, S, scale,
+                    use_ln=not bare)
+        else:
+            def kernel():
+                return fa.attention_proj(o, x, wproj, bproj,
+                                         use_residual=not bare)
+
+            def plain():
+                return fa.attention_proj_plain(
+                    o.float(), x.float(), wproj.float(), bproj,
+                    use_residual=not bare)
+
+    first = kernel()
+    res = compare(torch, first, plain(),
+                  None if bare or what == "core" else x)
+    check_repeat(torch, res, first, kernel)
+    if not timed:
+        return res
+
+    def ln_in():
+        return x if bare else F.layer_norm(x, (c,), lns_b, lnb_b, 1e-6)
+
+    def sdpa(qkv):
+        q, k, v = qkv.view(n_seg, S, 3, heads, D).permute(2, 0, 3, 1, 4)
+        o = F.scaled_dot_product_attention(q, k, v, scale=scale)
+        return o.transpose(1, 2).reshape(n_seg, S, c)
+
+    int8_ops = flops = 0
+    if what == "core" and int8:
+        wq_t = wq.t()
+
+        def library():
+            hq, hs = _rowquant_library(torch, ln_in().view(rows, c))
+            return sdpa((torch._int_mm(hq, wq_t).float() * hs * sq
+                         + bqkv).to(bf16))
+
+        int8_ops, flops = 2 * rows * c * 3 * c, 4 * n_seg * S * S * c
+        nbytes = 2 * 2 * rows * c + 3 * c * c + 4 * 8 * c
+    elif what == "core":
+        wqkv_t, bqkv_b = wqkv.t().contiguous(), bqkv.to(bf16)
+
+        def library():
+            return sdpa(F.linear(ln_in(), wqkv_t, bqkv_b))
+
+        flops = 2 * rows * c * 3 * c + 4 * n_seg * S * S * c
+        nbytes = 2 * (2 * rows * c + 3 * c * c) + 4 * 5 * c
+    elif int8:
+        wp_t = wp.t()
+
+        def library():
+            oq, os_ = _rowquant_library(torch, o.view(rows, c))
+            y = torch._int_mm(oq, wp_t).float() * os_ * sp + bproj
+            y = y if bare else y + x.view(rows, c).float()
+            return y.to(bf16)
+
+        int8_ops = 2 * rows * c * c
+        nbytes = 2 * rows * c * (2 if bare else 3) + c * c + 4 * 2 * c
+    else:
+        wproj_t, bproj_b = wproj.t().contiguous(), bproj.to(bf16)
+
+        def library():
+            y = F.linear(o, wproj_t, bproj_b)
+            return y if bare else y + x
+
+        flops = 2 * rows * c * c
+        nbytes = 2 * (rows * c * (2 if bare else 3) + c * c) + 4 * c
+    bound_ms, bound_by = bound(flops, nbytes, int8_ops)
+    res.update(ms=median_ms(kernel, torch), plain_ms=median_ms(plain, torch),
+               library_ms=median_ms(library, torch), bound_ms=bound_ms,
+               bound_by=bound_by, flops=flops, int8_ops=int8_ops,
+               bytes=nbytes)
+    return res
+
+
 def _case_specs(torch, F, fa, timed):
     """[(label, kernel form, run(generator))]: each form at its main path's
     shape (label = the form), then the other shapes."""
@@ -1042,6 +1231,10 @@ def _case_specs(torch, F, fa, timed):
                          block_attention_case)
     dw_r = part(dw, reg=both)
     dw_rb = part(dw, reg=dict(gamma=False, attn_drop=DROP))
+    s86_core = part(attention_s86_case, what="core")
+    s86_proj = part(attention_s86_case, what="proj")
+    s86_core8 = part(attention_s86_case, what="core", int8=True)
+    s86_proj8 = part(attention_s86_case, what="proj", int8=True)
     specs = [
         # the serving path's forms (B=64)
         ("fused_attention_residual", B * 49, 6, C, HEADS, False, att, timed),
@@ -1157,7 +1350,56 @@ def _case_specs(torch, F, fa, timed):
          False),
         ("block_diag_attention n_seg=3 S=50 C=256 H=4", 3, 50, 256, 4, bda,
          False),
+        # the 3- and 4-scale serving paths' forms (B=64): each launch of the
+        # 86-token branch alone, bf16 and int8; both launches through the
+        # wrappers; the S<=64 kernels at S=22; then other shapes
+        ("fused_attention_residual_s86", B * 49, 86, C, HEADS, False,
+         s86_core, timed),
+        ("fused_attention_residual_s86_proj", B * 49, 86, C, HEADS, False,
+         s86_proj, timed),
+        ("fused_attention_residual_int8_s86", B * 49, 86, C, HEADS, False,
+         s86_core8, timed),
+        ("fused_attention_residual_int8_s86_proj", B * 49, 86, C, HEADS,
+         False, s86_proj8, timed),
+        ("fused_attention_residual_s86 both launches n_seg=3136 S=86",
+         B * 49, 86, C, HEADS, False, att, timed),
+        ("fused_attention_residual_int8_s86 both launches n_seg=3136 S=86",
+         B * 49, 86, C, HEADS, False, att8, timed),
+        ("fused_attention_residual n_seg=3136 S=22 (3 scales)", B * 49, 22,
+         C, HEADS, False, att, timed),
+        ("fused_attention_residual_int8 n_seg=3136 S=22 (3 scales)", B * 49,
+         22, C, HEADS, False, att8, timed),
+        ("fused_attention_residual_s86 both launches n_seg=7 S=86", 7, 86, C,
+         HEADS, False, att, False),
+        ("fused_attention_residual_s86 both launches bare n_seg=5 S=86 C=256 "
+         "H=4", 5, 86, 256, 4, True, att, False),
+        ("fused_attention_residual_s86 both launches n_seg=3 S=65 C=512 H=8",
+         3, 65, 512, 8, False, att, False),
+        ("fused_attention_residual_s86 core bare n_seg=5 S=86 C=256 H=4", 5,
+         86, 256, 4, True, s86_core, False),
+        ("fused_attention_residual_s86_proj bare rows=430 C=256", 5, 86, 256,
+         4, True, s86_proj, False),
+        ("fused_attention_residual_int8_s86 both launches n_seg=7 S=86", 7,
+         86, C, HEADS, False, att8, False),
+        ("fused_attention_residual_int8_s86 both launches bare n_seg=5 S=86 "
+         "C=256 H=4", 5, 86, 256, 4, True, att8, False),
+        ("fused_attention_residual_int8_s86 both launches n_seg=3 S=65 C=512 "
+         "H=8", 3, 65, 512, 8, False, att8, False),
+        ("fused_attention_residual_int8_s86 core bare n_seg=5 S=86 C=256 H=4",
+         5, 86, 256, 4, True, s86_core8, False),
+        ("fused_attention_residual_int8_s86_proj bare rows=430 C=256", 5, 86,
+         256, 4, True, s86_proj8, False),
     ]
+    if timed:
+        # the MLP forms' times at the 4-scale rows (their checks at other
+        # shapes above); left out of the untimed runs: chip_faults.py runs
+        # up to 8 of those at once, and these plain versions hold several
+        # GB each
+        specs += [
+            ("fused_mlp_residual rows=269696 (4 scales)", B * 49 * 86, C,
+             HIDDEN, mlp, timed),
+            ("fused_mlp_residual_int8 rows=269696 (4 scales)", B * 49 * 86,
+             C, HIDDEN, mlp8, timed)]
     out = []
     for label, *args in specs:
         *shape, case, t = args
@@ -1807,6 +2049,141 @@ def block_attention_op_path(torch, fa, failures):
     return launches
 
 
+def region_tokens(torch, pred, tiles):
+    """The scale stack's region tokens [B, 49, C] (what the patch stack
+    reads) for `tiles`, float32 on the CPU."""
+    m = pred.model
+    with torch.inference_mode():
+        x = m.transformer.scale_stack(m.tokens(m.features(pred.prepare(
+            tiles))))
+        return x[:, :, 0, :].float().cpu()
+
+
+def cls_noise_floor(torch, pred, tiles):
+    """How far the CLS of `pred` (a CPU Predictor) moves when its
+    transformer input moves by 1e-6 relative (a fixed draw)."""
+    m = pred.model
+    gen = torch.Generator().manual_seed(SEED)
+    with torch.inference_mode():
+        tok = m.tokens(m.features(pred.prepare(tiles)))
+        moved = tok * (1 + 1e-6 * torch.randn(tok.shape, generator=gen,
+                                               dtype=tok.dtype))
+        return rel_err(m.transformer(moved, with_embedding=True)[1],
+                       m.transformer(tok, with_embedding=True)[1])
+
+
+def scales_phase(torch, port, fa, failures, card, cases):
+    """Phase 8: the release DuoFormer at 3 and 4 scales (S=22 and S=86 a
+    region), full width, depth 12, served at B=64 in bf16 and in int8.
+    -> {path: the launch counts of its 3 forwards}."""
+    from duoformer_tcga_tpu_torch.inference import Predictor
+
+    paths = {}
+    for layers in (3, 4):
+        def build(device):
+            return port.build_model_no_extra_params(
+                num_layers=layers, embed_dim=C, proj_dim=C, num_heads=HEADS,
+                depth=12, device=device, seed=SEED)
+
+        rng = np.random.default_rng(SEED + layers)
+        batches = [rng.integers(0, 256, (B, 224, 224, 3), dtype=np.uint8)
+                   for _ in range(3)]
+        two = batches[0][:2]
+        preds, stages = {}, {}
+        for kind in ("bf16", "int8"):
+            what = f"{layers}-scale {kind} serving"
+            t0 = time.perf_counter()
+            pred = Predictor(build("cuda"), dtype=torch.bfloat16,
+                             quantize=kind == "int8")
+            torch.cuda.synchronize()
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fa.reset_launch_counts()
+            outs = [pred(t) for t in batches]
+            torch.cuda.synchronize()
+            launches = dict(fa.launch_counts)
+            peak = torch.cuda.max_memory_allocated()
+            paths[f"{what} ({len(batches)} forwards)"] = launches
+            log(f"{what}: built in {time.perf_counter() - t0:.1f} s; 3 "
+                f"batches of {B}; launches {launches}; memory "
+                f"{resident / 2**30:.2f} GiB resident before the forwards, "
+                f"peak {peak / 2**30:.2f} GiB during them")
+            check_launches(failures, what, launches,
+                           {k: 3 * v for k, v in
+                            SCALES_SERVE[(layers, kind)].items()}, cases)
+            for i, lg in enumerate(outs):
+                if tuple(lg.shape) != (B, 2) or not bool(
+                        torch.isfinite(lg).all()):
+                    failures.append(f"{what} batch {i}: logits "
+                                    f"{tuple(lg.shape)}, finite="
+                                    f"{bool(torch.isfinite(lg).all())}")
+            # embed() on 2 tiles against the port's CPU float32 run of the
+            # same weights (int8: the CPU int8 path), and the region tokens
+            # the scale stack hands the patch stack; beside them, not held
+            # to a bar, the CPU run in bf16 (the card's serving dtype): the
+            # card against it, and what bf16 alone moves on the CPU
+            g_logits, g_cls = pred.embed(two)
+            cpu = {dt: Predictor(build("cpu"), device="cpu", dtype=dt,
+                                 quantize=kind == "int8")
+                   for dt in (torch.float32, torch.bfloat16)}
+            c_logits, c_cls = cpu[torch.float32].embed(two)
+            h_cls = cpu[torch.bfloat16].embed(two)[1]
+            e_cls, e_logits = rel_err(g_cls, c_cls), rel_err(g_logits,
+                                                             c_logits)
+            e_reg = rel_err(region_tokens(torch, pred, two),
+                            region_tokens(torch, cpu[torch.float32], two))
+            log(f"{what}: embed vs the CPU float32 {kind} path: rel L2 err "
+                f"cls {e_cls:.3e}, logits {e_logits:.3e}, region tokens "
+                f"{e_reg:.3e} (tolerance {EMBED_REL_TOL}); not held to a "
+                f"bar: cls vs the CPU bf16 {kind} path "
+                f"{rel_err(g_cls, h_cls):.3e}, the CPU bf16 path vs the CPU "
+                f"float32 one {rel_err(h_cls, c_cls):.3e}")
+            if kind == "int8":
+                # The int8 CLS is held by the region tokens and the logits,
+                # not by itself: 12 residual-free int8 PatchBlocks at random
+                # init turn any perturbation of their input into code flips
+                # that compound, so the CLS moves by about 5e-2 whatever
+                # moved it (the CPU's own float32 int8 path under a 1e-6
+                # relative change of its tokens, printed here).
+                floor = cls_noise_floor(torch, cpu[torch.float32], two)
+                log(f"{what}: the CPU float32 int8 path's cls under a 1e-6 "
+                    f"relative change of its tokens moves by {floor:.3e}")
+                held = (e_logits, e_reg)
+            else:
+                held = (e_cls, e_logits, e_reg)
+            if not all(e <= EMBED_REL_TOL for e in held):
+                failures.append(f"{what}: embed vs CPU cls {e_cls:.3e}, "
+                                f"logits {e_logits:.3e}, region tokens "
+                                f"{e_reg:.3e}")
+            del cpu
+            stages[kind] = serve_stages(torch, pred, batches[0])
+            log(f"{what}: stages at B={B}: " + ", ".join(
+                f"{k} {v:.3f} ms" for k, v in stages[kind].items()))
+            preds[kind] = pred
+            del outs
+        # int8 against bf16 on the same weights and batch, at the JAX
+        # package's bound (tests/test_int8.py:58)
+        ref = preds["bf16"](batches[0]).float().cpu()
+        lg8 = preds["int8"](batches[0]).float().cpu()
+        drift = (lg8 - ref).abs().max().item()
+        limit = 0.05 * (ref.abs().max().item() + 1.0)
+        log(f"{layers}-scale int8 vs bf16 on batch 0: logits max |diff| "
+            f"{drift:.4e} (bound {limit:.4e})")
+        if not drift < limit:
+            failures.append(f"{layers}-scale int8 vs bf16 logit drift "
+                            f"{drift:.4e} >= {limit:.4e}")
+        rates = serve_rates(torch, preds, batches[0])
+        for kind, (dt, windows) in rates.items():
+            log(f"{layers}-scale {kind} throughput, windows interleaved: "
+                f"{B / dt:.1f} tiles/s at B={B}, median of 7 windows of 5 "
+                f"forwards (least {B / max(windows):.1f}, greatest "
+                f"{B / min(windows):.1f}; forward {dt * 1e3:.2f} ms) on "
+                f"{card}")
+        del preds
+        torch.cuda.empty_cache()
+    return paths
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1860,7 +2237,9 @@ def main() -> int:
                f"{res['bound_ms']:.4f} ms ({res['bound_by']})"
                if "ms" in res else "")
             + (f"; bf16 mismatch fraction {res['mismatch']:.3g}"
-               if "mismatch" in res else ""))
+               if "mismatch" in res else "")
+            + (f"; second launch bit-identical {res['repeat_identical']}"
+               if "repeat_identical" in res else ""))
         for out, r in res.get("outputs", {}).items():
             log(f"  {out}: max_abs_err {r['max_abs_err']:.6g}, rel L2 err "
                 f"{r['rel_err']:.4g} {'ok' if r['ok'] else 'FAIL'}")
@@ -1939,13 +2318,18 @@ def main() -> int:
     # ---- 7. the memory-lean training steps; the block-diagonal op ----
     lean_launches = lean_phase(torch, port, fa, failures, card, cases)
     op_launches = block_attention_op_path(torch, fa, failures)
+    torch.cuda.empty_cache()
+
+    # ---- 8. 3- and 4-scale serving, bf16 and int8 ----
+    scales_launches = scales_phase(torch, port, fa, failures, card, cases)
 
     paths = {f"serve ({len(batches)} forwards)": launches,
              "train (1 step)": train_launches,
              f"serve int8 ({len(batches)} forwards)": int8_launches,
              "legacy serve (3 forwards)": legacy_serve,
              "legacy train (1 step)": legacy_train, **lean_launches,
-             "block_diag_attention op (2 calls)": op_launches}
+             "block_diag_attention op (2 calls)": op_launches,
+             **scales_launches}
     idle = [name for name in cases
             if not any(v.get(name, 0) for v in paths.values())]
     if idle:

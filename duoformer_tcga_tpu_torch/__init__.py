@@ -3,20 +3,23 @@ with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 A port of duoformer_tcga_tpu (JAX/Pallas), which stays the reference the
 port is tested against. This package imports neither JAX nor anything of
-duoformer_tcga_tpu. What it covers so far: the release 2-scale DuoFormer
-forward (ResNet-50 pyramid -> projections -> regroup -> 12 ScaleBlocks ->
-12 PatchBlocks -> head) served by `inference.Predictor` in bf16 or int8
+duoformer_tcga_tpu. What it covers so far: the release DuoFormer forward
+(ResNet-50 pyramid -> projections -> regroup -> 12 ScaleBlocks -> 12
+PatchBlocks -> head) at 2, 3 and 4 scales (`num_layers`; 6, 22 and 86
+tokens a region, the 86-token attention in two launches of its own
+kernels) served by `inference.Predictor` in bf16 or int8
 (`quantize=True`, a8w8 transformer GEMMs), the serving artifact the JAX
 package exports and loads (`export_serving_artifact`,
-`load_serving_artifact`, `from_serving_artifact`), and its training step
-with a frozen backbone (`train.py`); the legacy DuoFormer (`build_model`:
-channel token, LayerScale, dropout) served and trained the same way, and
-the release family's channel token, LayerScale and dropout; with the
-fused transformer kernels, their int8 and reg (dropout + LayerScale)
-forms, their backward kernels and the dropout mask passes in csrc/; and
-the memory-lean training routes (`make_train_step(mlp_save_hidden=False,
-attn_bwd_dw=True)`, `fused_ln=True`) with their kernels, and the
-block-diagonal attention op `ops.fused_attention.block_diag_attention`.
+`load_serving_artifact`, `from_serving_artifact`), and its 2-scale
+training step with a frozen backbone (`train.py`); the legacy DuoFormer
+(`build_model`: channel token, LayerScale, dropout) served and trained the
+same way, and the release family's channel token, LayerScale and dropout;
+with the fused transformer kernels, their int8 and reg (dropout +
+LayerScale) forms, their backward kernels and the dropout mask passes in
+csrc/; and the memory-lean training routes (`make_train_step(
+mlp_save_hidden=False, attn_bwd_dw=True)`, `fused_ln=True`) with their
+kernels, and the block-diagonal attention op
+`ops.fused_attention.block_diag_attention`.
 
 Entry points run on the card unless the caller passes device="cpu";
 without a CUDA device and without that request they raise.

@@ -2,10 +2,12 @@
 duoformer.py: DuoFormer, DuoFormerLegacy, fold_for_inference,
 count_parameters).
 
-Both families (2 scales):
+Both families (2 scales; the release family also 3 and 4):
   backbone -> {56^2x256, 28^2x512, 14^2x1024, 7^2x2048}
-  projection of stages 3, 2 -> {7^2xC, 14^2xC}
-  regroup -> [B, 49, 5, C]; + scale token -> [B, 49, 6, C]
+  projection of stages 3, 2 [, 1 [, 0]] -> {7^2xC, 14^2xC [, 28^2xC
+    [, 56^2xC]]}
+  regroup -> [B, 49, 5 | 21 | 85, C]; + scale token -> [B, 49, S, C],
+    S = 6 | 22 | 86
   transformer -> logits [B, num_classes]
 The release DuoFormer's scale token is learned ("random") or derived from
 the pyramid ("channel", ChannelProjectors) and its core the
@@ -92,11 +94,14 @@ def draw_seeds(n, generator=None) -> list:
 
 
 class DuoFormer(_PyramidModel):
-    """Release-variant DuoFormer (MyModel_no_extra_params twin). What the
-    slice does not cover raises NotImplementedError: q/k norms applied in
-    the patch blocks (attn_drop_rate > 0, quirk Q9), r18, scale counts
-    other than 2, and training with an unfrozen backbone (batch-stat BN).
-    proj_drop_rate and init_values train through the reg kernels."""
+    """Release-variant DuoFormer (MyModel_no_extra_params twin), at 2, 3
+    or 4 scales (num_layers; 6, 22 or 86 tokens a region). What the
+    port does not cover raises NotImplementedError: q/k norms applied in
+    the patch blocks (attn_drop_rate > 0, quirk Q9), r18, 1 scale,
+    LayerScale (init_values) at 3 and 4 scales, and training with an
+    unfrozen backbone (batch-stat BN); 3- and 4-scale models serve but do
+    not train yet (train.make_train_step refuses them). proj_drop_rate and
+    init_values train through the reg kernels."""
 
     def __init__(self, depth=12, embed_dim=768, num_heads=12, num_classes=2,
                  num_layers=2, num_patches=49, mlp_ratio=4.0,
@@ -112,7 +117,10 @@ class DuoFormer(_PyramidModel):
             (attn_drop_rate > 0.0, "attn_drop_rate > 0 (q/k norms applied "
                                    "by the patch blocks, Q9)"),
             (backbone not in ("r50", "r50_Swav"), f"backbone {backbone!r}"),
-            (num_layers != 2, f"num_layers={num_layers} (only 2 scales)"),
+            (num_layers not in (2, 3, 4),
+             f"num_layers={num_layers} (2, 3 or 4 scales)"),
+            (num_layers > 2 and init_values is not None,
+             f"init_values (LayerScale) at num_layers={num_layers}"),
         ]
         for hit, what in unported:
             if hit:

@@ -5,7 +5,10 @@ flags are keyword arguments of the same wrappers, whose autograd functions
 and the drop_ew kernel are in ops/fused_reg.py).
 
   fused_attention_residual: y = [x +] proj(block-diag attn(qkv([LN] x)))
-    kernel: csrc/fused_attention_residual.cu
+    kernel: csrc/fused_attention_residual.cu (seg_len <= 64); for 65 to 86
+    tokens (the 4-scale model's 86) two launches, attention_core_s86 (o =
+    block-diag attn(qkv([LN] x))) and attention_proj (y = [x +] proj(o)),
+    kernels: csrc/fused_attention_residual_s86.cu
   fused_attention_residual_bwd: its backward (dx, ln, attn, dqkv and the
     column sums dlns, dlnb, dbqkv, dbproj), recomputing the forward
     kernel: csrc/fused_attention_residual_bwd.cu
@@ -63,6 +66,11 @@ from ._build import _check_tensor, _ptr, _require, _stream, launch_counts
 from .nn import layernorm
 
 ATTN_MAX_SEG_LEN = 64         # a block holds at most 64 rows (csrc note)
+# the serving forward, bf16 and int8, also takes 65..86 tokens (one
+# 96-row block a segment and a second launch for the proj, csrc/*_s86.cu);
+# the backward, its dw form, the reg flags and block_diag_attention stop
+# at ATTN_MAX_SEG_LEN
+ATTN_SERVE_MAX_SEG_LEN = 86
 HEAD_DIM = 64                 # the attention kernel's head width
 SUPPORTED_C = (256, 512, 768)   # widths the kernels are instantiated for
 
@@ -75,16 +83,14 @@ def reset_launch_counts():
 # Plain versions
 # ---------------------------------------------------------------------------
 
-def fused_attention_residual_plain(x, ln_scale, ln_bias, wqkv, bqkv, wproj,
-                                   bproj, num_heads, seg_len, scale,
-                                   ln_eps=1e-6, use_ln=True,
-                                   use_residual=True, gamma=None, seed=0,
-                                   attn_drop=0.0, proj_drop=0.0):
-    """Plain twin of the attention kernel (pallas_attention.py:311-439 /
-    _fused_block_xla, with the reg flags _fused_block_reg_xla :1156-1197):
-    x [n_seg, seg_len, C]; attention only within each segment. Dropout of
-    the float32 probabilities before their cast, of proj + bias, then
-    times gamma, then the residual."""
+def attention_core_plain(x, ln_scale, ln_bias, wqkv, bqkv, num_heads,
+                         seg_len, scale, ln_eps=1e-6, use_ln=True, seed=0,
+                         attn_drop=0.0):
+    """Plain twin of the 65..86-token core kernel, and the first half of
+    fused_attention_residual_plain: x [n_seg, seg_len, C] -> o [n_seg,
+    seg_len, C] in x's dtype, every head's output in its columns (the
+    attention only within each segment). Dropout of the float32
+    probabilities before their cast."""
     n_seg, S, C = x.shape
     if S != seg_len:
         raise ValueError(f"x has {S} tokens per segment, seg_len={seg_len}")
@@ -99,17 +105,43 @@ def fused_attention_residual_plain(x, ln_scale, ln_bias, wqkv, bqkv, wproj,
         p = dr.drop(p, dr.attn_keep_masks(n_seg, S, num_heads, seed,
                                           attn_drop, x.device), attn_drop)
     o = torch.matmul(p.to(dt).float(), v.float()).to(dt)   # [n, H, S, D]
-    attn = o.permute(0, 2, 1, 3).reshape(n_seg, S, C)
-    y = torch.matmul(attn.float(), wproj.float()) + bproj.float()
+    return o.permute(0, 2, 1, 3).reshape(n_seg, S, C)
+
+
+def attention_proj_plain(o, x, wproj, bproj, use_residual=True, gamma=None,
+                         seed=0, proj_drop=0.0):
+    """Plain twin of the proj kernel, and the second half of
+    fused_attention_residual_plain: o, x [..., C] -> y = [x +] gamma *
+    drop(o wproj + bproj) in x's dtype, accumulated in float32 and cast
+    once (dropout at the global row and column)."""
+    C = o.shape[-1]
+    y = torch.matmul(o.float(), wproj.float()) + bproj.float()
     if proj_drop > 0.0:
-        y = dr.drop(y, dr.row_keep_mask(n_seg * S, C, seed, dr._SITE_PROJ,
-                                        proj_drop, x.device).view(y.shape),
-                    proj_drop)
+        y = dr.drop(y, dr.row_keep_mask(o.numel() // C, C, seed,
+                                        dr._SITE_PROJ, proj_drop,
+                                        x.device).view(y.shape), proj_drop)
     if gamma is not None:
         y = y * gamma.float()
     if use_residual:
         y = y + x.float()
-    return y.to(dt)
+    return y.to(x.dtype)
+
+
+def fused_attention_residual_plain(x, ln_scale, ln_bias, wqkv, bqkv, wproj,
+                                   bproj, num_heads, seg_len, scale,
+                                   ln_eps=1e-6, use_ln=True,
+                                   use_residual=True, gamma=None, seed=0,
+                                   attn_drop=0.0, proj_drop=0.0):
+    """Plain twin of the attention kernel (pallas_attention.py:311-439 /
+    _fused_block_xla, with the reg flags _fused_block_reg_xla :1156-1197):
+    x [n_seg, seg_len, C]; attention only within each segment. Dropout of
+    the float32 probabilities before their cast, of proj + bias, then
+    times gamma, then the residual. It is attention_core_plain followed by
+    attention_proj_plain, the two kernels of the 65..86-token form."""
+    o = attention_core_plain(x, ln_scale, ln_bias, wqkv, bqkv, num_heads,
+                             seg_len, scale, ln_eps, use_ln, seed, attn_drop)
+    return attention_proj_plain(o, x, wproj, bproj, use_residual, gamma,
+                                seed, proj_drop)
 
 
 def fused_mlp_residual_plain(x, ln_scale, ln_bias, w1, b1, w2, b2,
@@ -340,6 +372,33 @@ def _reg_name(name, gamma, *rates):
         r > 0.0 for r in rates) else name
 
 
+def refuse_long_segments(what, seg_len):
+    """What runs only up to ATTN_MAX_SEG_LEN tokens a segment (the
+    backward, its dw form, the reg flags, block_diag_attention) raises
+    beyond it, on either device."""
+    if seg_len > ATTN_MAX_SEG_LEN:
+        raise NotImplementedError(
+            f"{what} at seg_len {seg_len} > {ATTN_MAX_SEG_LEN} is not ported "
+            f"to the PyTorch package yet (it comes with 3- and 4-scale "
+            f"training)")
+
+
+def _check_attention_x(x, seg_len, num_heads, what, max_len):
+    """-> (n_seg, S, C) of a kernel's x [n_seg, seg_len, C]."""
+    _require(x.dim() == 3, f"x must be [n_seg, seg_len, C], got "
+             f"{tuple(x.shape)}")
+    n_seg, S, C = x.shape
+    _require(S == seg_len, f"x has {S} tokens per segment, "
+             f"seg_len={seg_len}")
+    _require(1 <= S <= max_len,
+             f"seg_len {S} outside the kernel's 1..{max_len}")
+    _require(num_heads * HEAD_DIM == C,
+             f"the kernel needs head width {HEAD_DIM}: C={C}, "
+             f"num_heads={num_heads}")
+    _check_width(C, what)
+    return n_seg, S, C
+
+
 def fused_attention_residual(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
                              num_heads, seg_len, scale, ln_eps=1e-6,
                              use_ln=True, use_residual=True, gamma=None,
@@ -348,28 +407,29 @@ def fused_attention_residual(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
 
     The JAX signature (pallas_attention.py:1053). use_ln=use_residual=False
     is the bare form the patch blocks run. On the card: bf16 x and
-    weights, float32 vectors, head width 64, seg_len <= 64. gamma, seed,
+    weights, float32 vectors, head width 64, seg_len <= 86 (65..86 in two
+    launches, attention_core_s86 and attention_proj). gamma, seed,
     attn_drop, proj_drop: the reg form's LayerScale and dropout
-    (fused_attention_residual_reg, pallas_attention.py:1202)."""
+    (fused_attention_residual_reg, pallas_attention.py:1202), seg_len <=
+    64 only."""
     reg = dict(gamma=gamma, seed=seed, attn_drop=attn_drop,
                proj_drop=proj_drop)
+    if gamma is not None or attn_drop > 0.0 or proj_drop > 0.0:
+        refuse_long_segments("the reg form (LayerScale, dropout) of "
+                             "fused_attention_residual", seg_len)
     if x.device.type == "cpu":
         return fused_attention_residual_plain(
             x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, num_heads,
             seg_len, scale, ln_eps, use_ln, use_residual, **reg)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    _require(x.dim() == 3, f"x must be [n_seg, seg_len, C], got "
-             f"{tuple(x.shape)}")
-    n_seg, S, C = x.shape
-    _require(S == seg_len, f"x has {S} tokens per segment, "
-             f"seg_len={seg_len}")
-    _require(1 <= S <= ATTN_MAX_SEG_LEN,
-             f"seg_len {S} outside the kernel's 1..{ATTN_MAX_SEG_LEN}")
-    _require(num_heads * HEAD_DIM == C,
-             f"the kernel needs head width {HEAD_DIM}: C={C}, "
-             f"num_heads={num_heads}")
-    _check_width(C, "fused_attention_residual")
+    n_seg, S, C = _check_attention_x(x, seg_len, num_heads,
+                                     "fused_attention_residual",
+                                     ATTN_SERVE_MAX_SEG_LEN)
+    if S > ATTN_MAX_SEG_LEN:
+        o = attention_core_s86(x, ln_scale, ln_bias, wqkv, bqkv, num_heads,
+                               S, scale, ln_eps, use_ln)
+        return attention_proj(o, x, wproj, bproj, use_residual)
     dev, f32, bf16 = x.device, torch.float32, torch.bfloat16
     _check_tensor("x", x, dev, bf16, (n_seg, S, C))
     _check_tensor("ln_scale", ln_scale, dev, f32, (C,))
@@ -402,6 +462,81 @@ def fused_attention_residual(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
     _build.check(lib, status, "fused_attention_residual")
     name = _reg_name("fused_attention_residual", gamma, attn_drop, proj_drop)
     launch_counts[name if use_ln else name + "_bare"] += 1
+    return out
+
+
+def attention_core_s86(x, ln_scale, ln_bias, wqkv, bqkv, num_heads, seg_len,
+                       scale, ln_eps=1e-6, use_ln=True):
+    """The first launch of the 65..86-token attention branch: o =
+    block_diag_attn(qkv([LN](x))), x [n_seg, seg_len, C] -> o [n_seg,
+    seg_len, C], every head's output in its columns. On the card: bf16 x
+    and wqkv, float32 vectors, head width 64, 65 <= seg_len <= 86."""
+    if x.device.type == "cpu":
+        return attention_core_plain(x, ln_scale, ln_bias, wqkv, bqkv,
+                                    num_heads, seg_len, scale, ln_eps, use_ln)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    n_seg, S, C = _check_attention_x(x, seg_len, num_heads,
+                                     "attention_core_s86",
+                                     ATTN_SERVE_MAX_SEG_LEN)
+    _require(S > ATTN_MAX_SEG_LEN, f"seg_len {S}: the 86-token kernel takes "
+             f"{ATTN_MAX_SEG_LEN + 1}..{ATTN_SERVE_MAX_SEG_LEN}")
+    dev, f32, bf16 = x.device, torch.float32, torch.bfloat16
+    _check_tensor("x", x, dev, bf16, (n_seg, S, C))
+    _check_tensor("ln_scale", ln_scale, dev, f32, (C,))
+    _check_tensor("ln_bias", ln_bias, dev, f32, (C,))
+    _check_tensor("wqkv", wqkv, dev, bf16, (C, 3 * C))
+    _check_tensor("bqkv", bqkv, dev, f32, (3 * C,))
+    o = torch.empty_like(x)
+    if n_seg == 0:
+        return o
+    lib = _build.load_library("fused_attention_residual_s86")
+    fn = lib.launch_attention_core_s86
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + \
+        [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        status = fn(_ptr(x), _ptr(ln_scale), _ptr(ln_bias), _ptr(wqkv),
+                    _ptr(bqkv), _ptr(o), n_seg, S, C, num_heads,
+                    float(scale), float(ln_eps), int(bool(use_ln)),
+                    _stream(dev))
+    _build.check(lib, status, "attention_core_s86")
+    launch_counts["fused_attention_residual_s86" if use_ln
+                  else "fused_attention_residual_s86_bare"] += 1
+    return o
+
+
+def attention_proj(o, x, wproj, bproj, use_residual=True):
+    """The second launch of the 65..86-token attention branch: y = [x +]
+    o wproj + bproj, accumulated in float32 and cast once; o, x [..., C]
+    (x is read only with use_residual). On the card: bf16 o, x and wproj,
+    float32 bproj, C in SUPPORTED_C."""
+    if o.device.type == "cpu":
+        return attention_proj_plain(o, x, wproj, bproj, use_residual)
+    if o.device.type != "cuda":
+        raise ValueError(f"no kernel for device {o.device}")
+    C = o.shape[-1]
+    rows = o.numel() // C if C else 0
+    _check_width(C, "attention_proj")
+    dev, bf16 = o.device, torch.bfloat16
+    _check_tensor("o", o, dev, bf16, o.shape)
+    _check_tensor("x", x, dev, bf16, o.shape)
+    _check_tensor("wproj", wproj, dev, bf16, (C, C))
+    _check_tensor("bproj", bproj, dev, torch.float32, (C,))
+    out = torch.empty_like(x)
+    if rows == 0:
+        return out
+    lib = _build.load_library("fused_attention_residual_s86")
+    fn = lib.launch_attention_proj
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        status = fn(_ptr(o), _ptr(x), _ptr(wproj), _ptr(bproj), _ptr(out),
+                    rows, C, int(bool(use_residual)), _stream(dev))
+    _build.check(lib, status, "attention_proj")
+    launch_counts["fused_attention_residual_s86_proj" if use_residual
+                  else "fused_attention_residual_s86_proj_bare"] += 1
     return out
 
 
@@ -482,23 +617,17 @@ def fused_attention_residual_bwd(x, g, ln_scale, ln_bias, wqkv, bqkv, wproj,
     launches) and no row-space tensor written."""
     reg = dict(gamma=gamma, seed=seed, attn_drop=attn_drop,
                proj_drop=proj_drop)
+    refuse_long_segments("fused_attention_residual_bwd" +
+                         (" (dw form)" if dw else ""), seg_len)
     if x.device.type == "cpu":
         return fused_attention_residual_bwd_plain(
             x, g, ln_scale, ln_bias, wqkv, bqkv, wproj, num_heads, seg_len,
             scale, ln_eps, use_ln, use_residual, dw=dw, **reg)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    _require(x.dim() == 3, f"x must be [n_seg, seg_len, C], got "
-             f"{tuple(x.shape)}")
-    n_seg, S, C = x.shape
-    _require(S == seg_len, f"x has {S} tokens per segment, "
-             f"seg_len={seg_len}")
-    _require(1 <= S <= ATTN_MAX_SEG_LEN,
-             f"seg_len {S} outside the kernel's 1..{ATTN_MAX_SEG_LEN}")
-    _require(num_heads * HEAD_DIM == C,
-             f"the kernel needs head width {HEAD_DIM}: C={C}, "
-             f"num_heads={num_heads}")
-    _check_width(C, "fused_attention_residual_bwd")
+    n_seg, S, C = _check_attention_x(x, seg_len, num_heads,
+                                     "fused_attention_residual_bwd",
+                                     ATTN_MAX_SEG_LEN)
     dev, f32, bf16 = x.device, torch.float32, torch.bfloat16
     _check_tensor("x", x, dev, bf16, (n_seg, S, C))
     _check_tensor("g", g, dev, bf16, (n_seg, S, C))
@@ -662,7 +791,9 @@ def fused_mlp_bwd(x, g, ln_scale, ln_bias, w1, b1, w2, ln_eps=1e-6):
 def block_diag_attention_fwd(qkv, num_heads, seg_len, scale):
     """softmax(q k^T * scale) v within each segment (_block_attention_impl,
     pallas_attention.py:230-263): qkv [n_seg, seg_len, 3C] -> [n_seg,
-    seg_len, C]. On the card: bf16 qkv, head width 64, seg_len <= 64."""
+    seg_len, C]. On the card: bf16 qkv, head width 64, seg_len <= 64 (on
+    either device)."""
+    refuse_long_segments("block_diag_attention", seg_len)
     if qkv.device.type == "cpu":
         return block_diag_attention_plain(qkv, num_heads, seg_len, scale)
     if qkv.device.type != "cuda":

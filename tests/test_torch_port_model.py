@@ -164,12 +164,13 @@ def test_parameter_count_matches_jax(pair):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(num_layers=4), dict(attn_drop_rate=0.1),
-    dict(backbone="r18"), dict(num_layers=3), dict(remat=True),
+    dict(num_layers=1), dict(attn_drop_rate=0.1),
+    dict(backbone="r18"), dict(remat=True),
 ])
 def test_unported_options_raise(kwargs):
-    """(The channel scale token, once refused here, is held to the JAX
-    package in tests/test_torch_port_reg.py.)"""
+    """(The channel scale token and 3 and 4 scales, once refused here, are
+    held to the JAX package in tests/test_torch_port_reg.py and
+    tests/test_torch_port_scales.py.)"""
     with pytest.raises(NotImplementedError):
         port.build_model_no_extra_params(
             **{**CFG, **kwargs, "device": "cpu"})
