@@ -45,6 +45,7 @@ LN = f"{PKG}/csrc/layernorm.cu"
 BDA = f"{PKG}/csrc/block_diag_attention.cu"
 ATTN86 = f"{PKG}/csrc/fused_attention_residual_s86.cu"
 ATTN886 = f"{PKG}/csrc/fused_attention_residual_int8_s86.cu"
+BWD86 = f"{PKG}/csrc/fused_attention_residual_bwd_s86.cu"
 STRIP_CALL = "strip_attention<RT>(sQKV, QKV_LD, warp, S, scale, lane);"
 PARALLEL = 8
 
@@ -199,6 +200,23 @@ FAULTS = {
         "            amax = fmaxf(amax, fmaxf(fabsf(v[u][i].x), "
         "fabsf(v[u][i].y)));",
         "fused_attention_residual_int8_s86_proj"),
+    "padding rows 86..95 of do read from memory (s86 backward)": (
+        BWD86, "if (r < S)\n      cp_async16(d, dattn",
+        "if (r < RT)\n      cp_async16(d, dattn",
+        "fused_attention_residual_bwd_s86"),
+    "softmax Jacobian on the bf16 p (s86 backward)": (
+        BWD86, "for (int q = 0; q < 4; ++q) p[j][q] = p[j][q] / sum[q >> 1];",
+        "for (int q = 0; q < 4; ++q)\n        p[j][q] = __bfloat162float("
+        "__float2bfloat16(p[j][q] / sum[q >> 1]));",
+        "fused_attention_residual_bwd_s86"),
+    "head 1's dq over head 0's columns (s86 backward)": (
+        BWD86, "store_strip_acc(dq, dqkv, row0, m, S, 3 * C, h * D,",
+        "store_strip_acc(dq, dqkv, row0, m, S, 3 * C, (h == 1 ? 0 : h) * D,",
+        "fused_attention_residual_bwd_s86"),
+    "last chunk of segments skipped (s86 dw form)": (
+        BWD86, "for (int ci = 0; ci < nchunks; ++ci) {",
+        "for (int ci = 0; ci < nchunks - (dw ? 1 : 0); ++ci) {",
+        "fused_attention_residual_bwd_s86_dw"),
 }
 
 CHILD = """

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-1. Builds the twelve CUDA kernel sources from the checkout (one nvcc
+1. Builds the thirteen CUDA kernel sources from the checkout (one nvcc
    each, started together) and prints each kernel's register and spill
    report.
 2. Holds every kernel form against its plain PyTorch version on the card:
@@ -22,7 +22,17 @@
    the bf16 and of the int8 branch alone at 3136 segments of S=86, both
    launches through the wrappers there, at 7 segments, bare at 5 and at
    S=65; a second launch of each launch alone bit-identical), the S<=64
-   kernels at S=22 (3136 segments), and each at one small odd shape:
+   kernels at S=22 (3136 segments), the attention backward of the 3- and
+   4-scale training steps (both forms, full and bare, at S=86 over 6272
+   segments (B=128), 3136 and a ragged 7 or 5, at S=65, and at S=22 over
+   6272; the plain versions run over chunks of segments; held against
+   the plain version on the same bf16 inputs at the bars below and against
+   the float32-input one at the relative L2 bar, see
+   attention_bwd_big_case; a second launch bit-identical; dqkv against the
+   bf16-input plain version also at ROUND_REL_TOL in two cases; the dw
+   form's extra device memory at 6272 segments at most DW_EXTRA_BYTES), the MLP
+   kernels at the 4-scale step's 539,392 rows (held row chunk by row
+   chunk, untimed), and each at one small odd shape:
    kernel in bf16,
    plain version on the same inputs upcast to float32 (the int8 forms'
    plain versions take the same bf16 x and int8 weights, so both round at
@@ -138,8 +148,19 @@
    perturbation into compounding code flips; the CPU run in bf16 printed
    beside), int8 logits within 0.05 * (max|bf16| + 1) of bf16's, the
    stage times, memory resident and peak during the forwards, and both
-   Predictors' tiles/s in interleaved windows. Every kernel form must have
-   launched on some path.
+   Predictors' tiles/s in interleaved windows.
+9. Runs last: the release DuoFormer trained at 3 scales on the default
+   routes at B=128, and at 4 scales (apply_fc_norm and fused_ln, as phase
+   7's) on the memory-lean routes at B=128 and on the default routes at
+   B=64 (the default routes' saved hidden at B=128 would not fit). Each:
+   one counted step with exactly the launches of SCALES_TRAIN and no other
+   form (12 S=22 or S=86 attention backwards, 12 bare S=50 ones); over 3
+   steps a finite loss, every trainable tensor moved, the backbone
+   bit-identical; tiles/s (7 windows of 3 steps, 1 at 4 scales), split,
+   peak memory and profile as in 4. The gradients of one backward on 2
+   tiles against the port's CPU float32 run at phase 4's bar, on each
+   route, and at 4 scales lean against default on the card at phase 7's.
+Every kernel form must have launched on some path.
 Prints the card's name and power limit, one JSON line {"kernels": [...]},
 and as its last line {"ok": true, "device": {...}}. Exits non-zero, with
 no result line, when there is no CUDA device, when the port is not beside
@@ -177,6 +198,18 @@ DROP_SEED = 12345          # the kernel cases' dropout seed
 # drop_ew computes one float32 formula on both sides; only erff, expf and
 # fma contraction move a bf16 rounding, in about 1e-5 of the elements
 DROP_EW_MISMATCH_TOL = 1e-3
+# the 65..86-token backward: its plain version runs over chunks of this
+# many segments (whole, its float32 intermediates at n_seg 6272 hold tens
+# of GB), timed over PLAIN_REPEATS runs; dqkv against the plain version on
+# the same bf16 inputs, which rounds where the kernels round: summation
+# order alone moves it by ~3e-4 (a CPU emulation), moving one rounding
+# point (p in bf16 for the softmax Jacobian) by ~3e-3
+PLAIN_CHUNK_SEGS = 392
+PLAIN_REPEATS = 5
+ROUND_REL_TOL = 1.5e-3
+# the dw form's extra device memory at the 4-scale step's n_seg 6272 (its
+# per-chunk scratch; dw=False writes ~4.1 GB of ln, attn and dqkv)
+DW_EXTRA_BYTES = 512e6
 CSRC = "duoformer_tcga_tpu_torch/csrc/"
 PALLAS = "duoformer_tcga_tpu/ops/pallas_attention.py:"
 # kernel form -> its CUDA source; REPLACES: -> the TPU kernel it replaces
@@ -222,6 +255,14 @@ SOURCES = {
         CSRC + "fused_attention_residual_int8_s86.cu",
     "fused_attention_residual_int8_s86_proj":
         CSRC + "fused_attention_residual_int8_s86.cu",
+    "fused_attention_residual_bwd_s86":
+        CSRC + "fused_attention_residual_bwd_s86.cu",
+    "fused_attention_residual_bwd_s86_bare":
+        CSRC + "fused_attention_residual_bwd_s86.cu",
+    "fused_attention_residual_bwd_s86_dw":
+        CSRC + "fused_attention_residual_bwd_s86.cu",
+    "fused_attention_residual_bwd_s86_dw_bare":
+        CSRC + "fused_attention_residual_bwd_s86.cu",
 }
 REPLACES = {
     "fused_attention_residual": PALLAS + "311",
@@ -254,6 +295,10 @@ REPLACES = {
     "fused_attention_residual_s86_proj": PALLAS + "311",
     "fused_attention_residual_int8_s86": PALLAS + "442",
     "fused_attention_residual_int8_s86_proj": PALLAS + "442",
+    "fused_attention_residual_bwd_s86": PALLAS + "723",
+    "fused_attention_residual_bwd_s86_bare": PALLAS + "723",
+    "fused_attention_residual_bwd_s86_dw": PALLAS + "723",
+    "fused_attention_residual_bwd_s86_dw_bare": PALLAS + "723",
 }
 SERVING_FORMS = ("fused_attention_residual", "fused_attention_residual_bare",
                  "fused_mlp_residual")
@@ -312,6 +357,31 @@ SCALES_SERVE = {
                   "fused_attention_residual_int8_s86_proj": 12,
                   "fused_attention_residual_int8_bare": 12,
                   "fused_mlp_residual_int8": 12},
+}
+# launches per 3- and 4-scale training step (phase 9; 12 ScaleBlocks at
+# S=22 or S=86, 12 PatchBlocks at S=50; the 4-scale model's fc_norm through
+# the LayerNorm kernel); every other form none
+SCALES_TRAIN = {
+    "3-scale default": {"fused_attention_residual": 12,
+                        "fused_attention_residual_bare": 12,
+                        "fused_mlp_residual_z": 12,
+                        "fused_attention_residual_bwd": 12,
+                        "fused_attention_residual_bwd_bare": 12,
+                        "mlp_dz": 12},
+    "4-scale lean": {"fused_attention_residual_s86": 12,
+                     "fused_attention_residual_s86_proj": 12,
+                     "fused_attention_residual_bare": 12,
+                     "fused_mlp_residual": 12, "fused_layernorm": 1,
+                     "fused_attention_residual_bwd_s86_dw": 12,
+                     "fused_attention_residual_bwd_dw_bare": 12,
+                     "fused_mlp_bwd": 12},
+    "4-scale default": {"fused_attention_residual_s86": 12,
+                        "fused_attention_residual_s86_proj": 12,
+                        "fused_attention_residual_bare": 12,
+                        "fused_mlp_residual_z": 12, "fused_layernorm": 1,
+                        "fused_attention_residual_bwd_s86": 12,
+                        "fused_attention_residual_bwd_bare": 12,
+                        "mlp_dz": 12},
 }
 # the serving-shape cases of the legacy forward's forms, with launches
 LEGACY_SERVING_CASES = (
@@ -884,6 +954,254 @@ def attention_bwd_dw_case(torch, F, fa, gen, n_seg, S, c, heads, bare,
     return res
 
 
+def chunked_compare(torch, outs, plain_part, units, unit_rows, residuals,
+                    chunk):
+    """compare_all() of kernel outputs whose plain version is run over
+    chunks of `units` (segments or rows; the plain versions' float32
+    intermediates over a whole 4-scale step's rows would hold tens of GB):
+    outs {name: kernel output}, each either row-space ([units * unit_rows,
+    ...] in any shape) or summed over the rows (a column sum or a weight
+    gradient, which must be 2 or more dimensions only for the latter);
+    plain_part(lo, hi) -> {name: the plain version's output on units lo:hi
+    (float32)}; residuals {name: the residual a row-space output carries}.
+    Row-space outputs are held chunk by chunk (the relative L2 error from
+    the chunks' sums of squares), the summed ones once, at atol = 0.08 *
+    sqrt(rows)."""
+    rows = units * unit_rows
+    acc = {k: dict(d2=0.0, b2=0.0, mx=0.0, close=True, n=0) for k in outs}
+    sums = {}
+    for lo in range(0, units, chunk):
+        hi = min(units, lo + chunk)
+        ref = plain_part(lo, hi)
+        r0, r1 = lo * unit_rows, hi * unit_rows
+        for k, o in outs.items():
+            if k not in ROW_OUTPUTS:
+                r = ref[k].float()
+                sums[k] = r if k not in sums else sums[k] + r
+                continue
+            oc = o.reshape(rows, -1)[r0:r1].float()
+            rc = ref[k].reshape(r1 - r0, -1).float()
+            res = residuals.get(k)
+            br = rc if res is None else rc - res.reshape(rows, -1)[r0:r1].float()
+            a = acc[k]
+            a["d2"] += (oc - rc).double().pow(2).sum().item()
+            a["b2"] += br.double().pow(2).sum().item()
+            a["mx"] = max(a["mx"], (oc - rc).abs().max().item())
+            a["close"] &= bool(torch.allclose(oc, rc, rtol=TOL, atol=TOL))
+            a["n"] += br.numel()
+            del oc, rc, br
+        del ref
+    each = {}
+    for k, o in outs.items():
+        if k not in ROW_OUTPUTS:
+            each[k] = compare(torch, o, sums[k], None, n_summed=rows)
+            continue
+        a = acc[k]
+        rel = (a["d2"] / max(a["b2"], 1e-300)) ** 0.5
+        each[k] = dict(max_abs_err=a["mx"], rel_err=rel,
+                       branch_rms=(a["b2"] / max(a["n"], 1)) ** 0.5,
+                       close=a["close"], ok=a["close"] and rel <= BRANCH_REL_TOL)
+    return dict(max_abs_err=max(r["max_abs_err"] for r in each.values()),
+                rel_err=max(r["rel_err"] for r in each.values()),
+                branch_rms=min(r["branch_rms"] for r in each.values()),
+                close=all(r["close"] for r in each.values()),
+                ok=all(r["ok"] for r in each.values()), outputs=each)
+
+
+# the outputs chunked_compare holds row by row; every other one is summed
+# over the rows
+ROW_OUTPUTS = ("dx", "ln", "attn", "dqkv", "out", "z", "dz", "h")
+BWD_NAMES = ("dx", "ln", "attn", "dqkv", "dlns", "dlnb", "dbqkv", "dbproj")
+BWD_DW_NAMES = ("dx", "dlns", "dlnb", "dbqkv", "dbproj", "dwqkv", "dwA")
+
+
+def attention_bwd_big_case(torch, F, fa, gen, n_seg, S, c, heads, bare,
+                           timed, dw=False, twin=False):
+    """The attention backward, dw=False or the dw form, at a 3- or 4-scale
+    training step's size (the 65..86-token chain, or the S<=64 kernel at
+    S=22), each plain version run over chunks of PLAIN_CHUNK_SEGS segments:
+    every output against the plain version on the same bf16 inputs, which
+    rounds where the kernels round, at the bars of attention_bwd_case
+    (atol = rtol = 0.08, sums at 0.08 * sqrt(n), relative L2 1e-2); and
+    against the plain version on the inputs upcast to float32 at the
+    relative L2 bar (the rounding points' own error). Not held there: the
+    elementwise bar, which that error alone passes at 1e8 elements and
+    more (a CPU run of the bf16 plain version against the float32 one,
+    with no kernel, reaches 0.88 of it on 6.5e6 elements of dx). A second
+    launch bit-identical (the S<=64 dw form: its dwqkv and dwA, summed
+    with atomics, within the bars of the first); the dw form's dwqkv and
+    dwA also within 1e-2 relative L2 of the dw=False kernel's row-space
+    outputs multiplied with torch.matmul. twin: dqkv (dw: dwqkv) against
+    the bf16-input plain version also at ROUND_REL_TOL (a rounding point
+    moved shows there, below the bf16 bars). Records the device memory
+    the call held beyond dx, the column sums and the weight gradients
+    (dw=False: ln, attn, dqkv and any scratch; dw: the scratch)."""
+    dev, bf16 = "cuda", torch.bfloat16
+
+    def rnd(*shape, std=1.0, mean=0.0):
+        return torch.randn(*shape, generator=gen) * std + mean
+
+    x = rnd(n_seg, S, c).to(dev, bf16)
+    g = rnd(n_seg, S, c).to(dev, bf16)
+    if bare:
+        lns = torch.zeros(c, device=dev)
+        lnb = torch.zeros(c, device=dev)
+    else:
+        lns, lnb = rnd(c, std=0.1, mean=1.0).cuda(), rnd(c, std=0.1).cuda()
+    wqkv = rnd(c, 3 * c, std=QKV_STD * c ** -0.5).to(dev, bf16)
+    bqkv = rnd(3 * c, std=0.01).cuda()
+    wproj = rnd(c, c, std=c ** -0.5).to(dev, bf16)
+    scale = (c // heads) ** -0.5
+    flags = dict(use_ln=not bare, use_residual=not bare)
+    args = (x, g, lns, lnb, wqkv, bqkv, wproj, heads, S, scale)
+    names = BWD_DW_NAMES if dw else BWD_NAMES
+    rows = n_seg * S
+
+    def kernel():
+        return fa.fused_attention_residual_bwd(*args, dw=dw, **flags)
+
+    def plain_part(lo, hi, bf=False):
+        xs, gs, wq, wp = (t if bf else t.float()
+                          for t in (x[lo:hi], g[lo:hi], wqkv, wproj))
+        return dict(zip(names, fa.fused_attention_residual_bwd_plain(
+            xs, gs, lns, lnb, wq, bqkv, wp, heads, S, scale, dw=dw,
+            **flags)))
+
+    def plain():
+        return [plain_part(lo, min(n_seg, lo + PLAIN_CHUNK_SEGS))
+                for lo in range(0, n_seg, PLAIN_CHUNK_SEGS)]
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = kernel()
+    torch.cuda.synchronize()
+    held = 2 * x.numel() + 4 * 6 * c + (4 * 4 * c * c if dw else 0)
+    extra = torch.cuda.max_memory_allocated() - before - held
+    outs = {k: o for k, o in zip(names, out)
+            if not (bare and k in ("ln", "dlns", "dlnb"))}
+    residuals = {} if bare else {"dx": g}
+    res = chunked_compare(torch, outs, functools.partial(plain_part, bf=True),
+                          n_seg, S, residuals, PLAIN_CHUNK_SEGS)
+    f32 = chunked_compare(torch, outs, plain_part, n_seg, S, residuals,
+                          PLAIN_CHUNK_SEGS)
+    again = kernel()
+    if dw and S <= fa.ATTN_MAX_SEG_LEN:
+        rerun = compare_all(torch, {k: (a, b.float(), None, rows) for k, a, b
+                                    in zip(names[5:], again[5:], out[5:])})
+        same = rerun["ok"] and all(torch.equal(a, b) for a, b in
+                                   zip(again[:5], out[:5]))
+    else:
+        same = all(torch.equal(a, b) for a, b in zip(again, out))
+    del again
+    res.update(extra_bytes=extra, repeat_identical=same,
+               f32_rel_err=f32["rel_err"], f32_max_abs_err=f32["max_abs_err"],
+               f32_close=f32["close"],
+               ok=res["ok"] and same and f32["rel_err"] <= BRANCH_REL_TOL)
+    if twin:
+        key = "dwqkv" if dw else "dqkv"
+        res["vs_twin"] = res["outputs"][key]["rel_err"]
+        res["ok"] = res["ok"] and res["vs_twin"] <= ROUND_REL_TOL
+    if dw:
+        rs = fa.fused_attention_residual_bwd(*args, **flags)
+        route = (fa._mm_f32(rs[1].t(), rs[3]),
+                 fa._mm_f32(rs[2].t(), g.view(rows, c)))
+        vs = max(rel_err(a, b) for a, b in zip(out[5:], route))
+        res.update(vs_dw_false=vs, ok=res["ok"] and vs <= BRANCH_REL_TOL)
+        del rs, route
+    del out
+    if not timed:
+        return res
+    D = c // heads
+    if dw:
+        def library():
+            r = fa.fused_attention_residual_bwd(*args, **flags)
+            return (torch.matmul(r[1].t(), r[3]),
+                    torch.matmul(r[2].t(), g.view(rows, c)))
+    else:
+        leaves = [t.detach().clone().requires_grad_(True) for t in (
+            x, lns.to(bf16), lnb.to(bf16), wqkv.t().contiguous(),
+            bqkv.to(bf16), wproj.t().contiguous())]
+
+        def library():
+            xx, ls, lb, wq, bq, wp = leaves
+            h = xx if bare else F.layer_norm(xx, (c,), ls, lb, 1e-6)
+            qkv = F.linear(h, wq, bq).view(n_seg, S, 3, heads, D)
+            q, k, v = qkv.permute(2, 0, 3, 1, 4)
+            o = F.scaled_dot_product_attention(q, k, v, scale=scale)
+            y = F.linear(o.transpose(1, 2).reshape(n_seg, S, c), wp)
+            y = y if bare else y + xx
+            return torch.autograd.grad(y, leaves, g, allow_unused=bare)
+
+    flops = 2 * rows * c * 7 * c + 12 * n_seg * S * S * c
+    nbytes = (2 * (rows * c * (3 + (0 if bare else 1) + 1 + 3) + 4 * c * c)
+              + 4 * (2 * c + 3 * c + 6 * c))
+    if dw:
+        flops += 8 * rows * c * c
+        nbytes = (2 * (3 * rows * c + 4 * c * c)
+                  + 4 * (2 * c + 3 * c + 6 * c + 4 * c * c))
+    bound_ms, bound_by = bound(flops, nbytes)
+    res.update(ms=median_ms(kernel, torch),
+               plain_ms=median_ms(plain, torch, PLAIN_REPEATS),
+               library_ms=median_ms(library, torch), bound_ms=bound_ms,
+               bound_by=bound_by, flops=flops, bytes=nbytes)
+    return res
+
+
+def mlp_rows_case(torch, F, fa, gen, rows, c, hidden, timed, kind):
+    """One MLP kernel at a 4-scale training step's rows (539,392 at B=128:
+    z, h and dz [rows, 4C] hold 1.66e9 elements, whose byte offsets pass
+    2^31), held row by row against its plain version run over chunks of
+    rows: kind "z" (the z form of fused_mlp_residual: the branch and z),
+    "dz" (mlp_dz: dz and db1) or "bwd" (fused_mlp_bwd: dx, ln, h, dz, dlns,
+    dlnb). Untimed: the main path's shapes time these kernels above."""
+    dev, bf16 = "cuda", torch.bfloat16
+    # drawn on the card (from a seed the case's generator draws): 1.66e9
+    # numbers take the CPU tens of seconds
+    cg = torch.Generator(device=dev).manual_seed(
+        int(torch.randint(0, 2 ** 31 - 1, (1,), generator=gen)))
+
+    def rnd(*shape, std=1.0, mean=0.0):
+        return torch.randn(*shape, generator=cg, device=dev) * std + mean
+
+    x = rnd(rows, c).to(bf16)
+    lns, lnb = rnd(c, std=0.1, mean=1.0), rnd(c, std=0.1)
+    w1 = rnd(c, hidden, std=c ** -0.5).to(bf16)
+    b1 = rnd(hidden, std=0.01)
+    w2 = rnd(hidden, c, std=hidden ** -0.5).to(bf16)
+    b2 = rnd(c, std=0.01)
+    w1f, w2f = w1.float(), w2.float()
+    if kind == "z":
+        names, residuals = ("out", "z"), {"out": x}
+        out = fa.fused_mlp_residual(x, lns, lnb, w1, b1, w2, b2,
+                                    return_hidden=True)
+
+        def plain_part(lo, hi):
+            return dict(zip(names, fa.fused_mlp_residual_plain(
+                x[lo:hi].float(), lns, lnb, w1f, b1, w2f, b2,
+                return_hidden=True)))
+    elif kind == "dz":
+        names, residuals = ("dz", "db1"), {}
+        z = rnd(rows, hidden).to(bf16)
+        out = fa.mlp_dz(x, z, w2)
+
+        def plain_part(lo, hi):
+            return dict(zip(names, fa.mlp_dz_plain(
+                x[lo:hi].float(), z[lo:hi].float(), w2f)))
+    else:
+        names = ("dx", "ln", "h", "dz", "dlns", "dlnb")
+        g = rnd(rows, c).to(bf16)
+        residuals = {"dx": g}
+        out = fa.fused_mlp_bwd(x, g, lns, lnb, w1, b1, w2)
+
+        def plain_part(lo, hi):
+            return dict(zip(names, fa.fused_mlp_bwd_plain(
+                x[lo:hi].float(), g[lo:hi].float(), lns, lnb, w1f, b1,
+                w2f)))
+    return chunked_compare(torch, dict(zip(names, out)), plain_part, rows,
+                           1, residuals, -(-rows // 8))
+
+
 def layernorm_case(torch, F, fa, gen, rows, c, timed):
     """The LayerNorm kernel (through ops.nn.fused_layernorm) against its
     plain version."""
@@ -1235,6 +1553,10 @@ def _case_specs(torch, F, fa, timed):
     s86_proj = part(attention_s86_case, what="proj")
     s86_core8 = part(attention_s86_case, what="core", int8=True)
     s86_proj8 = part(attention_s86_case, what="proj", int8=True)
+    s86b = attention_bwd_big_case
+    s86b_twin = part(attention_bwd_big_case, twin=True)
+    s86dw = part(attention_bwd_big_case, dw=True)
+    rows_4s = B_TRAIN * 49 * 86
     specs = [
         # the serving path's forms (B=64)
         ("fused_attention_residual", B * 49, 6, C, HEADS, False, att, timed),
@@ -1389,6 +1711,29 @@ def _case_specs(torch, F, fa, timed):
          5, 86, 256, 4, True, s86_core8, False),
         ("fused_attention_residual_int8_s86_proj bare rows=430 C=256", 5, 86,
          256, 4, True, s86_proj8, False),
+        # the 3- and 4-scale training steps' backward forms: the 86-token
+        # backward at B=64 (the default routes' step), ragged, at S=65;
+        # the main path's shapes (B=128) and S=22 below
+        ("fused_attention_residual_bwd_s86 n_seg=3136 S=86", B * 49, 86, C,
+         HEADS, False, s86b, False),
+        ("fused_attention_residual_bwd_s86_dw n_seg=3136 S=86", B * 49, 86,
+         C, HEADS, False, s86dw, False),
+        ("fused_attention_residual_bwd_s86_bare n_seg=3136 S=86", B * 49, 86,
+         C, HEADS, True, s86b, False),
+        ("fused_attention_residual_bwd_s86_dw_bare n_seg=3136 S=86", B * 49,
+         86, C, HEADS, True, s86dw, False),
+        ("fused_attention_residual_bwd_s86 n_seg=7 S=86 (rounding points)", 7,
+         86, C, HEADS, False, s86b_twin, False),
+        ("fused_attention_residual_bwd_s86_dw n_seg=7 S=86", 7, 86, C, HEADS,
+         False, s86dw, False),
+        ("fused_attention_residual_bwd_s86_bare n_seg=5 S=86 C=256 H=4", 5,
+         86, 256, 4, True, s86b, False),
+        ("fused_attention_residual_bwd_s86_dw_bare n_seg=5 S=86 C=256 H=4", 5,
+         86, 256, 4, True, s86dw, False),
+        ("fused_attention_residual_bwd_s86 n_seg=3 S=65 C=512 H=8 (rounding "
+         "points)", 3, 65, 512, 8, False, s86b_twin, False),
+        ("fused_attention_residual_bwd_s86_dw n_seg=3 S=65 C=512 H=8", 3, 65,
+         512, 8, False, s86dw, False),
     ]
     if timed:
         # the MLP forms' times at the 4-scale rows (their checks at other
@@ -1399,7 +1744,28 @@ def _case_specs(torch, F, fa, timed):
             ("fused_mlp_residual rows=269696 (4 scales)", B * 49 * 86, C,
              HIDDEN, mlp, timed),
             ("fused_mlp_residual_int8 rows=269696 (4 scales)", B * 49 * 86,
-             C, HIDDEN, mlp8, timed)]
+             C, HIDDEN, mlp8, timed),
+            # the 3- and 4-scale training steps' backward at B=128 (timed;
+            # left out of the untimed runs for their memory), and the MLP
+            # kernels at the 4-scale step's 539,392 rows (checked, untimed)
+            ("fused_attention_residual_bwd_s86", B_TRAIN * 49, 86, C, HEADS,
+             False, s86b, timed),
+            ("fused_attention_residual_bwd_s86_dw", B_TRAIN * 49, 86, C,
+             HEADS, False, s86dw, timed),
+            ("fused_attention_residual_bwd_s86_bare n_seg=6272 S=86",
+             B_TRAIN * 49, 86, C, HEADS, True, s86b, timed),
+            ("fused_attention_residual_bwd_s86_dw_bare n_seg=6272 S=86",
+             B_TRAIN * 49, 86, C, HEADS, True, s86dw, timed),
+            ("fused_attention_residual_bwd n_seg=6272 S=22 (3 scales)",
+             B_TRAIN * 49, 22, C, HEADS, False, s86b, timed),
+            ("fused_attention_residual_bwd_dw n_seg=6272 S=22 (3 scales)",
+             B_TRAIN * 49, 22, C, HEADS, False, s86dw, timed),
+            ("fused_mlp_residual_z rows=539392 (4 scales)", rows_4s, C,
+             HIDDEN, part(mlp_rows_case, kind="z"), False),
+            ("mlp_dz rows=539392 (4 scales)", rows_4s, C, HIDDEN,
+             part(mlp_rows_case, kind="dz"), False),
+            ("fused_mlp_bwd rows=539392 (4 scales)", rows_4s, C, HIDDEN,
+             part(mlp_rows_case, kind="bwd"), False)]
     out = []
     for label, *args in specs:
         *shape, case, t = args
@@ -1648,8 +2014,8 @@ def train_phase(torch, port, fa, failures, card):
     return launches
 
 
-def time_step(torch, model, state, step, batches, card, what):
-    """A training step's time: 7 host-clock windows of 3 steps, the
+def time_step(torch, model, state, step, batches, card, what, n=3):
+    """A training step's time: 7 host-clock windows of n steps, the
     forward / backward / optimizer split (CUDA events, median of 5 steps),
     the peak memory of a step and one step's device time by kernel
     (torch.profiler, CUPTI). A model with dropout takes seeds drawn for
@@ -1659,12 +2025,13 @@ def time_step(torch, model, state, step, batches, card, what):
     from duoformer_tcga_tpu_torch.models.duoformer import draw_seeds
     tf = model.transformer
     gen = torch.Generator().manual_seed(SEED)
-    n, windows = 3, []
+    bsz = len(batches[0]["label"])
+    windows = []
     for i in range(7):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for j in range(n):
-            state, _ = step(state, batches[j])
+            state, _ = step(state, batches[j % len(batches)])
         torch.cuda.synchronize()
         windows.append((time.perf_counter() - t0) / n)
     dt = float(np.median(windows))
@@ -1706,9 +2073,9 @@ def time_step(torch, model, state, step, batches, card, what):
         f"{what} profile: the profiler saw no device time (not measured)")
     for ms, count, key in rows[:16]:
         log(f"  {ms:8.3f} {count:5d}  {key[:90]}")
-    log(f"{what} throughput: {B_TRAIN / dt:.1f} tiles/s at B={B_TRAIN}, "
-        f"median of 7 windows of {n} steps (least {B_TRAIN / max(windows):.1f}"
-        f", greatest {B_TRAIN / min(windows):.1f}; step {dt * 1e3:.2f} ms); "
+    log(f"{what} throughput: {bsz / dt:.1f} tiles/s at B={bsz}, "
+        f"median of 7 windows of {n} steps (least {bsz / max(windows):.1f}"
+        f", greatest {bsz / min(windows):.1f}; step {dt * 1e3:.2f} ms); "
         f"forward {fwd:.2f} ms, backward {bwd:.2f} ms, optimizer {opt:.2f} "
         f"ms (CUDA events, median of 5 steps); peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; on {card}")
@@ -1777,8 +2144,8 @@ def three_steps(torch, fa, failures, what, model, state, step, batches,
     for b in batches[1:]:
         state, m = step(state, b)
         losses.append(float(m["loss"]))
-    log(f"{what}: one step at B={B_TRAIN}, launches {launches}; losses of 3 "
-        f"steps {losses}")
+    log(f"{what}: one step at B={len(batches[0]['label'])}, launches "
+        f"{launches}; losses of 3 steps {losses}")
     check_launches(failures, f"{what} step", launches, want, cases)
     if not all(np.isfinite(losses)):
         failures.append(f"{what} losses {losses}")
@@ -2020,6 +2387,108 @@ def lean_phase(torch, port, fa, failures, card, cases):
     return out
 
 
+def scales_train_phase(torch, port, fa, failures, card, cases):
+    """Phase 9: the release DuoFormer trained at 3 and 4 scales (S=22 and
+    S=86 a region), full width, depth 12, frozen backbone: 3 scales on the
+    default routes at B=128; 4 scales (with apply_fc_norm and fused_ln, as
+    phase 7's release model) on the memory-lean routes at B=128 and on the
+    default routes at B=64. -> {path: the launch counts of one counted
+    step}."""
+    from duoformer_tcga_tpu_torch import train as train_lib
+    lean = dict(mlp_save_hidden=False, attn_bwd_dw=True)
+    out = {}
+    for layers in (3, 4):
+        four = layers == 4
+
+        def build(device):
+            return port.build_model_no_extra_params(
+                num_layers=layers, embed_dim=C, proj_dim=C, num_heads=HEADS,
+                depth=12, apply_fc_norm=four, fused_ln=four, device=device,
+                seed=SEED)
+
+        t0 = time.perf_counter()
+        model = build("cuda")
+        opt = train_lib.make_optimizer(
+            model, train_lib.onecycle_schedule(1e-4, 1000), weight_decay=1e-4,
+            frozen_label_fn=train_lib.backbone_frozen_labels)
+        state = train_lib.init_train_state(model, opt)
+        step = train_lib.make_train_step(model, dtype=torch.bfloat16,
+                                         **(lean if four else {}))
+        trainable = {n for n, p in model.named_parameters() if p.requires_grad}
+        names = grad_check_names(model) + (
+            ["transformer.fc_norm.scale", "transformer.fc_norm.bias"]
+            if four else [])
+        rng = np.random.default_rng(SEED + 10 + layers)
+        image = rng.integers(0, 256, (2, 224, 224, 3), dtype=np.uint8)
+        grads = functools.partial(two_tile_grads, torch, names=names,
+                                  image=image, seeds=None)
+
+        # gradients of one backward on 2 tiles: the card in bf16 on each
+        # route this scale count trains on, against the port's CPU float32
+        # run (phase 4's bar) and, at 4 scales, lean against default on the
+        # card (phase 7's)
+        g_card = {"lean" if four else "default": grads(
+            model, device="cuda", dtype=torch.bfloat16)[0]}
+        if four:
+            train_lib.set_backward_routes(model)
+            g_card["default"] = grads(model, device="cuda",
+                                      dtype=torch.bfloat16)[0]
+            train_lib.set_backward_routes(model, **lean)
+        cpu_model = build("cpu")
+        train_lib.make_train_step(cpu_model, dtype=torch.float32)
+        g_cpu, _ = grads(cpu_model, device="cpu", dtype=torch.float32)
+        del cpu_model
+        errs = {r: {n: rel_err(g[n], g_cpu[n]) for n in names}
+                for r, g in g_card.items()}
+        route = ({n: rel_err(g_card["lean"][n], g_card["default"][n])
+                  for n in names} if four else {})
+        log(f"{layers}-scale train: set up and gradients on 2 tiles "
+            f"({time.perf_counter() - t0:.1f} s); rel L2 err card bf16 vs "
+            f"CPU float32 ({' | '.join(g_card)} routes, tolerance "
+            f"{GRAD_REL_TOL})" + (f" || lean vs default routes on the card "
+                                  f"(tolerance {LEAN_ROUTE_TOL})" if four
+                                  else "") + ":")
+        for n in names:
+            log(f"  {n}: " + " | ".join(f"{errs[r][n]:.3e}" for r in errs)
+                + (f" || {route[n]:.3e}" if four else ""))
+        for r, e in errs.items():
+            failures += [f"{layers}-scale {r} gradient of {n}: {v:.3e}"
+                         for n, v in e.items() if not v <= GRAD_REL_TOL]
+        failures += [f"4-scale gradient of {n} (lean vs default): {v:.3e}"
+                     for n, v in route.items() if not v <= LEAN_ROUTE_TOL]
+        del g_card, g_cpu
+
+        # windows of one step at 4 scales (a step takes 0.8-2.1 s; the
+        # whole script stays near 600 s)
+        runs = ([("lean", lean, B_TRAIN, 1), ("default", {}, B, 1)] if four
+                else [("default", {}, B_TRAIN, 3)])
+        for name, routes, bsz, per_window in runs:
+            what = f"{layers}-scale {name} train"
+            if name == "default" and four:
+                step = train_lib.make_train_step(model, dtype=torch.bfloat16)
+            batches = [{"image": rng.integers(0, 256, (bsz, 224, 224, 3),
+                                              dtype=np.uint8),
+                        "label": rng.integers(0, 2, (bsz,))}
+                       for _ in range(3)]
+            before = {n: t.detach().clone()
+                      for n, t in model.state_dict().items()}
+            key = f"{layers}-scale {name}"
+            # at 3 scales the head reads the raw CLS (quirk Q7): fc_norm's
+            # zero bias is reached by neither the loss nor the L2 term
+            out[f"{what} (1 step)"] = three_steps(
+                torch, fa, failures, what, model, state, step, batches,
+                trainable, before, SCALES_TRAIN[key], cases,
+                () if four else ("fc_norm.",))
+            del before
+            time_step(torch, model, state, step, batches, card, what,
+                      per_window)
+            del batches
+            torch.cuda.empty_cache()
+        del model, state, step
+        torch.cuda.empty_cache()
+    return out
+
+
 def block_attention_op_path(torch, fa, failures):
     """The block_diag_attention op through its entry point: forward and
     backward at the checked shapes (S=6 over 3136 segments, S=50 over 64),
@@ -2239,12 +2708,34 @@ def main() -> int:
             + (f"; bf16 mismatch fraction {res['mismatch']:.3g}"
                if "mismatch" in res else "")
             + (f"; second launch bit-identical {res['repeat_identical']}"
-               if "repeat_identical" in res else ""))
+               if "repeat_identical" in res else "")
+            + (f"; vs the float32-input plain version: rel L2 err "
+               f"{res['f32_rel_err']:.4g} (<= {BRANCH_REL_TOL}), max_abs_err "
+               f"{res['f32_max_abs_err']:.6g}, elementwise bar alone "
+               f"{'passes' if res['f32_close'] else 'fails'} (not held)"
+               if "f32_rel_err" in res else "")
+            + (f"; vs the dw=False route {res['vs_dw_false']:.4g}"
+               if "vs_dw_false" in res else "")
+            + (f"; rounding points: dqkv vs the bf16-input plain version "
+               f"{res['vs_twin']:.4g} (<= {ROUND_REL_TOL})"
+               if "vs_twin" in res else "")
+            + (f"; device memory beyond dx, the sums and the weight "
+               f"gradients {res['extra_bytes'] / 1e6:.1f} MB"
+               if "extra_bytes" in res else ""))
         for out, r in res.get("outputs", {}).items():
             log(f"  {out}: max_abs_err {r['max_abs_err']:.6g}, rel L2 err "
                 f"{r['rel_err']:.4g} {'ok' if r['ok'] else 'FAIL'}")
         if not res["ok"]:
             failures.append(f"kernel check {name}")
+    dw86 = cases["fused_attention_residual_bwd_s86_dw"]
+    log(f"the 86-token dw form's extra device memory at n_seg "
+        f"{B_TRAIN * 49}: {dw86['extra_bytes'] / 1e6:.1f} MB (bar "
+        f"{DW_EXTRA_BYTES / 1e6:.0f} MB), against "
+        f"{cases['fused_attention_residual_bwd_s86']['extra_bytes'] / 1e6:.1f}"
+        f" MB of row-space tensors and scratch on the dw=False route")
+    if not dw86["extra_bytes"] <= DW_EXTRA_BYTES:
+        failures.append(f"the 86-token dw form held "
+                        f"{dw86['extra_bytes'] / 1e6:.1f} MB of scratch")
 
     # ---- 3. the serving path ----
     t0 = time.perf_counter()
@@ -2323,13 +2814,17 @@ def main() -> int:
     # ---- 8. 3- and 4-scale serving, bf16 and int8 ----
     scales_launches = scales_phase(torch, port, fa, failures, card, cases)
 
+    # ---- 9. 3- and 4-scale training, default and memory-lean routes ----
+    scales_train_launches = scales_train_phase(torch, port, fa, failures,
+                                               card, cases)
+
     paths = {f"serve ({len(batches)} forwards)": launches,
              "train (1 step)": train_launches,
              f"serve int8 ({len(batches)} forwards)": int8_launches,
              "legacy serve (3 forwards)": legacy_serve,
              "legacy train (1 step)": legacy_train, **lean_launches,
              "block_diag_attention op (2 calls)": op_launches,
-             **scales_launches}
+             **scales_launches, **scales_train_launches}
     idle = [name for name in cases
             if not any(v.get(name, 0) for v in paths.values())]
     if idle:

@@ -10,8 +10,9 @@ tokens a region, the 86-token attention in two launches of its own
 kernels) served by `inference.Predictor` in bf16 or int8
 (`quantize=True`, a8w8 transformer GEMMs), the serving artifact the JAX
 package exports and loads (`export_serving_artifact`,
-`load_serving_artifact`, `from_serving_artifact`), and its 2-scale
-training step with a frozen backbone (`train.py`); the legacy DuoFormer
+`load_serving_artifact`, `from_serving_artifact`), and its training step
+with a frozen backbone at 2, 3 and 4 scales (`train.py`); the legacy
+DuoFormer
 (`build_model`: channel token, LayerScale, dropout) served and trained the
 same way, and the release family's channel token, LayerScale and dropout;
 with the fused transformer kernels, their int8 and reg (dropout +

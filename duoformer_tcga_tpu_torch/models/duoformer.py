@@ -98,10 +98,9 @@ class DuoFormer(_PyramidModel):
     or 4 scales (num_layers; 6, 22 or 86 tokens a region). What the
     port does not cover raises NotImplementedError: q/k norms applied in
     the patch blocks (attn_drop_rate > 0, quirk Q9), r18, 1 scale,
-    LayerScale (init_values) at 3 and 4 scales, and training with an
-    unfrozen backbone (batch-stat BN); 3- and 4-scale models serve but do
-    not train yet (train.make_train_step refuses them). proj_drop_rate and
-    init_values train through the reg kernels."""
+    LayerScale (init_values) at 3 and 4 scales (the reg forms stop at 64
+    tokens a segment), and training with an unfrozen backbone (batch-stat
+    BN). proj_drop_rate and init_values train through the reg kernels."""
 
     def __init__(self, depth=12, embed_dim=768, num_heads=12, num_classes=2,
                  num_layers=2, num_patches=49, mlp_ratio=4.0,

@@ -8,9 +8,10 @@ here each stack is a ModuleList of `depth` blocks run in a Python loop.
 Every ScaleBlock runs the two fused kernels (attention branch, then MLP
 branch); every PatchBlock runs the bare form of the attention kernel. Both
 go through the kernels' autograd functions, so the same forward trains.
-At 4 scales (S = 86 tokens a region) the attention branch serves through
-its 86-token kernels, inert or int8 only: its backward and the reg forms
-raise NotImplementedError beyond 64 tokens (ops/fused_attention.py).
+At 4 scales (S = 86 tokens a region) the attention branch runs its
+86-token kernels, inert or int8 (the backward inert, in both forms): the
+reg forms raise NotImplementedError beyond 64 tokens
+(ops/fused_attention.py).
 A block with LayerScale (ls1, ls2) or an active dropout runs the reg forms
 instead (ops/fused_reg.py, transformer.py:277-327), as every block of the
 legacy family does. A model quantized by ops/quantize.quantize_model_

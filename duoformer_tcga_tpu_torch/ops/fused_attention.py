@@ -11,7 +11,11 @@ and the drop_ew kernel are in ops/fused_reg.py).
     kernels: csrc/fused_attention_residual_s86.cu
   fused_attention_residual_bwd: its backward (dx, ln, attn, dqkv and the
     column sums dlns, dlnb, dbqkv, dbproj), recomputing the forward
-    kernel: csrc/fused_attention_residual_bwd.cu
+    kernel: csrc/fused_attention_residual_bwd.cu (seg_len <= 64); for 65
+    to 86 tokens a chain of launches over chunks of segments (LN, the qkv
+    and dattn products, the attention core, the dln product, the LN
+    backward; in the dw form the weight-gradient products),
+    csrc/fused_attention_residual_bwd_s86.cu
   fused_mlp_residual:       y = [x +] fc2(gelu_erf(fc1(LN x))), and with
     return_hidden=True also the pre-GELU hidden z
     kernel: csrc/fused_mlp_residual.cu
@@ -66,10 +70,9 @@ from ._build import _check_tensor, _ptr, _require, _stream, launch_counts
 from .nn import layernorm
 
 ATTN_MAX_SEG_LEN = 64         # a block holds at most 64 rows (csrc note)
-# the serving forward, bf16 and int8, also takes 65..86 tokens (one
-# 96-row block a segment and a second launch for the proj, csrc/*_s86.cu);
-# the backward, its dw form, the reg flags and block_diag_attention stop
-# at ATTN_MAX_SEG_LEN
+# the forward, bf16 and int8, and the backward in both forms also take
+# 65..86 tokens (one 96-row block a segment, csrc/*_s86.cu); the reg flags
+# and block_diag_attention stop at ATTN_MAX_SEG_LEN
 ATTN_SERVE_MAX_SEG_LEN = 86
 HEAD_DIM = 64                 # the attention kernel's head width
 SUPPORTED_C = (256, 512, 768)   # widths the kernels are instantiated for
@@ -372,15 +375,15 @@ def _reg_name(name, gamma, *rates):
         r > 0.0 for r in rates) else name
 
 
-def refuse_long_segments(what, seg_len):
-    """What runs only up to ATTN_MAX_SEG_LEN tokens a segment (the
-    backward, its dw form, the reg flags, block_diag_attention) raises
-    beyond it, on either device."""
-    if seg_len > ATTN_MAX_SEG_LEN:
+def refuse_long_segments(what, seg_len, limit=ATTN_MAX_SEG_LEN):
+    """What runs only up to `limit` tokens a segment raises beyond it, on
+    either device: the reg flags and block_diag_attention past
+    ATTN_MAX_SEG_LEN, the backward (both forms) past
+    ATTN_SERVE_MAX_SEG_LEN."""
+    if seg_len > limit:
         raise NotImplementedError(
-            f"{what} at seg_len {seg_len} > {ATTN_MAX_SEG_LEN} is not ported "
-            f"to the PyTorch package yet (it comes with 3- and 4-scale "
-            f"training)")
+            f"{what} at seg_len {seg_len} > {limit} is not ported to the "
+            f"PyTorch package yet")
 
 
 def _check_attention_x(x, seg_len, num_heads, what, max_len):
@@ -613,12 +616,17 @@ def fused_attention_residual_bwd(x, g, ln_scale, ln_bias, wqkv, bqkv, wproj,
 
     dw=True (_fused_block_bwd_impl, dw=True, :921-1049): (dx, dlns, dlnb,
     dbqkv, dbproj, dwqkv [C, 3C], dwA [C, C]), the weight gradients formed
-    in the kernel (float32, their sums in an order that varies between
-    launches) and no row-space tensor written."""
+    by the kernels (float32; at seg_len <= 64 their sums in an order that
+    varies between launches) and no row-space tensor returned. At 65..86
+    tokens (inert forms only) the chain runs over chunks of segments and
+    the dw form's row-space tensors live in per-chunk scratch."""
     reg = dict(gamma=gamma, seed=seed, attn_drop=attn_drop,
                proj_drop=proj_drop)
-    refuse_long_segments("fused_attention_residual_bwd" +
-                         (" (dw form)" if dw else ""), seg_len)
+    what = "fused_attention_residual_bwd" + (" (dw form)" if dw else "")
+    if gamma is not None or attn_drop > 0.0 or proj_drop > 0.0:
+        refuse_long_segments(f"the reg form (LayerScale, dropout) of {what}",
+                             seg_len)
+    refuse_long_segments(what, seg_len, ATTN_SERVE_MAX_SEG_LEN)
     if x.device.type == "cpu":
         return fused_attention_residual_bwd_plain(
             x, g, ln_scale, ln_bias, wqkv, bqkv, wproj, num_heads, seg_len,
@@ -627,7 +635,7 @@ def fused_attention_residual_bwd(x, g, ln_scale, ln_bias, wqkv, bqkv, wproj,
         raise ValueError(f"no kernel for device {x.device}")
     n_seg, S, C = _check_attention_x(x, seg_len, num_heads,
                                      "fused_attention_residual_bwd",
-                                     ATTN_MAX_SEG_LEN)
+                                     ATTN_SERVE_MAX_SEG_LEN)
     dev, f32, bf16 = x.device, torch.float32, torch.bfloat16
     _check_tensor("x", x, dev, bf16, (n_seg, S, C))
     _check_tensor("g", g, dev, bf16, (n_seg, S, C))
@@ -663,6 +671,10 @@ def fused_attention_residual_bwd(x, g, ln_scale, ln_bias, wqkv, bqkv, wproj,
             out = out + (gm,)
     if n_seg == 0:
         return out
+    if S > ATTN_MAX_SEG_LEN:
+        return _attention_bwd_s86(x, g, ln_scale, ln_bias, wqkv, bqkv, wproj,
+                                  out, sums, n_seg, S, C, num_heads, scale,
+                                  ln_eps, use_ln, use_residual, dw)
     lib = _build.load_library("fused_attention_residual_bwd")
     lib.blocks_for.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.blocks_for.restype = ctypes.c_int
@@ -691,6 +703,49 @@ def fused_attention_residual_bwd(x, g, ln_scale, ln_bias, wqkv, bqkv, wproj,
     _build.check(lib, status, "fused_attention_residual_bwd")
     name = _reg_name("fused_attention_residual_bwd", gamma, attn_drop,
                      proj_drop) + ("_dw" if dw else "")
+    launch_counts[name if use_ln else name + "_bare"] += 1
+    return out
+
+
+def _attention_bwd_s86(x, g, ln_scale, ln_bias, wqkv, bqkv, wproj, out,
+                       sums, n_seg, S, C, num_heads, scale, ln_eps, use_ln,
+                       use_residual, dw):
+    """fused_attention_residual_bwd at 65..86 tokens on the card: the
+    chain of csrc/fused_attention_residual_bwd_s86.cu into the outputs
+    `out` and the float32 [6C] column sums `sums` (checked and allocated
+    by the caller), with a scratch buffer of the size the library names
+    (bounded by its chunk of segments)."""
+    dev = x.device
+    if dw:
+        dx, dwqkv, dwA = out[0], out[5], out[6]
+        ln = attn = dqkv = None
+    else:
+        dx, ln, attn, dqkv = out[:4]
+        dwqkv = dwA = None
+    lib = _build.load_library("fused_attention_residual_bwd_s86")
+    lib.attention_bwd_s86_scratch_bytes.argtypes = [ctypes.c_int] * 5
+    lib.attention_bwd_s86_scratch_bytes.restype = ctypes.c_longlong
+    nbytes = lib.attention_bwd_s86_scratch_bytes(n_seg, S, C, int(dw),
+                                                 int(bool(use_ln)))
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    fn = lib.launch_attention_bwd_s86
+    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + \
+        [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def opt(t):
+        return None if t is None else _ptr(t)
+
+    with torch.cuda.device(dev):
+        status = fn(_ptr(x), _ptr(g), _ptr(ln_scale), _ptr(ln_bias),
+                    _ptr(wqkv), _ptr(bqkv), _ptr(wproj), _ptr(dx),
+                    opt(ln) if use_ln else None, opt(attn), opt(dqkv),
+                    _ptr(sums), opt(dwqkv), opt(dwA), _ptr(scratch), n_seg,
+                    S, C, num_heads, float(scale), float(ln_eps),
+                    int(bool(use_ln)), int(bool(use_residual)),
+                    _stream(dev))
+    _build.check(lib, status, "fused_attention_residual_bwd_s86")
+    name = "fused_attention_residual_bwd_s86" + ("_dw" if dw else "")
     launch_counts[name if use_ln else name + "_bare"] += 1
     return out
 

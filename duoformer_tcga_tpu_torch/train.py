@@ -218,11 +218,6 @@ def make_train_step(model, dtype=torch.bfloat16, label_smoothing=0.0,
         if given:
             raise NotImplementedError(
                 f"{name} is not ported to the PyTorch package yet")
-    if model.num_layers != 2:
-        raise NotImplementedError(
-            f"training at num_layers={model.num_layers} is not ported to "
-            f"the PyTorch package yet (3- and 4-scale training comes with "
-            f"the attention backward at 86 tokens a segment)")
     model.train()
     set_backward_routes(model, mlp_save_hidden, attn_bwd_dw)
     device = next(model.parameters()).device

@@ -60,6 +60,40 @@ LEAN_ENV = {"DUOFORMER_FUSED_ATTN": "1", "DUOFORMER_MEGAFUSE": "1",
             "DUOFORMER_FUSED_LN": "1"}
 
 
+# what the float32 comparisons here rest on, pinned for every test of a
+# module that uses this fixture: full float32 matmuls on both sides (torch's
+# float32 matmul precision also switches its CPU oneDNN matmuls to TF32 or
+# bf16 passes; JAX's default precision), the JAX kernels in interpret mode
+# at their default tiles
+PINNED_UNSET = ("DUOFORMER_MLP_BWD_ROWS", "DUOFORMER_MLP_SH_ROWS",
+                "DUOFORMER_MLP_DZ_ROWS", "DUOFORMER_BWD_ROWS_CAP",
+                "DUOFORMER_BWD_DW_ROWS", "DUOFORMER_BWD_TILES",
+                "DUOFORMER_ATTN_ROWS_CAP", "DUOFORMER_ATTN_TILES",
+                "DUOFORMER_ATTN_SUBTILES", "DUOFORMER_ATTN_HEADPACK")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def pinned_numerics():
+    """Pins the numerics above for the module, whatever an earlier test in
+    the same process left, and restores them after it.
+    test_fused_mlp_bwd_plain_matches_pallas, the first test here, once
+    failed in a parallel run (dx off by up to 1.1e-4 of its RMS in 1.9% of
+    the elements, the size of a float32 product taken in bf16 passes) and
+    passes alone and in every rerun."""
+    mp = pytest.MonkeyPatch()
+    mp.setenv("DUOFORMER_PALLAS_INTERPRET", "1")
+    for k in PINNED_UNSET:
+        mp.delenv(k, raising=False)
+    prev = (torch.get_float32_matmul_precision(),
+            jax.config.jax_default_matmul_precision)
+    torch.set_float32_matmul_precision("highest")
+    jax.config.update("jax_default_matmul_precision", "highest")
+    yield
+    torch.set_float32_matmul_precision(prev[0])
+    jax.config.update("jax_default_matmul_precision", prev[1])
+    mp.undo()
+
+
 def _j(arrays):
     return [jnp.asarray(a) for a in arrays]
 
