@@ -46,6 +46,11 @@ BDA = f"{PKG}/csrc/block_diag_attention.cu"
 ATTN86 = f"{PKG}/csrc/fused_attention_residual_s86.cu"
 ATTN886 = f"{PKG}/csrc/fused_attention_residual_int8_s86.cu"
 BWD86 = f"{PKG}/csrc/fused_attention_residual_bwd_s86.cu"
+CHAIN = f"{PKG}/csrc/attention_chain.cuh"
+LONG = f"{PKG}/csrc/attention_long.cu"
+CHUNK_LOOP = "for (int ci = 0; ci < nchunks; ++ci) {"
+ROW_MAX_LOOP = ("  // ---- the row max over every key tile ----\n"
+                "  for (int kt = 0; kt * 4 < n16; ++kt) {")
 STRIP_CALL = "strip_attention<RT>(sQKV, QKV_LD, warp, S, scale, lane);"
 PARALLEL = 8
 
@@ -214,9 +219,24 @@ FAULTS = {
         "store_strip_acc(dq, dqkv, row0, m, S, 3 * C, (h == 1 ? 0 : h) * D,",
         "fused_attention_residual_bwd_s86"),
     "last chunk of segments skipped (s86 dw form)": (
-        BWD86, "for (int ci = 0; ci < nchunks; ++ci) {",
+        CHAIN, CHUNK_LOOP,
         "for (int ci = 0; ci < nchunks - (dw ? 1 : 0); ++ci) {",
         "fused_attention_residual_bwd_s86_dw"),
+    "keys at or past S not masked (long core)": (
+        LONG, "bool live_key(int key, int S) { return key < S; }",
+        "bool live_key(int key, int S) { return key < RTL; }",
+        "block_diag_attention_long"),
+    "row max over the first key tile only (long core)": (
+        LONG, ROW_MAX_LOOP, ROW_MAX_LOOP.replace("kt * 4 < n16", "kt < 1"),
+        "block_diag_attention_long"),
+    "key strips skip the last query strip (long backward)": (
+        LONG, "const int nq = n16;  // query strips the key pass reads",
+        "const int nq = n16 - 1;  // query strips the key pass reads",
+        "fused_attention_residual_bwd_long"),
+    "last chunk of segments skipped (long dw form)": (
+        CHAIN, CHUNK_LOOP,
+        "for (int ci = 0; ci < nchunks - (dw ? 1 : 0); ++ci) {",
+        "fused_attention_residual_bwd_long_dw"),
 }
 
 CHILD = """

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-1. Builds the thirteen CUDA kernel sources from the checkout (one nvcc
+1. Builds the fourteen CUDA kernel sources from the checkout (one nvcc
    each, started together) and prints each kernel's register and spill
    report.
 2. Holds every kernel form against its plain PyTorch version on the card:
@@ -32,7 +32,18 @@
    bf16-input plain version also at ROUND_REL_TOL in two cases; the dw
    form's extra device memory at 6272 segments at most DW_EXTRA_BYTES), the MLP
    kernels at the 4-scale step's 539,392 rows (held row chunk by row
-   chunk, untimed), and each at one small odd shape:
+   chunk, untimed), the ViT-B/16 baseline's long-segment forms (S=197:
+   the forward chain alone at 128 segments, full and bare, both launches
+   at 64 and 128 and a ragged 7, and at S=87; the backward in both forms,
+   full and bare, at 128 segments (timed), 1024 and a ragged 7, and at
+   S=87, held as attention_bwd_big_case holds them, below 1e8 elements
+   also at every bar against the float32-input plain version, the dw
+   form's scratch at 128 and 1024 segments at most DW_EXTRA_BYTES; the
+   block-diagonal attention op's long core at S=197 over 128 segments
+   and 7, at S=86 over 3136 (from 1e8 elements held as the backward at
+   that size), at S=65, and with scores spread ~150 units (the softmax
+   must subtract its row max) and ~0.25 units (the mask must drop every
+   padding key)), and each at one small odd shape:
    kernel in bf16,
    plain version on the same inputs upcast to float32 (the int8 forms'
    plain versions take the same bf16 x and int8 weights, so both round at
@@ -160,6 +171,23 @@
    peak memory and profile as in 4. The gradients of one backward on 2
    tiles against the port's CPU float32 run at phase 4's bar, on each
    route, and at 4 scales lean against default on the card at phase 7's.
+10. Runs last: the ViT-B/16 baseline (build_vit_base16, the
+   `vit-baseline` preset: 768 wide, 12 heads, depth 12, 197 tokens, 100
+   classes; random weights from a fixed seed), served at B=64 through
+   Predictor in bf16 (3 forwards counted: exactly the launches of
+   VIT_SERVE and no other form; finite logits; embed()'s post-norm CLS
+   and logits on 2 tiles against the port's CPU float32 run, relative L2
+   <= 0.05; tiles/s in 7 windows; peak memory) and trained at B=128,
+   every parameter (Adam with L2 decay 1e-4 on all, OneCycle at 1e-4), on
+   the default routes and on the memory-lean routes (the final norm
+   through the LayerNorm kernel): the gradients of one backward on 2
+   tiles against the port's CPU float32 run (0.05) and lean against
+   default on the card (0.05); one counted step with exactly the launches
+   of VIT_TRAIN and no other form; over 3 steps a finite loss and every
+   tensor moved, the patch embed and the position embedding included;
+   tiles/s (7 windows of 2 steps), split, peak memory and profile as in
+   4. The block_diag_attention op path of phase 7 also runs the long core
+   at S=86 (3136 segments) and S=197 (128).
 Every kernel form must have launched on some path.
 Prints the card's name and power limit, one JSON line {"kernels": [...]},
 and as its last line {"ok": true, "device": {...}}. Exits non-zero, with
@@ -169,6 +197,7 @@ this script, or when any phase fails. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import copy
 import functools
 import json
 import os
@@ -208,8 +237,16 @@ PLAIN_CHUNK_SEGS = 392
 PLAIN_REPEATS = 5
 ROUND_REL_TOL = 1.5e-3
 # the dw form's extra device memory at the 4-scale step's n_seg 6272 (its
-# per-chunk scratch; dw=False writes ~4.1 GB of ln, attn and dqkv)
+# per-chunk scratch; dw=False writes ~4.1 GB of ln, attn and dqkv), and at
+# the ViT's n_seg 128 and 1024
 DW_EXTRA_BYTES = 512e6
+# below this many elements an output of the long backward is also held at
+# every bar against the float32-input plain version (at 1e8 and more the
+# TPU kernel's own rounding points cross the elementwise bar there:
+# attention_bwd_big_case)
+UPCAST_BARS_MAX = 1e8
+VIT_CLASSES = 100          # vit-baseline (config.py:189)
+VIT_S = 197                # 196 patches + CLS
 CSRC = "duoformer_tcga_tpu_torch/csrc/"
 PALLAS = "duoformer_tcga_tpu/ops/pallas_attention.py:"
 # kernel form -> its CUDA source; REPLACES: -> the TPU kernel it replaces
@@ -263,6 +300,13 @@ SOURCES = {
         CSRC + "fused_attention_residual_bwd_s86.cu",
     "fused_attention_residual_bwd_s86_dw_bare":
         CSRC + "fused_attention_residual_bwd_s86.cu",
+    "fused_attention_residual_long": CSRC + "attention_long.cu",
+    "fused_attention_residual_long_bare": CSRC + "attention_long.cu",
+    "fused_attention_residual_bwd_long": CSRC + "attention_long.cu",
+    "fused_attention_residual_bwd_long_bare": CSRC + "attention_long.cu",
+    "fused_attention_residual_bwd_long_dw": CSRC + "attention_long.cu",
+    "fused_attention_residual_bwd_long_dw_bare": CSRC + "attention_long.cu",
+    "block_diag_attention_long": CSRC + "attention_long.cu",
 }
 REPLACES = {
     "fused_attention_residual": PALLAS + "311",
@@ -299,6 +343,13 @@ REPLACES = {
     "fused_attention_residual_bwd_s86_bare": PALLAS + "723",
     "fused_attention_residual_bwd_s86_dw": PALLAS + "723",
     "fused_attention_residual_bwd_s86_dw_bare": PALLAS + "723",
+    "fused_attention_residual_long": PALLAS + "311",
+    "fused_attention_residual_long_bare": PALLAS + "311",
+    "fused_attention_residual_bwd_long": PALLAS + "723",
+    "fused_attention_residual_bwd_long_bare": PALLAS + "723",
+    "fused_attention_residual_bwd_long_dw": PALLAS + "723",
+    "fused_attention_residual_bwd_long_dw_bare": PALLAS + "723",
+    "block_diag_attention_long": PALLAS + "175",
 }
 SERVING_FORMS = ("fused_attention_residual", "fused_attention_residual_bare",
                  "fused_mlp_residual")
@@ -382,6 +433,23 @@ SCALES_TRAIN = {
                         "fused_attention_residual_bwd_s86": 12,
                         "fused_attention_residual_bwd_bare": 12,
                         "mlp_dz": 12},
+}
+# launches per ViT-B/16 serving forward and per training step (phase 10:
+# 12 blocks at S=197, the attention forward in two wrapper calls, the
+# long-segment chain and the proj); every other form none
+VIT_SERVE = {"fused_attention_residual_long": 12,
+             "fused_attention_residual_s86_proj": 12,
+             "fused_mlp_residual": 12}
+VIT_TRAIN = {
+    "default": {"fused_attention_residual_long": 12,
+                "fused_attention_residual_s86_proj": 12,
+                "fused_mlp_residual_z": 12,
+                "fused_attention_residual_bwd_long": 12, "mlp_dz": 12},
+    "lean": {"fused_attention_residual_long": 12,
+             "fused_attention_residual_s86_proj": 12,
+             "fused_mlp_residual": 12, "fused_layernorm": 1,
+             "fused_attention_residual_bwd_long_dw": 12,
+             "fused_mlp_bwd": 12},
 }
 # the serving-shape cases of the legacy forward's forms, with launches
 LEGACY_SERVING_CASES = (
@@ -1016,7 +1084,7 @@ BWD_DW_NAMES = ("dx", "dlns", "dlnb", "dbqkv", "dbproj", "dwqkv", "dwA")
 
 
 def attention_bwd_big_case(torch, F, fa, gen, n_seg, S, c, heads, bare,
-                           timed, dw=False, twin=False):
+                           timed, dw=False, twin=False, upcast_bars=False):
     """The attention backward, dw=False or the dw form, at a 3- or 4-scale
     training step's size (the 65..86-token chain, or the S<=64 kernel at
     S=22), each plain version run over chunks of PLAIN_CHUNK_SEGS segments:
@@ -1033,7 +1101,9 @@ def attention_bwd_big_case(torch, F, fa, gen, n_seg, S, c, heads, bare,
     dwA also within 1e-2 relative L2 of the dw=False kernel's row-space
     outputs multiplied with torch.matmul. twin: dqkv (dw: dwqkv) against
     the bf16-input plain version also at ROUND_REL_TOL (a rounding point
-    moved shows there, below the bf16 bars). Records the device memory
+    moved shows there, below the bf16 bars). upcast_bars: where the
+    largest row-space output has fewer than UPCAST_BARS_MAX elements,
+    every bar against the float32-input plain version too. Records the device memory
     the call held beyond dx, the column sums and the weight gradients
     (dw=False: ln, attn, dqkv and any scratch; dw: the scratch)."""
     dev, bf16 = "cuda", torch.bfloat16
@@ -1094,10 +1164,12 @@ def attention_bwd_big_case(torch, F, fa, gen, n_seg, S, c, heads, bare,
     else:
         same = all(torch.equal(a, b) for a, b in zip(again, out))
     del again
+    upcast = upcast_bars and rows * 3 * c < UPCAST_BARS_MAX
     res.update(extra_bytes=extra, repeat_identical=same,
                f32_rel_err=f32["rel_err"], f32_max_abs_err=f32["max_abs_err"],
-               f32_close=f32["close"],
-               ok=res["ok"] and same and f32["rel_err"] <= BRANCH_REL_TOL)
+               f32_close=f32["close"], f32_bars_held=upcast,
+               ok=res["ok"] and same and f32["rel_err"] <= BRANCH_REL_TOL
+               and (f32["ok"] or not upcast))
     if twin:
         key = "dwqkv" if dw else "dqkv"
         res["vs_twin"] = res["outputs"][key]["rel_err"]
@@ -1235,11 +1307,17 @@ def layernorm_case(torch, F, fa, gen, rows, c, timed):
     return res
 
 
-def block_attention_case(torch, F, fa, gen, n_seg, S, c, heads, timed):
+def block_attention_case(torch, F, fa, gen, n_seg, S, c, heads, timed,
+                         qkv_std=1.5):
     """The block-diagonal attention kernel against its plain version; q, k,
-    v drawn so that the scores spread about 2 units."""
+    v drawn with qkv_std, so that the scores spread about qkv_std^2
+    units. From UPCAST_BARS_MAX output elements, every bar against the
+    plain version on the same bf16 inputs (which rounds where the kernel
+    rounds) and the relative L2 bar against the float32-input one, as
+    attention_bwd_big_case holds the backward at that size."""
     dev, bf16 = "cuda", torch.bfloat16
-    qkv = (torch.randn(n_seg, S, 3 * c, generator=gen) * 1.5).to(dev, bf16)
+    qkv = (torch.randn(n_seg, S, 3 * c, generator=gen) * qkv_std).to(dev,
+                                                                      bf16)
     scale = (c // heads) ** -0.5
 
     def kernel():
@@ -1250,7 +1328,17 @@ def block_attention_case(torch, F, fa, gen, n_seg, S, c, heads, timed):
     def plain():
         return fa.block_diag_attention_plain(qf, heads, S, scale)
 
-    res = compare(torch, kernel(), plain(), None)
+    if n_seg * S * c < UPCAST_BARS_MAX:
+        res = compare(torch, kernel(), plain(), None)
+    else:
+        out = kernel()
+        res = compare(torch, out, fa.block_diag_attention_plain(
+            qkv, heads, S, scale).float(), None)
+        f32 = compare(torch, out, plain(), None)
+        res.update(f32_rel_err=f32["rel_err"],
+                   f32_max_abs_err=f32["max_abs_err"], f32_close=f32["close"],
+                   ok=res["ok"] and f32["rel_err"] <= BRANCH_REL_TOL)
+        del out
     if not timed:
         return res
     D = c // heads
@@ -1399,7 +1487,8 @@ def attention_s86_case(torch, F, fa, gen, n_seg, S, c, heads, bare, timed,
                        what, int8=False):
     """One launch of the 65..86-token attention branch alone: what="core"
     (o = attention(qkv([LN] x))) or "proj" (y = [x +] proj(o) on a random
-    o), bf16 or int8, against its plain twin (bf16: on the same inputs
+    o), bf16 or int8 (at 87..197 tokens the bf16 core is the long-segment
+    chain, one wrapper call), against its plain twin (bf16: on the same inputs
     upcast to float32; int8: on the same bf16 inputs and int8 weights); a
     second launch must give the same bits."""
     from duoformer_tcga_tpu_torch.ops import fused_int8 as fi
@@ -1445,9 +1534,12 @@ def attention_s86_case(torch, F, fa, gen, n_seg, S, c, heads, bare, timed,
     else:
         wqkv, wproj = wqkv.to(dev, bf16), wproj.to(dev, bf16)
         if what == "core":
+            core = (fa.attention_core_s86 if S <= fa.ATTN_SERVE_MAX_SEG_LEN
+                    else fa.attention_core_long)
+
             def kernel():
-                return fa.attention_core_s86(x, lns, lnb, wqkv, bqkv, heads,
-                                             S, scale, use_ln=not bare)
+                return core(x, lns, lnb, wqkv, bqkv, heads, S, scale,
+                            use_ln=not bare)
 
             def plain():
                 return fa.attention_core_plain(
@@ -1766,6 +1858,74 @@ def _case_specs(torch, F, fa, timed):
              part(mlp_rows_case, kind="dz"), False),
             ("fused_mlp_bwd rows=539392 (4 scales)", rows_4s, C, HIDDEN,
              part(mlp_rows_case, kind="bwd"), False)]
+    # the ViT-B/16 baseline's forms (S=197; serving B=64, training B=128)
+    # and the block-diagonal op's long core, then other shapes; the
+    # backward at the training step's shapes only in the timed run
+    bda_wide = part(bda, qkv_std=12.0)
+    bda_narrow = part(bda, qkv_std=0.5)
+    longb = part(attention_bwd_big_case, upcast_bars=True)
+    longb_twin = part(attention_bwd_big_case, twin=True, upcast_bars=True)
+    longdw = part(attention_bwd_big_case, dw=True, upcast_bars=True)
+    S_V = VIT_S
+    specs += [
+        ("fused_attention_residual_long", B_TRAIN, S_V, C, HEADS, False,
+         s86_core, timed),
+        ("fused_attention_residual_long_bare n_seg=128 S=197", B_TRAIN, S_V,
+         C, HEADS, True, s86_core, timed),
+        ("fused_attention_residual_long both launches n_seg=64 S=197 "
+         "(serving)", B, S_V, C, HEADS, False, att, timed),
+        ("fused_attention_residual_long both launches n_seg=128 S=197",
+         B_TRAIN, S_V, C, HEADS, False, att, timed),
+        ("block_diag_attention_long", B_TRAIN, S_V, C, HEADS, bda, timed),
+        ("block_diag_attention_long n_seg=3136 S=86", B * 49, 86, C, HEADS,
+         bda, timed),
+        ("fused_attention_residual_long both launches n_seg=7 S=197", 7, S_V,
+         C, HEADS, False, att, False),
+        ("fused_attention_residual_long both launches n_seg=7 S=87 C=512 H=8",
+         7, 87, 512, 8, False, att, False),
+        ("fused_attention_residual_long_bare both launches n_seg=5 S=87 C=256 "
+         "H=4", 5, 87, 256, 4, True, att, False),
+        ("block_diag_attention_long n_seg=7 S=197", 7, S_V, C, HEADS, bda,
+         False),
+        ("block_diag_attention_long n_seg=3 S=65 C=256 H=4", 3, 65, 256, 4,
+         bda, False),
+        ("block_diag_attention_long n_seg=7 S=197 scores spread ~150",
+         7, S_V, C, HEADS, bda_wide, False),
+        ("block_diag_attention_long n_seg=7 S=197 scores spread ~0.25",
+         7, S_V, C, HEADS, bda_narrow, False),
+        ("block_diag_attention_long n_seg=5 S=65 scores spread ~0.25", 5, 65,
+         C, HEADS, bda_narrow, False),
+        ("fused_attention_residual_bwd_long n_seg=7 S=197 (rounding points)",
+         7, S_V, C, HEADS, False, longb_twin, False),
+        ("fused_attention_residual_bwd_long_dw n_seg=7 S=197", 7, S_V, C,
+         HEADS, False, longdw, False),
+        ("fused_attention_residual_bwd_long_bare n_seg=7 S=197", 7, S_V, C,
+         HEADS, True, longb, False),
+        ("fused_attention_residual_bwd_long_dw_bare n_seg=7 S=197", 7, S_V, C,
+         HEADS, True, longdw, False),
+        ("fused_attention_residual_bwd_long n_seg=5 S=87 C=512 H=8 (rounding "
+         "points)", 5, 87, 512, 8, False, longb_twin, False),
+        ("fused_attention_residual_bwd_long_dw n_seg=5 S=87 C=256 H=4", 5, 87,
+         256, 4, False, longdw, False),
+    ]
+    if timed:
+        specs += [
+            ("fused_attention_residual_bwd_long", B_TRAIN, S_V, C, HEADS,
+             False, longb, timed),
+            ("fused_attention_residual_bwd_long_dw", B_TRAIN, S_V, C, HEADS,
+             False, longdw, timed),
+            ("fused_attention_residual_bwd_long_bare n_seg=128 S=197",
+             B_TRAIN, S_V, C, HEADS, True, longb, timed),
+            ("fused_attention_residual_bwd_long_dw_bare n_seg=128 S=197",
+             B_TRAIN, S_V, C, HEADS, True, longdw, timed),
+            ("fused_attention_residual_bwd_long n_seg=1024 S=197", 1024, S_V,
+             C, HEADS, False, longb, False),
+            ("fused_attention_residual_bwd_long_dw n_seg=1024 S=197", 1024,
+             S_V, C, HEADS, False, longdw, False),
+            ("fused_attention_residual_bwd_long_bare n_seg=1024 S=197", 1024,
+             S_V, C, HEADS, True, longb, False),
+            ("fused_attention_residual_bwd_long_dw_bare n_seg=1024 S=197",
+             1024, S_V, C, HEADS, True, longdw, False)]
     out = []
     for label, *args in specs:
         *shape, case, t = args
@@ -2023,7 +2183,8 @@ def time_step(torch, model, state, step, batches, card, what, n=3):
     from duoformer_tcga_tpu_torch import train as train_lib
     from duoformer_tcga_tpu_torch.data import pipeline as data_lib
     from duoformer_tcga_tpu_torch.models.duoformer import draw_seeds
-    tf = model.transformer
+    tf = getattr(model, "transformer", None)
+    dropout = tf is not None and tf.has_dropout
     gen = torch.Generator().manual_seed(SEED)
     bsz = len(batches[0]["label"])
     windows = []
@@ -2044,7 +2205,7 @@ def time_step(torch, model, state, step, batches, card, what, n=3):
     for _ in range(5):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         state["optimizer"].zero_grad(set_to_none=True)
-        seeds = draw_seeds(tf.num_seeds(), gen) if tf.has_dropout else None
+        seeds = draw_seeds(tf.num_seeds(), gen) if dropout else None
         ev[0].record()
         loss = train_lib.cross_entropy(model(x, seeds=seeds), labels)
         ev[1].record()
@@ -2491,12 +2652,13 @@ def scales_train_phase(torch, port, fa, failures, card, cases):
 
 def block_attention_op_path(torch, fa, failures):
     """The block_diag_attention op through its entry point: forward and
-    backward at the checked shapes (S=6 over 3136 segments, S=50 over 64),
-    counted. -> the launch counts."""
+    backward at the checked shapes (S=6 over 3136 segments, S=50 over 64;
+    the long core at S=86 over 3136 and S=197 over 128), counted. -> the
+    launch counts."""
     gen = torch.Generator().manual_seed(SEED + 7)
     fa.reset_launch_counts()
     res = []
-    for n_seg, S in ((B * 49, 6), (B, 50)):
+    for n_seg, S in ((B * 49, 6), (B, 50), (B * 49, 86), (B_TRAIN, VIT_S)):
         qkv = (torch.randn(n_seg, S, 3 * C, generator=gen) * 1.5).to(
             "cuda", torch.bfloat16).requires_grad_(True)
         out = fa.block_diag_attention(qkv, HEADS, S, (C // HEADS) ** -0.5)
@@ -2511,10 +2673,11 @@ def block_attention_op_path(torch, fa, failures):
             failures.append(f"block_diag_attention op at S={S}: {res[-1]}")
     torch.cuda.synchronize()
     launches = dict(fa.launch_counts)
-    log(f"block_diag_attention op: forward and backward at S=6 and S=50: "
-        f"{'; '.join(res)}; launches {launches}")
+    log(f"block_diag_attention op: forward and backward at S=6, 50, 86 and "
+        f"197: {'; '.join(res)}; launches {launches}")
     check_launches(failures, "block_diag_attention op", launches,
-                   {"block_diag_attention": 2}, ["block_diag_attention"])
+                   {"block_diag_attention": 2, "block_diag_attention_long": 2},
+                   ["block_diag_attention", "block_diag_attention_long"])
     return launches
 
 
@@ -2653,6 +2816,134 @@ def scales_phase(torch, port, fa, failures, card, cases):
     return paths
 
 
+def vit_phase(torch, port, fa, failures, card, cases):
+    """Phase 10: the ViT-B/16 baseline (build_vit_base16, vit-baseline) at
+    full width, served at B=64 through Predictor in bf16 and trained at
+    B=128 on the default and the memory-lean routes. -> {path: launch
+    counts}."""
+    from duoformer_tcga_tpu_torch import train as train_lib
+    from duoformer_tcga_tpu_torch.data import pipeline as data_lib
+    from duoformer_tcga_tpu_torch.inference import Predictor
+    paths = {}
+    rng = np.random.default_rng(SEED + 20)
+    batches = [rng.integers(0, 256, (B, 224, 224, 3), dtype=np.uint8)
+               for _ in range(3)]
+    two = batches[0][:2]
+
+    # ---- serving: 3 forwards, counted; embed() vs the CPU; tiles/s ----
+    what = "ViT-B/16 serving"
+    t0 = time.perf_counter()
+    cpu_model = port.build_vit_base16(n_classes=VIT_CLASSES, device="cpu",
+                                      seed=SEED)
+    c_logits, c_cls = Predictor(cpu_model, device="cpu",
+                                dtype=torch.float32).embed(two)
+    pred = Predictor(port.build_vit_base16(n_classes=VIT_CLASSES,
+                                           device="cuda", seed=SEED),
+                     dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    outs = [pred(t) for t in batches]
+    torch.cuda.synchronize()
+    launches = dict(fa.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    paths[f"{what} ({len(batches)} forwards)"] = launches
+    log(f"{what}: built in {time.perf_counter() - t0:.1f} s; 3 batches of "
+        f"{B}; launches {launches}; memory {resident / 2**30:.2f} GiB "
+        f"resident before the forwards, peak {peak / 2**30:.2f} GiB during "
+        f"them")
+    check_launches(failures, what, launches,
+                   {k: 3 * v for k, v in VIT_SERVE.items()}, cases)
+    for i, lg in enumerate(outs):
+        if tuple(lg.shape) != (B, VIT_CLASSES) or not bool(
+                torch.isfinite(lg).all()):
+            failures.append(f"{what} batch {i}: logits {tuple(lg.shape)}, "
+                            f"finite={bool(torch.isfinite(lg).all())}")
+    g_logits, g_cls = pred.embed(two)
+    e_cls, e_logits = rel_err(g_cls, c_cls), rel_err(g_logits, c_logits)
+    log(f"{what}: embed vs the CPU float32 run: rel L2 err cls {e_cls:.3e}, "
+        f"logits {e_logits:.3e} (tolerance {EMBED_REL_TOL})")
+    if not (e_cls <= EMBED_REL_TOL and e_logits <= EMBED_REL_TOL):
+        failures.append(f"{what}: embed vs CPU cls {e_cls:.3e}, logits "
+                        f"{e_logits:.3e}")
+    dt, windows = serve_rates(torch, {"bf16": pred}, batches[0])["bf16"]
+    log(f"{what} throughput: {B / dt:.1f} tiles/s at B={B}, median of 7 "
+        f"windows of 5 forwards (least {B / max(windows):.1f}, greatest "
+        f"{B / min(windows):.1f}; forward {dt * 1e3:.2f} ms) on {card}")
+    del pred, outs
+    torch.cuda.empty_cache()
+
+    # ---- training, default and lean routes: gradients on 2 tiles (card
+    # bf16 vs the CPU float32 run, lean vs default on the card), one
+    # counted step and two more, tiles/s ----
+    lean = dict(mlp_save_hidden=False, attn_bwd_dw=True)
+    model = port.build_vit_base16(n_classes=VIT_CLASSES, device="cuda",
+                                  seed=SEED)
+    # the same weights with the final norm through the LayerNorm kernel
+    # (what build_vit_base16(fused_ln=True) builds)
+    lean_model = copy.deepcopy(model)
+    lean_model.model.norm.fused = True
+    last = len(model.model.blocks) - 1
+    keep = (f"model.blocks.0.", f"model.blocks.{last}.", "model.patch_embed.",
+            "model.pos_embed", "model.cls_token", "model.norm.",
+            "model.head.")
+    names = [n for n, _ in model.named_parameters() if n.startswith(keep)]
+
+    def grads(m, device, dtype):
+        x = data_lib.preprocess_tiles(torch.as_tensor(two).to(device),
+                                      dtype=dtype)
+        labels = torch.zeros(2, dtype=torch.long).to(device)
+        params = dict(m.named_parameters())
+        loss = train_lib.cross_entropy(m(x), labels)
+        return dict(zip(names, torch.autograd.grad(
+            loss, [params[n] for n in names])))
+
+    runs = {}
+    for route, m in (("default", model), ("lean", lean_model)):
+        opt = train_lib.make_optimizer(
+            m, train_lib.onecycle_schedule(1e-4, 1000), weight_decay=1e-4)
+        state = train_lib.init_train_state(m, opt)
+        step = train_lib.make_train_step(
+            m, dtype=torch.bfloat16, **(lean if route == "lean" else {}))
+        runs[route] = (m, state, step, grads(m, "cuda", torch.bfloat16))
+    g_cpu = grads(cpu_model, "cpu", torch.float32)
+    del cpu_model
+    errs = {r: {n: rel_err(v[3][n], g_cpu[n]) for n in names}
+            for r, v in runs.items()}
+    route_err = {n: rel_err(runs["lean"][3][n], runs["default"][3][n])
+                 for n in names}
+    log(f"ViT-B/16 train: gradients on 2 tiles, rel L2 err card bf16 vs CPU "
+        f"float32 (default | lean routes, tolerance {GRAD_REL_TOL}) || lean "
+        f"vs default routes on the card (tolerance {LEAN_ROUTE_TOL}):")
+    for n in names:
+        log(f"  {n}: {errs['default'][n]:.3e} | {errs['lean'][n]:.3e} || "
+            f"{route_err[n]:.3e}")
+    for r, e in errs.items():
+        failures += [f"ViT-B/16 {r} gradient of {n}: {v:.3e}"
+                     for n, v in e.items() if not v <= GRAD_REL_TOL]
+    failures += [f"ViT-B/16 gradient of {n} (lean vs default): {v:.3e}"
+                 for n, v in route_err.items() if not v <= LEAN_ROUTE_TOL]
+    del g_cpu
+    batches_t = [{"image": rng.integers(0, 256, (B_TRAIN, 224, 224, 3),
+                                        dtype=np.uint8),
+                  "label": rng.integers(0, VIT_CLASSES, (B_TRAIN,))}
+                 for _ in range(3)]
+    for route in ("default", "lean"):
+        m, state, step, _ = runs.pop(route)
+        what = f"ViT-B/16 {route} train"
+        trainable = {n for n, _ in m.named_parameters()}
+        before = {n: t.detach().clone() for n, t in m.state_dict().items()}
+        paths[f"{what} (1 step)"] = three_steps(
+            torch, fa, failures, what, m, state, step, batches_t, trainable,
+            before, VIT_TRAIN[route], cases)
+        del before
+        time_step(torch, m, state, step, batches_t, card, what, 2)
+        del m, state, step
+        torch.cuda.empty_cache()
+    return paths
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2712,7 +3003,8 @@ def main() -> int:
             + (f"; vs the float32-input plain version: rel L2 err "
                f"{res['f32_rel_err']:.4g} (<= {BRANCH_REL_TOL}), max_abs_err "
                f"{res['f32_max_abs_err']:.6g}, elementwise bar alone "
-               f"{'passes' if res['f32_close'] else 'fails'} (not held)"
+               f"{'passes' if res['f32_close'] else 'fails'} ("
+               f"{'held' if res.get('f32_bars_held') else 'not held'})"
                if "f32_rel_err" in res else "")
             + (f"; vs the dw=False route {res['vs_dw_false']:.4g}"
                if "vs_dw_false" in res else "")
@@ -2727,6 +3019,15 @@ def main() -> int:
                 f"{r['rel_err']:.4g} {'ok' if r['ok'] else 'FAIL'}")
         if not res["ok"]:
             failures.append(f"kernel check {name}")
+    for label in ("fused_attention_residual_bwd_long_dw",
+                  "fused_attention_residual_bwd_long_dw n_seg=1024 S=197"):
+        res = cases.get(label) or others[label]
+        log(f"the 197-token dw form's extra device memory ({label}): "
+            f"{res['extra_bytes'] / 1e6:.1f} MB (bar "
+            f"{DW_EXTRA_BYTES / 1e6:.0f} MB)")
+        if not res["extra_bytes"] <= DW_EXTRA_BYTES:
+            failures.append(f"{label} held {res['extra_bytes'] / 1e6:.1f} "
+                            f"MB of scratch")
     dw86 = cases["fused_attention_residual_bwd_s86_dw"]
     log(f"the 86-token dw form's extra device memory at n_seg "
         f"{B_TRAIN * 49}: {dw86['extra_bytes'] / 1e6:.1f} MB (bar "
@@ -2737,6 +3038,7 @@ def main() -> int:
         failures.append(f"the 86-token dw form held "
                         f"{dw86['extra_bytes'] / 1e6:.1f} MB of scratch")
 
+    log(f"at {time.perf_counter() - t_start:.0f} s")
     # ---- 3. the serving path ----
     t0 = time.perf_counter()
     model = port.build_model_no_extra_params(
@@ -2789,34 +3091,45 @@ def main() -> int:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del ref_pred, outs
 
+    log(f"at {time.perf_counter() - t_start:.0f} s")
     # ---- 5. int8 serving, beside the bf16 Predictor of phase 3 ----
     int8_launches = int8_phase(torch, port, fa, failures, card, cases,
                                dict(pred=pred, stages=stages))
     del pred
     torch.cuda.empty_cache()
 
+    log(f"at {time.perf_counter() - t_start:.0f} s")
     # ---- 4. the training step ----
     train_launches = train_phase(torch, port, fa, failures, card)
     torch.cuda.empty_cache()
     check_launches(failures, "train step", train_launches,
                    {k: 12 for k in TRAINING_FORMS}, cases)
 
+    log(f"at {time.perf_counter() - t_start:.0f} s")
     # ---- 6. the legacy family: serving and training ----
     legacy_serve, legacy_train = legacy_phase(torch, port, fa, failures,
                                               card, cases, others)
     torch.cuda.empty_cache()
 
+    log(f"at {time.perf_counter() - t_start:.0f} s")
     # ---- 7. the memory-lean training steps; the block-diagonal op ----
     lean_launches = lean_phase(torch, port, fa, failures, card, cases)
     op_launches = block_attention_op_path(torch, fa, failures)
     torch.cuda.empty_cache()
 
+    log(f"at {time.perf_counter() - t_start:.0f} s")
     # ---- 8. 3- and 4-scale serving, bf16 and int8 ----
     scales_launches = scales_phase(torch, port, fa, failures, card, cases)
 
+    log(f"at {time.perf_counter() - t_start:.0f} s")
     # ---- 9. 3- and 4-scale training, default and memory-lean routes ----
     scales_train_launches = scales_train_phase(torch, port, fa, failures,
                                                card, cases)
+    torch.cuda.empty_cache()
+
+    log(f"at {time.perf_counter() - t_start:.0f} s")
+    # ---- 10. the ViT-B/16 baseline: serving and training ----
+    vit_launches = vit_phase(torch, port, fa, failures, card, cases)
 
     paths = {f"serve ({len(batches)} forwards)": launches,
              "train (1 step)": train_launches,
@@ -2824,7 +3137,7 @@ def main() -> int:
              "legacy serve (3 forwards)": legacy_serve,
              "legacy train (1 step)": legacy_train, **lean_launches,
              "block_diag_attention op (2 calls)": op_launches,
-             **scales_launches, **scales_train_launches}
+             **scales_launches, **scales_train_launches, **vit_launches}
     idle = [name for name in cases
             if not any(v.get(name, 0) for v in paths.values())]
     if idle:

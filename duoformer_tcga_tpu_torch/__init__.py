@@ -20,7 +20,10 @@ LayerScale) forms, their backward kernels and the dropout mask passes in
 csrc/; and the memory-lean training routes (`make_train_step(
 mlp_save_hidden=False, attn_bwd_dw=True)`, `fused_ln=True`) with their
 kernels, and the block-diagonal attention op
-`ops.fused_attention.block_diag_attention`.
+`ops.fused_attention.block_diag_attention`; and the ViT-B/16 baseline
+(`build_vit_base16`, the `vit-baseline` preset) served by `Predictor` in
+bf16 and trained, every parameter, by `train.make_train_step`, its 197-token
+attention on the long-segment kernels.
 
 Entry points run on the card unless the caller passes device="cpu";
 without a CUDA device and without that request they raise.
@@ -31,8 +34,10 @@ __version__ = "0.1.0"
 import torch
 
 from ._device import resolve_device
+from .models.baselines import ViTBase16  # noqa: F401
 from .models.duoformer import (DuoFormer, DuoFormerLegacy,  # noqa: F401
                                count_parameters, fold_for_inference)
+from .models.vit import VisionTransformer  # noqa: F401
 from .inference import (Predictor, export_serving_artifact,  # noqa: F401
                         from_serving_artifact, load_serving_artifact)
 from .ops.quantize import quantize_model_  # noqa: F401
@@ -91,4 +96,19 @@ def build_model(
         init_values=init_values, freeze=freeze,
         pretrained_backbone=pretrained, fused_ln=fused_ln,
         generator=torch.Generator().manual_seed(seed))
+    return model.eval().to(device=device, dtype=dtype)
+
+
+def build_vit_base16(n_classes=100, model_type="ViT", fused_ln=False,
+                     dtype=torch.float32, device=None, seed=0):
+    """The ViT-B/16 baseline (ViTBase16, the `vit-baseline` preset:
+    config.py:80-81, 189), initialised from torch.Generator(seed) on the
+    CPU, in eval mode, moved to `device` (None -> the card) and cast to
+    `dtype`. fused_ln: the final norm through the LayerNorm kernel
+    (DUOFORMER_FUSED_LN=1). The hybrid model types raise
+    NotImplementedError."""
+    device = resolve_device(device)
+    model = ViTBase16(n_classes=n_classes, model_type=model_type,
+                      fused_ln=fused_ln,
+                      generator=torch.Generator().manual_seed(seed))
     return model.eval().to(device=device, dtype=dtype)

@@ -42,9 +42,11 @@ class Predictor:
                  quantize: bool = False):
         """model: the port's DuoFormer or DuoFormerLegacy (whose logits
         are squeezed, quirk Q13, and whose embedding is the post-norm CLS
-        its head reads); the Predictor takes it over (puts
-        it in eval mode, folds its BNs, quantizes, moves and casts it in
-        place). device: None -> the card (raises without one); "cpu" on
+        its head reads), or the ViT baseline (ViTBase16, no BN to fold,
+        its embedding the post-norm CLS; int8 refused, as the JAX package
+        quantizes the release family only); the Predictor takes it over
+        (puts it in eval mode, folds its BNs, quantizes, moves and casts it
+        in place). device: None -> the card (raises without one); "cpu" on
         request. preprocess: accept raw uint8 NHWC tiles and normalise on
         device. quantize: int8 (a8w8) serving, every transformer GEMM
         (qkv, proj, fc1, fc2) through the int8 kernels, its codes taken

@@ -203,7 +203,11 @@ class DuoFormerLegacy(_PyramidModel):
 
 def fold_for_inference(model: nn.Module) -> nn.Module:
     """Fold every backbone and channel-fuser BatchNorm into its affine, in
-    place (exact under eval-mode BN, the only mode the presets serve)."""
+    place (exact under eval-mode BN, the only mode the presets serve). A
+    model without a backbone (the ViT baseline) has no BN and is left as
+    it is (inference.py:39-43)."""
+    if not hasattr(model, "backbone"):
+        return model
     fold_bn(model.backbone)
     if hasattr(model, "channel_proj"):
         fold_bn(model.channel_proj)

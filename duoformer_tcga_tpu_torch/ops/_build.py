@@ -33,7 +33,7 @@ KERNELS = ("fused_attention_residual", "fused_attention_residual_bwd",
            "fused_mlp_residual_int8", "drop_ew", "fused_mlp_bwd",
            "layernorm", "block_diag_attention", "fused_attention_residual_s86",
            "fused_attention_residual_int8_s86",
-           "fused_attention_residual_bwd_s86")
+           "fused_attention_residual_bwd_s86", "attention_long")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

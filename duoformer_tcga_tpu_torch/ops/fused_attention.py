@@ -8,14 +8,19 @@ and the drop_ew kernel are in ops/fused_reg.py).
     kernel: csrc/fused_attention_residual.cu (seg_len <= 64); for 65 to 86
     tokens (the 4-scale model's 86) two launches, attention_core_s86 (o =
     block-diag attn(qkv([LN] x))) and attention_proj (y = [x +] proj(o)),
-    kernels: csrc/fused_attention_residual_s86.cu
+    kernels: csrc/fused_attention_residual_s86.cu; for 87 to 197 (the ViT's
+    197) attention_core_long (a chain over chunks of segments: LN, the qkv
+    product, the attention core; csrc/attention_long.cu) and
+    attention_proj
   fused_attention_residual_bwd: its backward (dx, ln, attn, dqkv and the
     column sums dlns, dlnb, dbqkv, dbproj), recomputing the forward
     kernel: csrc/fused_attention_residual_bwd.cu (seg_len <= 64); for 65
     to 86 tokens a chain of launches over chunks of segments (LN, the qkv
     and dattn products, the attention core, the dln product, the LN
     backward; in the dw form the weight-gradient products),
-    csrc/fused_attention_residual_bwd_s86.cu
+    csrc/fused_attention_residual_bwd_s86.cu; for 87 to 197 the same chain
+    around csrc/attention_long.cu's core (both chains'
+    launches in csrc/attention_chain.cuh)
   fused_mlp_residual:       y = [x +] fc2(gelu_erf(fc1(LN x))), and with
     return_hidden=True also the pre-GELU hidden z
     kernel: csrc/fused_mlp_residual.cu
@@ -25,7 +30,8 @@ and the drop_ew kernel are in ops/fused_reg.py).
     ln, h, dz and the column sums dlns, dlnb
     kernel: csrc/fused_mlp_bwd.cu
   block_diag_attention_fwd: softmax(q k^T * scale) v within each segment
-    kernel: csrc/block_diag_attention.cu
+    kernel: csrc/block_diag_attention.cu (seg_len <= 64);
+    csrc/attention_long.cu's core for 65 to 197
 
 `attention_residual`, `mlp_residual` and `block_diag_attention` are the
 differentiable entries (the JAX package's custom_vjp entries). The
@@ -72,8 +78,12 @@ from .nn import layernorm
 ATTN_MAX_SEG_LEN = 64         # a block holds at most 64 rows (csrc note)
 # the forward, bf16 and int8, and the backward in both forms also take
 # 65..86 tokens (one 96-row block a segment, csrc/*_s86.cu); the reg flags
-# and block_diag_attention stop at ATTN_MAX_SEG_LEN
+# stop at ATTN_MAX_SEG_LEN
 ATTN_SERVE_MAX_SEG_LEN = 86
+# the bf16 forward, the backward in both forms and block_diag_attention
+# take up to 197 tokens (ViT-B/16 at 224^2: 196 patches + CLS;
+# csrc/attention_long.cu); int8 stops at ATTN_SERVE_MAX_SEG_LEN
+ATTN_LONG_MAX_SEG_LEN = 197
 HEAD_DIM = 64                 # the attention kernel's head width
 SUPPORTED_C = (256, 512, 768)   # widths the kernels are instantiated for
 
@@ -377,9 +387,9 @@ def _reg_name(name, gamma, *rates):
 
 def refuse_long_segments(what, seg_len, limit=ATTN_MAX_SEG_LEN):
     """What runs only up to `limit` tokens a segment raises beyond it, on
-    either device: the reg flags and block_diag_attention past
-    ATTN_MAX_SEG_LEN, the backward (both forms) past
-    ATTN_SERVE_MAX_SEG_LEN."""
+    either device: the reg flags past ATTN_MAX_SEG_LEN; the bf16 forward,
+    the backward (both forms) and block_diag_attention past
+    ATTN_LONG_MAX_SEG_LEN."""
     if seg_len > limit:
         raise NotImplementedError(
             f"{what} at seg_len {seg_len} > {limit} is not ported to the "
@@ -410,9 +420,10 @@ def fused_attention_residual(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
 
     The JAX signature (pallas_attention.py:1053). use_ln=use_residual=False
     is the bare form the patch blocks run. On the card: bf16 x and
-    weights, float32 vectors, head width 64, seg_len <= 86 (65..86 in two
-    launches, attention_core_s86 and attention_proj). gamma, seed,
-    attn_drop, proj_drop: the reg form's LayerScale and dropout
+    weights, float32 vectors, head width 64, seg_len <= 197 (65..86 in two
+    launches, attention_core_s86 and attention_proj; 87..197
+    attention_core_long and attention_proj). gamma, seed, attn_drop,
+    proj_drop: the reg form's LayerScale and dropout
     (fused_attention_residual_reg, pallas_attention.py:1202), seg_len <=
     64 only."""
     reg = dict(gamma=gamma, seed=seed, attn_drop=attn_drop,
@@ -420,6 +431,8 @@ def fused_attention_residual(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
     if gamma is not None or attn_drop > 0.0 or proj_drop > 0.0:
         refuse_long_segments("the reg form (LayerScale, dropout) of "
                              "fused_attention_residual", seg_len)
+    refuse_long_segments("fused_attention_residual", seg_len,
+                         ATTN_LONG_MAX_SEG_LEN)
     if x.device.type == "cpu":
         return fused_attention_residual_plain(
             x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, num_heads,
@@ -428,10 +441,12 @@ def fused_attention_residual(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
         raise ValueError(f"no kernel for device {x.device}")
     n_seg, S, C = _check_attention_x(x, seg_len, num_heads,
                                      "fused_attention_residual",
-                                     ATTN_SERVE_MAX_SEG_LEN)
+                                     ATTN_LONG_MAX_SEG_LEN)
     if S > ATTN_MAX_SEG_LEN:
-        o = attention_core_s86(x, ln_scale, ln_bias, wqkv, bqkv, num_heads,
-                               S, scale, ln_eps, use_ln)
+        core = (attention_core_s86 if S <= ATTN_SERVE_MAX_SEG_LEN
+                else attention_core_long)
+        o = core(x, ln_scale, ln_bias, wqkv, bqkv, num_heads, S, scale,
+                 ln_eps, use_ln)
         return attention_proj(o, x, wproj, bproj, use_residual)
     dev, f32, bf16 = x.device, torch.float32, torch.bfloat16
     _check_tensor("x", x, dev, bf16, (n_seg, S, C))
@@ -506,6 +521,54 @@ def attention_core_s86(x, ln_scale, ln_bias, wqkv, bqkv, num_heads, seg_len,
     _build.check(lib, status, "attention_core_s86")
     launch_counts["fused_attention_residual_s86" if use_ln
                   else "fused_attention_residual_s86_bare"] += 1
+    return o
+
+
+def attention_core_long(x, ln_scale, ln_bias, wqkv, bqkv, num_heads,
+                        seg_len, scale, ln_eps=1e-6, use_ln=True):
+    """The first half of the 87..197-token attention branch: o =
+    block_diag_attn(qkv([LN](x))), x [n_seg, seg_len, C] -> o [n_seg,
+    seg_len, C], as attention_core_s86. On the card one wrapper call, a
+    chain over chunks of segments (LN, the qkv product, the attention
+    core; its scratch bounded by the chunk), counted once: bf16 x and
+    wqkv, float32 vectors, head width 64, 87 <= seg_len <= 197."""
+    if x.device.type == "cpu":
+        return attention_core_plain(x, ln_scale, ln_bias, wqkv, bqkv,
+                                    num_heads, seg_len, scale, ln_eps, use_ln)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    n_seg, S, C = _check_attention_x(x, seg_len, num_heads,
+                                     "attention_core_long",
+                                     ATTN_LONG_MAX_SEG_LEN)
+    _require(S > ATTN_SERVE_MAX_SEG_LEN,
+             f"seg_len {S}: the long-segment chain takes "
+             f"{ATTN_SERVE_MAX_SEG_LEN + 1}..{ATTN_LONG_MAX_SEG_LEN}")
+    dev, f32, bf16 = x.device, torch.float32, torch.bfloat16
+    _check_tensor("x", x, dev, bf16, (n_seg, S, C))
+    _check_tensor("ln_scale", ln_scale, dev, f32, (C,))
+    _check_tensor("ln_bias", ln_bias, dev, f32, (C,))
+    _check_tensor("wqkv", wqkv, dev, bf16, (C, 3 * C))
+    _check_tensor("bqkv", bqkv, dev, f32, (3 * C,))
+    o = torch.empty_like(x)
+    if n_seg == 0:
+        return o
+    lib = _build.load_library("attention_long")
+    lib.attention_long_fwd_scratch_bytes.argtypes = [ctypes.c_int] * 4
+    lib.attention_long_fwd_scratch_bytes.restype = ctypes.c_longlong
+    scratch = torch.empty(lib.attention_long_fwd_scratch_bytes(
+        n_seg, S, C, int(bool(use_ln))), dtype=torch.uint8, device=dev)
+    fn = lib.launch_attention_long_fwd
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + \
+        [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        status = fn(_ptr(x), _ptr(ln_scale), _ptr(ln_bias), _ptr(wqkv),
+                    _ptr(bqkv), _ptr(o), _ptr(scratch), n_seg, S, C,
+                    num_heads, float(scale), float(ln_eps),
+                    int(bool(use_ln)), _stream(dev))
+    _build.check(lib, status, "attention_core_long")
+    launch_counts["fused_attention_residual_long" if use_ln
+                  else "fused_attention_residual_long_bare"] += 1
     return o
 
 
@@ -617,16 +680,18 @@ def fused_attention_residual_bwd(x, g, ln_scale, ln_bias, wqkv, bqkv, wproj,
     dw=True (_fused_block_bwd_impl, dw=True, :921-1049): (dx, dlns, dlnb,
     dbqkv, dbproj, dwqkv [C, 3C], dwA [C, C]), the weight gradients formed
     by the kernels (float32; at seg_len <= 64 their sums in an order that
-    varies between launches) and no row-space tensor returned. At 65..86
-    tokens (inert forms only) the chain runs over chunks of segments and
-    the dw form's row-space tensors live in per-chunk scratch."""
+    varies between launches) and no row-space tensor returned. At 65..197
+    tokens (inert forms only) a chain runs over chunks of segments and the
+    dw form's row-space tensors live in per-chunk scratch (65..86:
+    csrc/fused_attention_residual_bwd_s86.cu, 87..197:
+    csrc/attention_long.cu)."""
     reg = dict(gamma=gamma, seed=seed, attn_drop=attn_drop,
                proj_drop=proj_drop)
     what = "fused_attention_residual_bwd" + (" (dw form)" if dw else "")
     if gamma is not None or attn_drop > 0.0 or proj_drop > 0.0:
         refuse_long_segments(f"the reg form (LayerScale, dropout) of {what}",
                              seg_len)
-    refuse_long_segments(what, seg_len, ATTN_SERVE_MAX_SEG_LEN)
+    refuse_long_segments(what, seg_len, ATTN_LONG_MAX_SEG_LEN)
     if x.device.type == "cpu":
         return fused_attention_residual_bwd_plain(
             x, g, ln_scale, ln_bias, wqkv, bqkv, wproj, num_heads, seg_len,
@@ -635,7 +700,7 @@ def fused_attention_residual_bwd(x, g, ln_scale, ln_bias, wqkv, bqkv, wproj,
         raise ValueError(f"no kernel for device {x.device}")
     n_seg, S, C = _check_attention_x(x, seg_len, num_heads,
                                      "fused_attention_residual_bwd",
-                                     ATTN_SERVE_MAX_SEG_LEN)
+                                     ATTN_LONG_MAX_SEG_LEN)
     dev, f32, bf16 = x.device, torch.float32, torch.bfloat16
     _check_tensor("x", x, dev, bf16, (n_seg, S, C))
     _check_tensor("g", g, dev, bf16, (n_seg, S, C))
@@ -672,9 +737,9 @@ def fused_attention_residual_bwd(x, g, ln_scale, ln_bias, wqkv, bqkv, wproj,
     if n_seg == 0:
         return out
     if S > ATTN_MAX_SEG_LEN:
-        return _attention_bwd_s86(x, g, ln_scale, ln_bias, wqkv, bqkv, wproj,
-                                  out, sums, n_seg, S, C, num_heads, scale,
-                                  ln_eps, use_ln, use_residual, dw)
+        return _attention_bwd_chain(x, g, ln_scale, ln_bias, wqkv, bqkv,
+                                    wproj, out, sums, n_seg, S, C, num_heads,
+                                    scale, ln_eps, use_ln, use_residual, dw)
     lib = _build.load_library("fused_attention_residual_bwd")
     lib.blocks_for.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.blocks_for.restype = ctypes.c_int
@@ -707,14 +772,15 @@ def fused_attention_residual_bwd(x, g, ln_scale, ln_bias, wqkv, bqkv, wproj,
     return out
 
 
-def _attention_bwd_s86(x, g, ln_scale, ln_bias, wqkv, bqkv, wproj, out,
-                       sums, n_seg, S, C, num_heads, scale, ln_eps, use_ln,
-                       use_residual, dw):
-    """fused_attention_residual_bwd at 65..86 tokens on the card: the
-    chain of csrc/fused_attention_residual_bwd_s86.cu into the outputs
-    `out` and the float32 [6C] column sums `sums` (checked and allocated
-    by the caller), with a scratch buffer of the size the library names
-    (bounded by its chunk of segments)."""
+def _attention_bwd_chain(x, g, ln_scale, ln_bias, wqkv, bqkv, wproj, out,
+                         sums, n_seg, S, C, num_heads, scale, ln_eps, use_ln,
+                         use_residual, dw):
+    """fused_attention_residual_bwd at 65..197 tokens on the card: the
+    chain of csrc/fused_attention_residual_bwd_s86.cu (S <= 86) or
+    csrc/attention_long.cu into the outputs `out` and the float32 [6C]
+    column sums `sums` (checked and allocated by the caller), with a
+    scratch buffer of the size the library names (bounded by its chunk of
+    segments)."""
     dev = x.device
     if dw:
         dx, dwqkv, dwA = out[0], out[5], out[6]
@@ -722,13 +788,16 @@ def _attention_bwd_s86(x, g, ln_scale, ln_bias, wqkv, bqkv, wproj, out,
     else:
         dx, ln, attn, dqkv = out[:4]
         dwqkv = dwA = None
-    lib = _build.load_library("fused_attention_residual_bwd_s86")
-    lib.attention_bwd_s86_scratch_bytes.argtypes = [ctypes.c_int] * 5
-    lib.attention_bwd_s86_scratch_bytes.restype = ctypes.c_longlong
-    nbytes = lib.attention_bwd_s86_scratch_bytes(n_seg, S, C, int(dw),
-                                                 int(bool(use_ln)))
-    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
-    fn = lib.launch_attention_bwd_s86
+    short = S <= ATTN_SERVE_MAX_SEG_LEN
+    tag = "s86" if short else "long"
+    lib = _build.load_library("fused_attention_residual_bwd_s86" if short
+                              else "attention_long")
+    size = getattr(lib, f"attention_bwd_{tag}_scratch_bytes")
+    size.argtypes = [ctypes.c_int] * 5
+    size.restype = ctypes.c_longlong
+    scratch = torch.empty(size(n_seg, S, C, int(dw), int(bool(use_ln))),
+                          dtype=torch.uint8, device=dev)
+    fn = getattr(lib, f"launch_attention_bwd_{tag}")
     fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + \
         [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -744,8 +813,9 @@ def _attention_bwd_s86(x, g, ln_scale, ln_bias, wqkv, bqkv, wproj, out,
                     S, C, num_heads, float(scale), float(ln_eps),
                     int(bool(use_ln)), int(bool(use_residual)),
                     _stream(dev))
-    _build.check(lib, status, "fused_attention_residual_bwd_s86")
-    name = "fused_attention_residual_bwd_s86" + ("_dw" if dw else "")
+    name = f"fused_attention_residual_bwd_{tag}"
+    _build.check(lib, status, name)
+    name += "_dw" if dw else ""
     launch_counts[name if use_ln else name + "_bare"] += 1
     return out
 
@@ -846,9 +916,11 @@ def fused_mlp_bwd(x, g, ln_scale, ln_bias, w1, b1, w2, ln_eps=1e-6):
 def block_diag_attention_fwd(qkv, num_heads, seg_len, scale):
     """softmax(q k^T * scale) v within each segment (_block_attention_impl,
     pallas_attention.py:230-263): qkv [n_seg, seg_len, 3C] -> [n_seg,
-    seg_len, C]. On the card: bf16 qkv, head width 64, seg_len <= 64 (on
-    either device)."""
-    refuse_long_segments("block_diag_attention", seg_len)
+    seg_len, C]. On the card: bf16 qkv, head width 64, seg_len <= 197 (on
+    either device; 65..197 through csrc/attention_long.cu's core, counted
+    as block_diag_attention_long)."""
+    refuse_long_segments("block_diag_attention", seg_len,
+                         ATTN_LONG_MAX_SEG_LEN)
     if qkv.device.type == "cpu":
         return block_diag_attention_plain(qkv, num_heads, seg_len, scale)
     if qkv.device.type != "cuda":
@@ -859,8 +931,8 @@ def block_diag_attention_fwd(qkv, num_heads, seg_len, scale):
     C = C3 // 3
     _require(S == seg_len, f"qkv has {S} tokens per segment, "
              f"seg_len={seg_len}")
-    _require(1 <= S <= ATTN_MAX_SEG_LEN,
-             f"seg_len {S} outside the kernel's 1..{ATTN_MAX_SEG_LEN}")
+    _require(1 <= S <= ATTN_LONG_MAX_SEG_LEN,
+             f"seg_len {S} outside the kernels' 1..{ATTN_LONG_MAX_SEG_LEN}")
     _require(C3 == 3 * C and num_heads * HEAD_DIM == C,
              f"the kernel needs head width {HEAD_DIM}: 3C={C3}, "
              f"num_heads={num_heads}")
@@ -869,16 +941,20 @@ def block_diag_attention_fwd(qkv, num_heads, seg_len, scale):
     out = torch.empty(n_seg, S, C, dtype=torch.bfloat16, device=dev)
     if n_seg == 0:
         return out
-    lib = _build.load_library("block_diag_attention")
-    fn = lib.launch_block_diag_attention
+    long_seg = S > ATTN_MAX_SEG_LEN
+    name = ("block_diag_attention_long" if long_seg
+            else "block_diag_attention")
+    lib = _build.load_library("attention_long" if long_seg
+                              else "block_diag_attention")
+    fn = getattr(lib, "launch_" + name)
     fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + \
         [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         status = fn(_ptr(qkv), _ptr(out), n_seg, S, C, float(scale),
                     _stream(dev))
-    _build.check(lib, status, "block_diag_attention")
-    launch_counts["block_diag_attention"] += 1
+    _build.check(lib, status, name)
+    launch_counts[name] += 1
     return out
 
 

@@ -16,7 +16,10 @@ entropy (config.py:94-103, bench.py:177-227):
 
 The legacy recipe is the same with build_model() (LayerScale, attention
 dropout 0.1, dropout 0.1; its channel fusers train, their BNs on batch
-statistics). Each step is one forward, the loss, one backward through the
+statistics). The ViT baseline (build_vit_base16) has no backbone: every
+parameter trains and takes the L2 decay (make_optimizer(...,
+frozen_label_fn=None), as the JAX CLI leaves `frozen = None` for "vit",
+cli.py:104-126), and it has no dropout. Each step is one forward, the loss, one backward through the
 fused kernels' autograd functions, one optimizer step and one schedule
 step. A model with dropout takes its int32 seeds from a torch.Generator
 the step owns (`dropout_seed`), drawn on the CPU and handed to the kernels
@@ -207,6 +210,8 @@ def make_train_step(model, dtype=torch.bfloat16, label_smoothing=0.0,
     Prepares the model in place: training mode, and with a frozen backbone
     its weights cast once to `dtype` (the JAX step's per-step astype of
     parameters it never updates), its BNs unfolded on running statistics.
+    A model with no backbone and no `transformer` core (the ViT baseline)
+    casts nothing and draws no seeds.
     The trainable parameters stay the caller's (float32 masters) and are
     cast to `dtype` where they are used."""
     unported = dict(accum_steps=accum_steps != 1, augment=augment != "none",
@@ -221,12 +226,13 @@ def make_train_step(model, dtype=torch.bfloat16, label_smoothing=0.0,
     model.train()
     set_backward_routes(model, mlp_save_hidden, attn_bwd_dw)
     device = next(model.parameters()).device
-    if model.freeze_backbone:
+    if getattr(model, "freeze_backbone", False):
         cast_weights_(model.backbone, dtype)
     weights = (None if class_weights is None else
                torch.as_tensor(class_weights, dtype=torch.float32,
                                device=device))
-    tf = model.transformer
+    tf = getattr(model, "transformer", None)
+    dropout = tf is not None and tf.has_dropout
     gen = torch.Generator().manual_seed(dropout_seed)
 
     def step(state, batch, seeds=None):
@@ -235,7 +241,7 @@ def make_train_step(model, dtype=torch.bfloat16, label_smoothing=0.0,
              if x.dtype == torch.uint8 else x.to(dtype))
         labels = torch.as_tensor(batch["label"]).to(device).long()
         state["optimizer"].zero_grad(set_to_none=True)
-        if seeds is None and tf.has_dropout:
+        if seeds is None and dropout:
             seeds = draw_seeds(tf.num_seeds(), gen)
         logits = state["model"](x, seeds=seeds)
         loss = cross_entropy(logits, labels, label_smoothing, weights)

@@ -82,6 +82,8 @@ def test_wrappers_refuse_devices_without_a_kernel():
         fa.block_diag_attention_fwd(x, 2, 6, 0.125)
     with pytest.raises(ValueError, match="no kernel"):
         tnn._fused_layernorm_fwd(x, v, v, 1e-6)
+    with pytest.raises(ValueError, match="no kernel"):
+        fa.attention_core_long(x, v, v, x, v, 2, 6, 0.125)
     assert sum(fa.launch_counts.values()) == 0
 
 

@@ -369,28 +369,41 @@ def test_reg_flags_refused_past_64_tokens(flags):
 
 
 @pytest.mark.parametrize("dw", [False, True])
-def test_backward_refused_past_86_tokens(dw):
-    """The backward, both forms, takes up to 86 tokens a segment (held to
-    JAX in tests/test_torch_port_scales_train.py) and refuses more, in
-    the wrapper and through the autograd entry."""
-    x, *rest = _s86_attention_args(87)
+def test_backward_refused_past_197_tokens(dw):
+    """The backward, both forms, takes up to 197 tokens a segment (held to
+    JAX in tests/test_torch_port_scales_train.py and
+    tests/test_torch_port_vit.py) and refuses more, in the wrapper and
+    through the autograd entry (whose forward refuses first)."""
+    x, *rest = _s86_attention_args(198)
     lns, lnb, wqkv, bqkv, wproj = rest[:5]
-    with pytest.raises(NotImplementedError, match="seg_len 87"):
+    with pytest.raises(NotImplementedError, match="seg_len 198"):
         fa.fused_attention_residual_bwd(x, x, lns, lnb, wqkv, bqkv, wproj,
-                                        4, 87, 0.125, dw=dw)
+                                        4, 198, 0.125, dw=dw)
     xg = x.clone().requires_grad_(True)
-    y = fa.attention_residual(xg, lns, lnb, wqkv, bqkv, wproj, rest[5], 4,
-                              87, 0.125, bwd_dw=dw)
-    with pytest.raises(NotImplementedError, match="seg_len 87"):
-        y.sum().backward()
+    with pytest.raises(NotImplementedError, match="seg_len 198"):
+        fa.attention_residual(xg, lns, lnb, wqkv, bqkv, wproj, rest[5], 4,
+                              198, 0.125, bwd_dw=dw)
+    y = fa.attention_residual(xg[:, :197], lns, lnb, wqkv, bqkv, wproj,
+                              rest[5], 4, 197, 0.125, bwd_dw=dw)
+    y.sum().backward()
+    assert xg.grad.shape == x.shape
 
 
-def test_block_diag_attention_refused_past_64_tokens():
-    qkv = torch.randn(2, 86, 3 * 256)
-    with pytest.raises(NotImplementedError, match="seg_len 86"):
-        fa.block_diag_attention(qkv, 4, 86, 0.125)
-    assert fa.block_diag_attention(qkv[:, :64], 4, 64, 0.125).shape == (
-        2, 64, 256)
+def test_forward_refused_past_197_tokens():
+    """The forward takes up to 197 tokens a segment and refuses more, on
+    either device (here the CPU's plain version)."""
+    with pytest.raises(NotImplementedError, match="seg_len 198"):
+        fa.fused_attention_residual(*_s86_attention_args(198))
+    assert fa.fused_attention_residual(
+        *_s86_attention_args(197)).shape == (2, 197, 256)
+
+
+def test_block_diag_attention_refused_past_197_tokens():
+    qkv = torch.randn(2, 198, 3 * 256)
+    with pytest.raises(NotImplementedError, match="seg_len 198"):
+        fa.block_diag_attention(qkv, 4, 198, 0.125)
+    assert fa.block_diag_attention(qkv[:, :197], 4, 197, 0.125).shape == (
+        2, 197, 256)
 
 
 @pytest.mark.parametrize("kwargs", [
