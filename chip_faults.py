@@ -7,8 +7,10 @@ kernel checks of chip_smoke.py fail on each.
 For each fault in FAULTS, copies chip_smoke.py and duoformer_tcga_tpu_torch/
 (without its build directory) into duoformer_tcga_tpu_torch/_build/faults/
 <name>/, changes one place in one kernel source (or the header the
-kernels share) there, and runs chip_smoke.kernel_checks (untimed, TF32
-off) on the cases of the named kernel form's source, from that copy, in
+kernels share, or train.py) there, and runs chip_smoke.kernel_checks
+(untimed, TF32 off) on the cases of the named kernel form's source (for
+train.py chip_smoke.trunk_trains_case, phase 11's check that every
+tensor of the hybrid, its trunk's too, moves in training), from that copy, in
 a process of its own, at most PARALLEL at once (the reg cases' plain
 versions hold several GB of mask counters each). The fault "none"
 changes nothing, runs every case and is the control. Prints, per fault
@@ -48,6 +50,10 @@ ATTN886 = f"{PKG}/csrc/fused_attention_residual_int8_s86.cu"
 BWD86 = f"{PKG}/csrc/fused_attention_residual_bwd_s86.cu"
 CHAIN = f"{PKG}/csrc/attention_chain.cuh"
 LONG = f"{PKG}/csrc/attention_long.cu"
+TRAIN = f"{PKG}/train.py"
+# the pseudo-form whose case trains the R50ViT hybrid (chip_smoke.
+# trunk_trains_case) where a fault of train.py shows
+TRUNK = "hybrid_trunk_trains"
 CHUNK_LOOP = "for (int ci = 0; ci < nchunks; ++ci) {"
 ROW_MAX_LOOP = ("  // ---- the row max over every key tile ----\n"
                 "  for (int kt = 0; kt * 4 < n16; ++kt) {")
@@ -237,6 +243,27 @@ FAULTS = {
         CHAIN, CHUNK_LOOP,
         "for (int ci = 0; ci < nchunks - (dw ? 1 : 0); ++ci) {",
         "fused_attention_residual_bwd_long_dw"),
+    "last 128 output columns skipped at C=384 (attention proj)": (
+        ATTN, "          ldsm_b2(b, slab + kk * Sh::WP_LD + warp * (C / 8) + "
+              "n * 8,",
+        "          if (C == 384 && warp * (C / 8) + n * 8 >= 256) continue;\n"
+        "          ldsm_b2(b, slab + kk * Sh::WP_LD + warp * (C / 8) + "
+        "n * 8,", "fused_attention_residual_c384"),
+    "last 128 input columns skipped at C=384 (MLP fc1)": (
+        MLP, "      for (int kk = 0; kk < S::K1; kk += 16) {",
+        "      for (int kk = 0; kk < (C == 384 && j == S::SLABS1 - 1 ? 0 "
+        ": S::K1); kk += 16) {", "fused_mlp_residual_c384"),
+    "last head's dwqkv dropped at C=384 (dw form)": (
+        BWD, "    if (dw)\n      for (int mt = warp; mt < C / 16; "
+             "mt += WARPS) {",
+        "    if (dw && !(C == 384 && h == Sh::H - 1))\n"
+        "      for (int mt = warp; mt < C / 16; mt += WARPS) {",
+        "fused_attention_residual_bwd_dw_c384"),
+    "the hybrid's trunk frozen by the optimizer": (
+        TRAIN, "        labels = frozen_label_fn(params) if frozen_label_fn "
+               "else {}",
+        "        labels = {n: \"frozen\" for n, _ in params.named_parameters()"
+        "\n                  if \".backbone.\" in n}", TRUNK),
 }
 
 CHILD = """
@@ -247,11 +274,15 @@ assert fa.__file__.startswith(chip_smoke.HERE), fa.__file__
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 form = sys.argv[1] or None
+if form == "%s":
+    import duoformer_tcga_tpu_torch as port
+    print(json.dumps(chip_smoke.trunk_trains_case(torch, port)))
+    sys.exit(0)
 cases, others = chip_smoke.kernel_checks(
     torch, F, fa, timed=False,
     source=chip_smoke.SOURCES[form] if form else None)
 print(json.dumps({**cases, **others}))
-"""
+""" % TRUNK
 
 
 def plant(name, fault):

@@ -7,7 +7,8 @@
    each, started together) and prints each kernel's register and spill
    report.
 2. Holds every kernel form against its plain PyTorch version on the card:
-   the serving forms at the serving path's shapes (C=768, 12 heads, B=64),
+   the serving forms at the serving path's shapes (C=768, 12 heads, B=64;
+   the 384-wide ones at phase 11's),
    the training forms (the MLP's z form, the attention backward in both
    forms, the MLP's dz pass) at the training step's (B=128), the int8
    forms (attention full and bare, MLP) at the serving shapes, the reg
@@ -188,6 +189,28 @@
    tiles/s (7 windows of 2 steps), split, peak memory and profile as in
    4. The block_diag_attention op path of phase 7 also runs the long core
    at S=86 (3136 segments) and S=197 (128).
+11. Runs last: the ResNetV2 hybrid baselines (build_vit_base16 with
+   model_type "R50ViT": R26-S/32 trunk, ViT-S 384 wide, 6 heads, depth 12,
+   50 tokens; and "ViTPretrained": R50-S/16 trunk, ViT-B, 197 tokens; 100
+   classes, random weights from a fixed seed). R50ViT (H1) runs the
+   kernels' 384-wide forms, each counted under its form's name + "_c384"
+   and held against its plain version in phase 2 like the others (S=50
+   over 64 and 128 segments; rows 3,200 and 6,400; hidden 1536; and small
+   odd shapes, bare, S=6 and reg flags); ViTPretrained (H2) runs phase
+   10's 197-token forms. Each served at B=64 through Predictor in bf16
+   (3 forwards counted: exactly the launches of H1_SERVE / VIT_SERVE;
+   finite logits; embed()'s CLS and logits on 2 tiles against the port's
+   CPU float32 run, relative L2 <= 0.05; tiles/s in 7 windows; peak
+   memory) and trained at B=128, every parameter, the trunk included: H1
+   on the default and the memory-lean routes, H2 on the default routes;
+   the ViT's gradients of one backward on 2 tiles against the CPU float32
+   run from the same tokens (0.05) and end to end (0.1, as phase 6), the
+   trunk's printed beside the CPU's own bf16 run (bf16 rounding through
+   the trunk moves them on either device), H1 lean against default on the
+   card (0.05, the trunk's included); one counted step with exactly the
+   launches of H1_TRAIN / VIT_TRAIN; over 3 steps a finite loss and every
+   tensor moved; tiles/s (7 windows of 2 steps), split, peak memory and
+   profile as in 4.
 Every kernel form must have launched on some path.
 Prints the card's name and power limit, one JSON line {"kernels": [...]},
 and as its last line {"ok": true, "device": {...}}. Exits non-zero, with
@@ -222,6 +245,9 @@ PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 REPEATS = 20
 GRAD_REL_TOL = 0.05        # card (bf16) vs CPU (float32) gradients
 LEGACY_E2E_GRAD_TOL = 0.1  # the same, legacy, end to end (see phase 6)
+# the hybrids' ViT gradients end to end, through a bf16 ResNetV2 trunk
+# whose tokens are ~13% off the CPU's float32 ones (see phase 11)
+HYBRID_E2E_GRAD_TOL = LEGACY_E2E_GRAD_TOL
 DROP = 0.1                 # the legacy family's dropout rates
 DROP_SEED = 12345          # the kernel cases' dropout seed
 # drop_ew computes one float32 formula on both sides; only erff, expf and
@@ -450,6 +476,28 @@ VIT_TRAIN = {
              "fused_mlp_residual": 12, "fused_layernorm": 1,
              "fused_attention_residual_bwd_long_dw": 12,
              "fused_mlp_bwd": 12},
+}
+# the hybrid baselines (phase 11): R50ViT's ViT-S at 384 wide, 6 heads, 50
+# tokens (7x7 grid + CLS); its forms are counted under name + "_c384"
+# (ops/_build.count_launch); ViTPretrained runs VIT_SERVE / VIT_TRAIN
+C384, HEADS384, S_H1, HIDDEN384 = 384, 6, 50, 1536
+C384_FORMS = ("fused_attention_residual", "fused_mlp_residual",
+              "fused_mlp_residual_z", "fused_attention_residual_bwd",
+              "fused_attention_residual_bwd_dw", "mlp_dz", "fused_mlp_bwd",
+              "fused_layernorm")
+for _form in C384_FORMS:
+    SOURCES[_form + "_c384"] = SOURCES[_form]
+    REPLACES[_form + "_c384"] = REPLACES[_form]
+H1_SERVE = {"fused_attention_residual_c384": 12,
+            "fused_mlp_residual_c384": 12}
+H1_TRAIN = {
+    "default": {"fused_attention_residual_c384": 12,
+                "fused_mlp_residual_z_c384": 12,
+                "fused_attention_residual_bwd_c384": 12, "mlp_dz_c384": 12},
+    "lean": {"fused_attention_residual_c384": 12,
+             "fused_mlp_residual_c384": 12, "fused_layernorm_c384": 1,
+             "fused_attention_residual_bwd_dw_c384": 12,
+             "fused_mlp_bwd_c384": 12},
 }
 # the serving-shape cases of the legacy forward's forms, with launches
 LEGACY_SERVING_CASES = (
@@ -1926,6 +1974,55 @@ def _case_specs(torch, F, fa, timed):
              S_V, C, HEADS, True, longb, False),
             ("fused_attention_residual_bwd_long_dw_bare n_seg=1024 S=197",
              1024, S_V, C, HEADS, True, longdw, False)]
+    # the hybrid R50ViT's 384-wide forms (phase 11: ViT-S, 6 heads, 50
+    # tokens; serving B=64, training B=128), then other shapes: ragged,
+    # bare, S=6 (48-row blocks, 128-row wqkv slabs), the reg flags
+    c4, h4, s4, hid4 = C384, HEADS384, S_H1, HIDDEN384
+    specs += [
+        ("fused_attention_residual_c384", B, s4, c4, h4, False, att, timed),
+        ("fused_mlp_residual_c384", B * s4, c4, hid4, mlp, timed),
+        ("fused_mlp_residual_z_c384", B_TRAIN * s4, c4, hid4, mlp_z, timed),
+        ("fused_attention_residual_bwd_c384", B_TRAIN, s4, c4, h4, False,
+         bwd, timed),
+        ("fused_attention_residual_bwd_dw_c384", B_TRAIN, s4, c4, h4, False,
+         dw, timed),
+        ("mlp_dz_c384", B_TRAIN * s4, c4, hid4, dz, timed),
+        ("fused_mlp_bwd_c384", B_TRAIN * s4, c4, hid4, mlpb, timed),
+        ("fused_layernorm_c384", B_TRAIN * s4, c4, ln, timed),
+        ("fused_attention_residual_c384 n_seg=128 S=50 (training)", B_TRAIN,
+         s4, c4, h4, False, att, timed),
+        ("fused_mlp_residual_c384 rows=6400 (lean step)", B_TRAIN * s4, c4,
+         hid4, mlp, timed),
+        ("fused_attention_residual_c384 n_seg=3 S=50", 3, s4, c4, h4, False,
+         att, False),
+        ("fused_attention_residual_c384 bare n_seg=3 S=50", 3, s4, c4, h4,
+         True, att, False),
+        ("fused_attention_residual_c384 n_seg=13 S=6", 13, 6, c4, h4, False,
+         att, False),
+        ("fused_attention_residual_c384 reg n_seg=13 S=6", 13, 6, c4, h4,
+         False, att_r, False),
+        ("fused_attention_residual_bwd_c384 n_seg=3 S=50", 3, s4, c4, h4,
+         False, bwd, False),
+        ("fused_attention_residual_bwd_c384 bare n_seg=3 S=50", 3, s4, c4,
+         h4, True, bwd, False),
+        ("fused_attention_residual_bwd_c384 n_seg=13 S=6", 13, 6, c4, h4,
+         False, bwd, False),
+        ("fused_attention_residual_bwd_c384 reg n_seg=13 S=6", 13, 6, c4, h4,
+         False, bwd_r, False),
+        ("fused_attention_residual_bwd_dw_c384 n_seg=3 S=50", 3, s4, c4, h4,
+         False, dw, False),
+        ("fused_attention_residual_bwd_dw_c384 bare n_seg=3 S=50", 3, s4, c4,
+         h4, True, dw, False),
+        ("fused_attention_residual_bwd_dw_c384 n_seg=13 S=6", 13, 6, c4, h4,
+         False, dw, False),
+        ("fused_mlp_residual_c384 rows=222", 222, c4, hid4, mlp, False),
+        ("fused_mlp_residual_c384 reg rows=222", 222, c4, hid4, mlp_rz,
+         False),
+        ("fused_mlp_residual_z_c384 rows=222", 222, c4, hid4, mlp_z, False),
+        ("mlp_dz_c384 rows=222", 222, c4, hid4, dz, False),
+        ("fused_mlp_bwd_c384 rows=222", 222, c4, hid4, mlpb, False),
+        ("fused_layernorm_c384 rows=37", 37, c4, ln, False),
+    ]
     out = []
     for label, *args in specs:
         *shape, case, t = args
@@ -2944,6 +3041,241 @@ def vit_phase(torch, port, fa, failures, card, cases):
     return paths
 
 
+def hybrid_grad_names(model):
+    """The hybrid's tensors whose card-vs-CPU gradients are compared: the
+    ViT's (blocks 0 and depth-1, the patch embed, the position embedding,
+    the CLS, the final norm, the head) and the trunk's (its stem, first
+    block and last block). -> (the ViT's, the trunk's)."""
+    m = model.model
+    last = len(m.vit.blocks) - 1
+    stages = m.backbone.stages
+    vit = ("model.vit.blocks.0.", f"model.vit.blocks.{last}.",
+           "model.vit.patch_embed.", "model.vit.pos_embed",
+           "model.vit.cls_token", "model.vit.norm.", "model.vit.head.")
+    trunk = ("model.backbone.stem.", "model.backbone.stages.0.blocks.0.",
+             f"model.backbone.stages.{len(stages) - 1}.blocks."
+             f"{len(stages[-1].blocks) - 1}.")
+    names = [n for n, _ in model.named_parameters()]
+    return ([n for n in names if n.startswith(vit)],
+            [n for n in names if n.startswith(trunk)])
+
+
+def hybrid_grads(torch, m, names, image, device, dtype, tokens=None):
+    """Gradients of one backward of the hybrid `m` on 2 tiles of label 0
+    -> ({name: gradient}, the tokens the ViT's blocks read); given tokens,
+    the gradients from them (of the names in the ViT's blocks, final norm
+    and head)."""
+    from duoformer_tcga_tpu_torch import train as train_lib
+    from duoformer_tcga_tpu_torch.data import pipeline as data_lib
+    labels = torch.zeros(len(image), dtype=torch.long).to(device)
+    params = dict(m.named_parameters())
+    vit = m.model.vit
+    if tokens is None:
+        x = data_lib.preprocess_tiles(torch.as_tensor(image).to(device),
+                                      dtype=dtype)
+        tokens = m.model.embed(x)
+        wrt = names
+    else:
+        tokens = tokens.to(device, dtype)
+        wrt = [n for n in names if n.startswith(
+            ("model.vit.blocks.", "model.vit.norm.", "model.vit.head."))]
+    loss = train_lib.cross_entropy(
+        vit.forward_head(vit.forward_tokens(tokens)), labels)
+    return (dict(zip(wrt, torch.autograd.grad(
+        loss, [params[n] for n in wrt]))), tokens.detach())
+
+
+def hybrid_phase(torch, port, fa, failures, card, cases):
+    """Phase 11: the ResNetV2 hybrid baselines at full width, R50ViT (H1:
+    R26-S/32 + ViT-S/384, the 384-wide forms) served at B=64 and trained
+    at B=128 on the default and the memory-lean routes, ViTPretrained (H2:
+    R50-S/16 + ViT-B, 197 tokens) served at B=64 and trained at B=128 on
+    the default routes; every parameter trains, the trunk included. ->
+    {path: launch counts}."""
+    from duoformer_tcga_tpu_torch import train as train_lib
+    from duoformer_tcga_tpu_torch.data import pipeline as data_lib
+    from duoformer_tcga_tpu_torch.inference import Predictor
+    paths = {}
+    rng = np.random.default_rng(SEED + 30)
+    batches = [rng.integers(0, 256, (B, 224, 224, 3), dtype=np.uint8)
+               for _ in range(3)]
+    batches_t = [{"image": rng.integers(0, 256, (B_TRAIN, 224, 224, 3),
+                                        dtype=np.uint8),
+                  "label": rng.integers(0, VIT_CLASSES, (B_TRAIN,))}
+                 for _ in range(3)]
+    two = batches[0][:2]
+    lean = dict(mlp_save_hidden=False, attn_bwd_dw=True)
+    for tag, model_type, serve_want, train_want in (
+            ("H1 R50ViT", "R50ViT", H1_SERVE, H1_TRAIN),
+            ("H2 ViTPretrained", "ViTPretrained", VIT_SERVE,
+             {"default": VIT_TRAIN["default"]})):
+        # ---- serving: 3 forwards, counted; embed() vs the CPU; tiles/s ----
+        what = f"{tag} serving"
+        t0 = time.perf_counter()
+        cpu_model = port.build_vit_base16(
+            n_classes=VIT_CLASSES, model_type=model_type, device="cpu",
+            seed=SEED)
+        c_logits, c_cls = Predictor(copy.deepcopy(cpu_model), device="cpu",
+                                    dtype=torch.float32).embed(two)
+        pred = Predictor(copy.deepcopy(cpu_model), dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        outs = [pred(t) for t in batches]
+        torch.cuda.synchronize()
+        launches = dict(fa.launch_counts)
+        peak = torch.cuda.max_memory_allocated()
+        paths[f"{what} ({len(batches)} forwards)"] = launches
+        log(f"{what}: built in {time.perf_counter() - t0:.1f} s; 3 batches "
+            f"of {B}; launches {launches}; memory {resident / 2**30:.2f} GiB"
+            f" resident before the forwards, peak {peak / 2**30:.2f} GiB "
+            f"during them")
+        check_launches(failures, what, launches,
+                       {k: 3 * v for k, v in serve_want.items()}, cases)
+        for i, lg in enumerate(outs):
+            if tuple(lg.shape) != (B, VIT_CLASSES) or not bool(
+                    torch.isfinite(lg).all()):
+                failures.append(f"{what} batch {i}: logits "
+                                f"{tuple(lg.shape)}, finite="
+                                f"{bool(torch.isfinite(lg).all())}")
+        g_logits, g_cls = pred.embed(two)
+        e_cls, e_logits = rel_err(g_cls, c_cls), rel_err(g_logits, c_logits)
+        log(f"{what}: embed vs the CPU float32 run: rel L2 err cls "
+            f"{e_cls:.3e}, logits {e_logits:.3e} (tolerance "
+            f"{EMBED_REL_TOL})")
+        if not (e_cls <= EMBED_REL_TOL and e_logits <= EMBED_REL_TOL):
+            failures.append(f"{what}: embed vs CPU cls {e_cls:.3e}, logits "
+                            f"{e_logits:.3e}")
+        dt, windows = serve_rates(torch, {"bf16": pred}, batches[0])["bf16"]
+        log(f"{what} throughput: {B / dt:.1f} tiles/s at B={B}, median of "
+            f"7 windows of 5 forwards (least {B / max(windows):.1f}, "
+            f"greatest {B / min(windows):.1f}; forward {dt * 1e3:.2f} ms) "
+            f"on {card}")
+        del pred, outs
+        torch.cuda.empty_cache()
+
+        # ---- training: gradients of one backward on 2 tiles, card bf16
+        # against CPU float32, twice (as phase 6): from the same tokens (the
+        # card's, upcast) through the ViT, the path of the kernels, at
+        # GRAD_REL_TOL; and end to end from the tiles at
+        # HYBRID_E2E_GRAD_TOL, where the bf16 trunk's tokens (printed) move
+        # these gradients further. The trunk's own gradients are printed
+        # beside the CPU's bf16 run against its float32 run and held lean
+        # against default on the card (one forward, so one rounding), not
+        # against the CPU: bf16 rounding grows through the trunk's 8 or 16
+        # GroupNorm blocks (the R26-S/32 map ~13% off float32 on either
+        # device; JAX's trunk in bf16 ~11.5% off its float32 run), and the
+        # gradients of its early blocks follow it (~0.75 relative L2 on the
+        # CPU alone). Then one counted step and two more, tiles/s ----
+        vit_names, trunk_names = hybrid_grad_names(cpu_model)
+        names = vit_names + trunk_names
+        models = {"default": copy.deepcopy(cpu_model).cuda()}
+        if "lean" in train_want:
+            # the same weights with the final norm through the LayerNorm
+            # kernel (what build_vit_base16(fused_ln=True) builds)
+            models["lean"] = copy.deepcopy(models["default"])
+            models["lean"].model.vit.norm.fused = True
+        runs = {}
+        for route, m in models.items():
+            opt = train_lib.make_optimizer(
+                m, train_lib.onecycle_schedule(1e-4, 1000), weight_decay=1e-4)
+            state = train_lib.init_train_state(m, opt)
+            step = train_lib.make_train_step(
+                m, dtype=torch.bfloat16, **(lean if route == "lean" else {}))
+            runs[route] = (m, state, step, hybrid_grads(
+                torch, m, names, two, "cuda", torch.bfloat16))
+        cpu_model.train()
+        cpu_e2e, cpu_tokens = hybrid_grads(torch, cpu_model, names, two,
+                                           "cpu", torch.float32)
+        cpu_bf16, _ = hybrid_grads(torch, cpu_model, trunk_names, two,
+                                   "cpu", torch.bfloat16)
+        floor = {n: rel_err(cpu_bf16[n], cpu_e2e[n]) for n in trunk_names}
+        log(f"{tag} train: gradients on 2 tiles; tokens card vs CPU rel L2 "
+            + ", ".join(f"{r} {rel_err(v[3][1], cpu_tokens):.3e}"
+                        for r, v in runs.items())
+            + f"; rel L2 err card bf16 vs CPU float32 ({' | '.join(runs)} "
+            f"routes; from the same tokens, tolerance {GRAD_REL_TOL}, and "
+            f"end to end, tolerance {HYBRID_E2E_GRAD_TOL})"
+            + (f" || lean vs default routes on the card (tolerance "
+               f"{LEAN_ROUTE_TOL})" if "lean" in runs else "") + ":")
+        for r, v in runs.items():
+            same, _ = hybrid_grads(torch, cpu_model, names, two, "cpu",
+                                   torch.float32,
+                                   tokens=v[3][1].float().cpu())
+            errs = {n: rel_err(v[3][0][n], e) for n, e in same.items()}
+            e2e = {n: rel_err(v[3][0][n], cpu_e2e[n]) for n in vit_names}
+            for n in vit_names:
+                log(f"  {r} {n}: {errs.get(n, float('nan')):.3e} | "
+                    f"{e2e[n]:.3e}")
+            failures += [f"{tag} {r} gradient of {n} (same tokens): "
+                         f"{e:.3e}" for n, e in errs.items()
+                         if not e <= GRAD_REL_TOL]
+            failures += [f"{tag} {r} gradient of {n} (end to end): {e:.3e}"
+                         for n, e in e2e.items()
+                         if not e <= HYBRID_E2E_GRAD_TOL]
+        log(f"{tag} train: the trunk's gradients, rel L2 err card bf16 vs "
+            f"CPU float32 ({' | '.join(runs)}), beside the CPU's own bf16 "
+            f"run vs its float32 run (not held):")
+        for n in trunk_names:
+            log(f"  {n}: " + " | ".join(
+                f"{rel_err(v[3][0][n], cpu_e2e[n]):.3e}"
+                for v in runs.values()) + f" (CPU bf16 {floor[n]:.3e})")
+        if "lean" in runs:
+            route_err = {n: rel_err(runs["lean"][3][0][n],
+                                    runs["default"][3][0][n]) for n in names}
+            log(f"{tag} train: lean vs default routes on the card, rel L2 "
+                f"err (tolerance {LEAN_ROUTE_TOL}): " + ", ".join(
+                    f"{n} {e:.3e}" for n, e in route_err.items()))
+            failures += [f"{tag} gradient of {n} (lean vs default): {v:.3e}"
+                         for n, v in route_err.items()
+                         if not v <= LEAN_ROUTE_TOL]
+        del cpu_model, cpu_e2e, cpu_bf16
+        for route in list(runs):
+            m, state, step, _ = runs.pop(route)
+            what = f"{tag} {route} train"
+            trainable = {n for n, _ in m.named_parameters()}
+            log(f"{what}: {len(trainable)} trainable tensors, "
+                f"{sum(n.startswith('model.backbone.') for n in trainable)} "
+                f"of them the trunk's")
+            before = {n: t.detach().clone()
+                      for n, t in m.state_dict().items()}
+            paths[f"{what} (1 step)"] = three_steps(
+                torch, fa, failures, what, m, state, step, batches_t,
+                trainable, before, train_want[route], cases)
+            del before
+            time_step(torch, m, state, step, batches_t, card, what, 2)
+            del m, state, step
+            torch.cuda.empty_cache()
+    return paths
+
+
+def trunk_trains_case(torch, port):
+    """For chip_faults.py: the R50ViT hybrid trained 3 steps at B=8 on the
+    default routes as phase 11 trains it (Adam with L2 decay on every
+    parameter, nothing frozen): every tensor, the trunk's included, must
+    move. -> {label: result} in kernel_checks' form, rel_err the share of
+    tensors left unchanged."""
+    from duoformer_tcga_tpu_torch import train as train_lib
+    model = port.build_vit_base16(n_classes=VIT_CLASSES, model_type="R50ViT",
+                                  device="cuda", seed=SEED)
+    opt = train_lib.make_optimizer(
+        model, train_lib.onecycle_schedule(1e-4, 1000), weight_decay=1e-4)
+    state = train_lib.init_train_state(model, opt)
+    step = train_lib.make_train_step(model, dtype=torch.bfloat16)
+    rng = np.random.default_rng(SEED + 31)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    for _ in range(3):
+        state, _ = step(state, {
+            "image": rng.integers(0, 256, (8, 224, 224, 3), dtype=np.uint8),
+            "label": rng.integers(0, VIT_CLASSES, (8,))})
+    same = [n for n, p in model.named_parameters()
+            if torch.equal(p, before[n])]
+    return {"hybrid_trunk_trains R50ViT 3 steps at B=8": dict(
+        ok=not same, close=not same, rel_err=len(same) / len(before),
+        max_abs_err=0.0, unchanged=same[:5])}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3130,6 +3462,11 @@ def main() -> int:
     log(f"at {time.perf_counter() - t_start:.0f} s")
     # ---- 10. the ViT-B/16 baseline: serving and training ----
     vit_launches = vit_phase(torch, port, fa, failures, card, cases)
+    torch.cuda.empty_cache()
+
+    log(f"at {time.perf_counter() - t_start:.0f} s")
+    # ---- 11. the ResNetV2 hybrid baselines: serving and training ----
+    hybrid_launches = hybrid_phase(torch, port, fa, failures, card, cases)
 
     paths = {f"serve ({len(batches)} forwards)": launches,
              "train (1 step)": train_launches,
@@ -3137,7 +3474,8 @@ def main() -> int:
              "legacy serve (3 forwards)": legacy_serve,
              "legacy train (1 step)": legacy_train, **lean_launches,
              "block_diag_attention op (2 calls)": op_launches,
-             **scales_launches, **scales_train_launches, **vit_launches}
+             **scales_launches, **scales_train_launches, **vit_launches,
+             **hybrid_launches}
     idle = [name for name in cases
             if not any(v.get(name, 0) for v in paths.values())]
     if idle:

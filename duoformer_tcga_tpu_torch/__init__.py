@@ -23,7 +23,11 @@ kernels, and the block-diagonal attention op
 `ops.fused_attention.block_diag_attention`; and the ViT-B/16 baseline
 (`build_vit_base16`, the `vit-baseline` preset) served by `Predictor` in
 bf16 and trained, every parameter, by `train.make_train_step`, its 197-token
-attention on the long-segment kernels.
+attention on the long-segment kernels; and its ResNetV2 hybrids
+(`build_vit_base16(model_type="R50ViT" | "ViTPretrained" |
+"R50ViTPretrained")`, models/resnetv2.py) the same way, R26-S/32's ViT-S
+on the kernels' 384-wide forms, with timm-layout weights loaded by
+`utils.timm_convert.load_timm_vit`.
 
 Entry points run on the card unless the caller passes device="cpu";
 without a CUDA device and without that request they raise.
@@ -105,8 +109,9 @@ def build_vit_base16(n_classes=100, model_type="ViT", fused_ln=False,
     config.py:80-81, 189), initialised from torch.Generator(seed) on the
     CPU, in eval mode, moved to `device` (None -> the card) and cast to
     `dtype`. fused_ln: the final norm through the LayerNorm kernel
-    (DUOFORMER_FUSED_LN=1). The hybrid model types raise
-    NotImplementedError."""
+    (DUOFORMER_FUSED_LN=1). model_type: "ViT", or a ResNetV2 hybrid
+    ("ViTPretrained", "R50ViTPretrained": R50-S/16 + ViT-B; "R50ViT":
+    R26-S/32 + ViT-S/384)."""
     device = resolve_device(device)
     model = ViTBase16(n_classes=n_classes, model_type=model_type,
                       fused_ln=fused_ln,

@@ -71,6 +71,10 @@ struct Shape {
   static constexpr int H = C / D;
   static constexpr int MT = RT / 16;     // m16 row tiles
   static constexpr int NJ = C / 8 / WARPS;   // proj n8 tiles per warp
+  // C = 384 (ViT-S, 6 heads): 6 tiles, 48 columns a warp; wqkv slabs
+  // tile C as 3 x 128 (RT = 48) or 6 x 64 rows
+  static_assert(NJ % 2 == 0, "proj takes its n8 tiles in pairs");
+  static_assert(C % (RT == 48 ? 128 : 64) == 0, "wqkv slabs must tile C");
   // wqkv slab: KQ rows x 3*D columns; wproj slab: KP rows x C columns
   static constexpr int KQ = RT == 48 ? 128 : 64;
   static constexpr int KP = RT == 48 ? 32 : 16;
@@ -376,7 +380,7 @@ extern "C" {
 
 // Returns the launch's cudaGetLastError() (0 on success). Arguments are
 // checked by the Python wrapper: S in 1..64, C = 64 * num_heads with C in
-// {256, 512, 768}, every pointer 32-byte aligned. The reg form: gamma
+// {256, 384, 512, 768}, every pointer 32-byte aligned. The reg form: gamma
 // float32 [C] or null; seed the int32 dropout seed; attn_thr / proj_thr
 // the keep thresholds of the two sites (< 0: that dropout is off) and
 // attn_scale / proj_scale their keep scales.
@@ -398,6 +402,7 @@ int launch_fused_attention_residual(const void* x, const void* lns,
       make_drop(seed, SITE_PROJ, proj_thr, proj_scale), (cudaStream_t)stream
   switch (C) {
     case 256: return (int)launch_rows<256>(ARGS);
+    case 384: return (int)launch_rows<384>(ARGS);
     case 512: return (int)launch_rows<512>(ARGS);
     case 768: return (int)launch_rows<768>(ARGS);
     default: return (int)cudaErrorInvalidValue;

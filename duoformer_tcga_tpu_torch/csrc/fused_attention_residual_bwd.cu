@@ -132,6 +132,9 @@ struct Shape {
   static constexpr int H = C / D;
   static constexpr int MT = RT / 16;       // m16 row tiles
   static constexpr int NQ = C / KS;        // dln n8 tiles per warp
+  // C = 384 (ViT-S, 6 heads): 6 slabs of 64 a phase, 6 dln tiles a warp,
+  // the dw form's dwqkv rows in 24 m16 tiles (3 a warp)
+  static_assert(C % KS == 0, "the slabs must tile C");
   static constexpr int SLABS = C / KS;     // slabs per phase of a head
   static constexpr int LN_LD = C + 8;
   static constexpr int S_LD = RT + 4;      // float32 p and dp
@@ -900,11 +903,11 @@ extern "C" {
 
 // Returns the first cudaGetLastError() of the two launches (0 on success).
 // Arguments are checked by the Python wrapper: S in 1..64, C = 64 *
-// num_heads with C in {256, 512, 768}, every pointer 32-byte aligned; ln
-// may be null when use_ln is 0. sums is float32 [6C]: dlns | dlnb | dbqkv
-// (3C) | dbproj. part is a float32 workspace of blocks * 6C, blocks =
-// ceil(n_seg / (rows per block / S)). The reg form: gamma float32 [C] or
-// null; geff a bf16 [rows, C] workspace, needed when gamma is given or the
+// num_heads with C in {256, 384, 512, 768}, every pointer 32-byte
+// aligned; ln may be null when use_ln is 0. sums is float32 [6C]: dlns |
+// dlnb | dbqkv (3C) | dbproj. part is a float32 workspace of blocks * 6C,
+// blocks = ceil(n_seg / (rows per block / S)). The reg form: gamma
+// float32 [C] or null; geff a bf16 [rows, C] workspace, needed when gamma is given or the
 // proj dropout is on (else null); gm bf16 [rows, C], written when the proj
 // dropout is on (else null); seed, the thresholds (< 0: off) and keep
 // scales of the two dropout sites, as the forward took them. The dw form:
@@ -932,6 +935,7 @@ int launch_fused_attention_residual_bwd(
       make_drop(seed, SITE_PROJ, proj_thr, proj_scale), (cudaStream_t)stream
   switch (C) {
     case 256: return (int)launch_rows<256>(ARGS);
+    case 384: return (int)launch_rows<384>(ARGS);
     case 512: return (int)launch_rows<512>(ARGS);
     case 768: return (int)launch_rows<768>(ARGS);
     default: return (int)cudaErrorInvalidValue;

@@ -72,7 +72,8 @@ constexpr float INV_SQRT_2PI = 0.39894228040143268f;
 template <int C_>
 struct Shape {
   static constexpr int C = C_;
-  static constexpr int NS = C / KS;        // slabs per run
+  static constexpr int NS = C / KS;        // slabs per run (3 at C = 384)
+  static_assert(C % KS == 0, "the 128 x 128 slabs must tile C");
   static constexpr int PER_CHUNK = 3 * NS;
   static constexpr int LN_LD = C + 8;
   static constexpr size_t SMEM =
@@ -404,8 +405,9 @@ cudaError_t launch(const bf16* x, const bf16* g, const float* lns,
 extern "C" {
 
 // Returns the first cudaGetLastError() of the two launches (0 on success).
-// Arguments are checked by the Python wrapper: rows >= 1, C in {256, 512,
-// 768}, hidden a positive multiple of 128, every pointer 32-byte aligned.
+// Arguments are checked by the Python wrapper: rows >= 1, C in {256, 384,
+// 512, 768}, hidden a positive multiple of 128, every pointer 32-byte
+// aligned.
 // sums is float32 [2C]: dlns | dlnb. part is a float32 workspace of
 // ceil(rows / 32) * 2C.
 int launch_fused_mlp_bwd(const void* x, const void* g, const void* lns,
@@ -422,6 +424,7 @@ int launch_fused_mlp_bwd(const void* x, const void* g, const void* lns,
       hidden, eps, (cudaStream_t)stream
   switch (C) {
     case 256: return (int)launch<256>(ARGS);
+    case 384: return (int)launch<384>(ARGS);
     case 512: return (int)launch<512>(ARGS);
     case 768: return (int)launch<768>(ARGS);
     default: return (int)cudaErrorInvalidValue;

@@ -33,7 +33,8 @@
 //
 // Design. One block of 8 warps takes 48 rows. It normalises them once into
 // shared memory, then walks the hidden width in chunks of 128: fc1 for the
-// chunk (each warp: 48 rows x 16 hidden columns), bias and GELU, the bf16
+// chunk (each warp: 48 rows x 16 hidden columns; at C = 384 over three
+// 128-row w1 slabs, elsewhere 256-row ones), bias and GELU, the bf16
 // chunk into shared memory, and the chunk's fc2 partial product added into
 // a float32 [48, C] accumulator held in registers (each warp: 48 rows x
 // C/8 columns, 144 registers at C=768). The [rows, 4C] hidden never
@@ -64,14 +65,20 @@ constexpr int HC = 128;            // hidden chunk
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 constexpr int H_LD = HC + 8;
-constexpr int K1 = 256;            // w1 slab: K1 rows x HC columns
 constexpr int W1_LD = HC + 8;
 constexpr int K2 = 32;             // w2 slab: K2 rows x C columns
 
 template <int C_>
 struct Shape {
   static constexpr int C = C_;
+  // w1 slab: K1 rows x HC columns. 256 rows where C is a multiple of 256;
+  // at C = 384 (ViT-S) a 256-row slab would leave C / 256 = 1 slab and
+  // drop the last 128 rows of the fc1 product, so 128-row slabs (3).
+  static constexpr int K1 = C % 256 == 0 ? 256 : 128;
+  static_assert(C % K1 == 0 && C % 64 == 0,
+                "the w1 slabs must tile C; each warp owns C / 8 columns");
   static constexpr int NJ = C / 8 / 8;            // fc2 n8 tiles per warp
+  static_assert(NJ % 2 == 0, "fc2 takes its n8 tiles in pairs");
   static constexpr int LN_LD = C + 8;
   static constexpr int W2_LD = C + 8;
   static constexpr int SLABS1 = C / K1;           // w1 slabs per chunk
@@ -89,8 +96,8 @@ __device__ __forceinline__ void load_slab(bf16* dst, int s, const bf16* w1,
   typedef Shape<C> S;
   const int chunk = s / S::SLABS, j = s % S::SLABS, c0 = chunk * HC;
   if (j < S::SLABS1) {
-    const int k0 = j * K1;
-    for (int i = threadIdx.x; i < K1 * (HC / 8); i += THREADS) {
+    const int k0 = j * S::K1;
+    for (int i = threadIdx.x; i < S::K1 * (HC / 8); i += THREADS) {
       const int row = i / (HC / 8), seg = i % (HC / 8);
       cp_async16(dst + row * W1_LD + seg * 8,
                  w1 + (long)(k0 + row) * hidden + c0 + seg * 8);
@@ -164,13 +171,14 @@ fused_mlp_kernel(const bf16* __restrict__ x, const float* __restrict__ lns,
             for (int q = 0; q < 4; ++q) h1[m][n][q] = 0.f;
       }
 #pragma unroll
-      for (int kk = 0; kk < K1; kk += 16) {
+      for (int kk = 0; kk < S::K1; kk += 16) {
         unsigned b[4];
         ldsm_b2(b, slab + kk * W1_LD + warp * 16, W1_LD, lane);
 #pragma unroll
         for (int m = 0; m < MT; ++m) {
           unsigned a[4];
-          ldsm_a(a, sLN + m * 16 * S::LN_LD + j * K1 + kk, S::LN_LD, lane);
+          ldsm_a(a, sLN + m * 16 * S::LN_LD + j * S::K1 + kk, S::LN_LD,
+                 lane);
           mma16816(h1[m][0], a, b[0], b[1]);
           mma16816(h1[m][1], a, b[2], b[3]);
         }
@@ -260,7 +268,7 @@ cudaError_t launch(const bf16* x, const float* lns, const float* lnb,
 extern "C" {
 
 // Returns the launch's cudaGetLastError() (0 on success). Arguments are
-// checked by the Python wrapper: C in {256, 512, 768}, hidden a positive
+// checked by the Python wrapper: C in {256, 384, 512, 768}, hidden a positive
 // multiple of 128, every pointer 32-byte aligned. z: null (the serving
 // form), or [rows, hidden] bf16 for the pre-GELU hidden (the z form). The
 // reg form: gamma float32 [C] or null; seed the int32 dropout seed;
@@ -281,6 +289,7 @@ int launch_fused_mlp_residual(const void* x, const void* lns, const void* lnb,
       make_drop(seed, SITE_MLP_OUT, drop_thr, drop_scale), (cudaStream_t)stream
   switch (C) {
     case 256: return (int)launch<256>(ARGS);
+    case 384: return (int)launch<384>(ARGS);
     case 512: return (int)launch<512>(ARGS);
     case 768: return (int)launch<768>(ARGS);
     default: return (int)cudaErrorInvalidValue;

@@ -7,16 +7,19 @@
 // Replaces: duoformer_tcga_tpu/ops/pallas_norm.py, _ln_kernel, driven by
 // _impl (fused_layernorm). The JAX package takes it for every nn.layernorm
 // outside the fused blocks when DUOFORMER_FUSED_LN=1 and C % 128 == 0:
-// in the port the release family's fc_norm and the legacy family's final
-// norm, one launch per forward, when the model is built with fused_ln.
+// in the port the release family's fc_norm and the final norm of the
+// legacy family and of the ViTs, one launch per forward, when the model
+// is built with fused_ln.
 //
 // Rounding points are the TPU kernel's: the row read once, mean and the
 // two-pass variance in float32, (x - mean) * rsqrt(var + eps), then times
 // scale plus bias in float32, and y rounded once to bf16.
 //
 // Design. One warp per row: each lane reads 16-byte chunks of 8 elements
-// (C a multiple of 128 gives whole chunks), sums them, and the warp reduces
-// with shuffles; the second and third passes over the row (the centred
+// (C a multiple of 128 gives whole chunks; the lanes step 256 columns at a
+// time, so at C = 384 the second step runs on lanes 0-15 alone, and the
+// shuffles still take all 32), sums them, and the warp reduces with
+// shuffles; the second and third passes over the row (the centred
 // squares, then the output) read it again from L1. Blocks of 8 warps, one
 // row each, cover the rows.
 //

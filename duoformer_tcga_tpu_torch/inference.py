@@ -23,7 +23,7 @@ import torch
 from ._device import resolve_device
 from .data import pipeline as data_lib
 from .models.duoformer import fold_for_inference
-from .ops.nn import cast_weights_
+from .ops.nn import cast_weights_, standardize_weights_
 from .ops.quantize import is_quantized, quantize_model_
 from .utils.checkpoint import load_params_npz_flat, save_params_npz
 from .utils.convert import export_jax_params, load_jax_params
@@ -44,13 +44,15 @@ class Predictor:
         are squeezed, quirk Q13, and whose embedding is the post-norm CLS
         its head reads), or the ViT baseline (ViTBase16, no BN to fold,
         its embedding the post-norm CLS; int8 refused, as the JAX package
-        quantizes the release family only); the Predictor takes it over
-        (puts it in eval mode, folds its BNs, quantizes, moves and casts it
-        in place). device: None -> the card (raises without one); "cpu" on
-        request. preprocess: accept raw uint8 NHWC tiles and normalise on
-        device. quantize: int8 (a8w8) serving, every transformer GEMM
-        (qkv, proj, fc1, fc2) through the int8 kernels, its codes taken
-        from the float32 weights; the model then refuses training mode."""
+        quantizes the release family only), hybrids included; the
+        Predictor takes it over (puts it in eval mode, folds its BNs,
+        quantizes, standardises the hybrids' trunk kernels in float32,
+        moves and casts it in place). device: None -> the card (raises
+        without one); "cpu" on request. preprocess: accept raw uint8 NHWC
+        tiles and normalise on device. quantize: int8 (a8w8) serving, every
+        transformer GEMM (qkv, proj, fc1, fc2) through the int8 kernels,
+        its codes taken from the float32 weights; the model then refuses
+        training mode."""
         self.device = resolve_device(device)
         self.dtype = dtype
         self.preprocess = preprocess
@@ -60,6 +62,9 @@ class Predictor:
         if quantize:
             quantize_model_(model)
         self.quantized = is_quantized(model)
+        # the JAX package standardises its float32 masters at every
+        # forward and casts the result: standardise once, before the cast
+        standardize_weights_(model)
         self.model = cast_weights_(model.to(self.device), dtype)
 
     def prepare(self, tiles):

@@ -8,7 +8,10 @@ tokens a tile at 224^2 and patch 16), so every block runs the fused
 attention and MLP kernels through their autograd functions: at 87..197
 tokens the attention branch's long-segment chain (ops/fused_attention.py).
 The patch embed is a 16x16 stride-16 VALID convolution through
-ops/nn.conv2d (cuDNN, as the JAX package leaves it to XLA); the final
+ops/nn.conv2d (cuDNN, as the JAX package leaves it to XLA; the hybrids of
+models/resnetv2.py build the ViT on their trunk's grid with a 1x1 one and
+hand it the trunk's map through `tokens`); at C = 384 (ViT-S, 50 tokens)
+the blocks run the seg_len <= 64 kernels at that width; the final
 norm is the plain LayerNorm, or with fused_ln the LayerNorm kernel (the
 JAX package's DUOFORMER_FUSED_LN=1).
 
@@ -66,9 +69,14 @@ class VisionTransformer(nn.Module):
     def embed(self, x):
         """Patch embed + CLS + position embedding: x [B, H, W, 3] NHWC ->
         tokens [B, num_patches + 1, C] (vit.py:70-78)."""
-        B = x.shape[0]
-        y = self.patch_embed(x.permute(0, 3, 1, 2), stride=self.patch_size,
-                             padding="VALID")              # [B, C, g, g]
+        return self.tokens(self.patch_embed(
+            x.permute(0, 3, 1, 2), stride=self.patch_size, padding="VALID"))
+
+    def tokens(self, y):
+        """The patch embed's map y [B, C, g, g] -> tokens [B, g*g + 1, C]:
+        CLS first, then the position embedding (also the hybrid's,
+        resnetv2.py:146-156)."""
+        B = y.shape[0]
         y = y.flatten(2).transpose(1, 2)                     # [B, g*g, C]
         cls = self.cls_token.to(y.dtype).expand(B, 1, self.embed_dim)
         return torch.cat([cls, y], dim=1) + self.pos_embed.to(y.dtype)

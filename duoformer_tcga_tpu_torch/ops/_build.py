@@ -46,6 +46,13 @@ _libs: dict = {}
 launch_counts: collections.Counter = collections.Counter()
 
 
+def count_launch(name: str, C: int):
+    """One launch of form `name` at width C; a launch of a kernel's
+    384-wide instantiation (ViT-S) counts under name + "_c384", so a run
+    shows that the path went through that form."""
+    launch_counts[name + ("_c384" if C == 384 else "")] += 1
+
+
 class KernelBuildError(RuntimeError):
     pass
 

@@ -72,7 +72,8 @@ import torch
 
 from . import _build
 from . import dropout as dr
-from ._build import _check_tensor, _ptr, _require, _stream, launch_counts
+from ._build import (_check_tensor, _ptr, _require, _stream, count_launch,
+                     launch_counts)
 from .nn import layernorm
 
 ATTN_MAX_SEG_LEN = 64         # a block holds at most 64 rows (csrc note)
@@ -85,7 +86,12 @@ ATTN_SERVE_MAX_SEG_LEN = 86
 # csrc/attention_long.cu); int8 stops at ATTN_SERVE_MAX_SEG_LEN
 ATTN_LONG_MAX_SEG_LEN = 197
 HEAD_DIM = 64                 # the attention kernel's head width
-SUPPORTED_C = (256, 512, 768)   # widths the kernels are instantiated for
+SUPPORTED_C = (256, 512, 768)   # widths every kernel is instantiated for
+# ... and 384 (ViT-S, the R26-S/32 hybrid's 6 heads) where instantiated:
+# the seg_len <= 64 attention forward and backward (both forms), the MLP
+# forward (serving and z forms), mlp_dz and the recompute-from-x MLP
+# backward; a launch at 384 counts under its form's name + "_c384"
+SHORT_C = (256, 384, 512, 768)
 
 
 def reset_launch_counts():
@@ -358,9 +364,16 @@ def block_diag_attention_plain(qkv, num_heads, seg_len, scale):
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check_width(C, what):
-    _require(C in SUPPORTED_C,
-             f"{what}: the kernel is instantiated for C in {SUPPORTED_C}, "
+def attention_widths(seg_len):
+    """The widths the attention kernels of seg_len are instantiated for:
+    SHORT_C up to ATTN_MAX_SEG_LEN, SUPPORTED_C past it (the 65..86 and
+    87..197-token kernels, and attention_proj)."""
+    return SHORT_C if seg_len <= ATTN_MAX_SEG_LEN else SUPPORTED_C
+
+
+def _check_width(C, what, widths=SUPPORTED_C):
+    _require(C in widths,
+             f"{what}: the kernel is instantiated for C in {widths}, "
              f"got {C}")
 
 
@@ -396,8 +409,10 @@ def refuse_long_segments(what, seg_len, limit=ATTN_MAX_SEG_LEN):
             f"PyTorch package yet")
 
 
-def _check_attention_x(x, seg_len, num_heads, what, max_len):
-    """-> (n_seg, S, C) of a kernel's x [n_seg, seg_len, C]."""
+def _check_attention_x(x, seg_len, num_heads, what, max_len,
+                       widths=SUPPORTED_C):
+    """-> (n_seg, S, C) of a kernel's x [n_seg, seg_len, C]; the kernel
+    is instantiated for C in `widths`."""
     _require(x.dim() == 3, f"x must be [n_seg, seg_len, C], got "
              f"{tuple(x.shape)}")
     n_seg, S, C = x.shape
@@ -408,7 +423,7 @@ def _check_attention_x(x, seg_len, num_heads, what, max_len):
     _require(num_heads * HEAD_DIM == C,
              f"the kernel needs head width {HEAD_DIM}: C={C}, "
              f"num_heads={num_heads}")
-    _check_width(C, what)
+    _check_width(C, what, widths)
     return n_seg, S, C
 
 
@@ -420,7 +435,8 @@ def fused_attention_residual(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
 
     The JAX signature (pallas_attention.py:1053). use_ln=use_residual=False
     is the bare form the patch blocks run. On the card: bf16 x and
-    weights, float32 vectors, head width 64, seg_len <= 197 (65..86 in two
+    weights, float32 vectors, head width 64, C in attention_widths(seg_len)
+    (384 only up to 64 tokens), seg_len <= 197 (65..86 in two
     launches, attention_core_s86 and attention_proj; 87..197
     attention_core_long and attention_proj). gamma, seed, attn_drop,
     proj_drop: the reg form's LayerScale and dropout
@@ -439,9 +455,9 @@ def fused_attention_residual(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
             seg_len, scale, ln_eps, use_ln, use_residual, **reg)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    n_seg, S, C = _check_attention_x(x, seg_len, num_heads,
-                                     "fused_attention_residual",
-                                     ATTN_LONG_MAX_SEG_LEN)
+    n_seg, S, C = _check_attention_x(
+        x, seg_len, num_heads, "fused_attention_residual",
+        ATTN_LONG_MAX_SEG_LEN, attention_widths(seg_len))
     if S > ATTN_MAX_SEG_LEN:
         core = (attention_core_s86 if S <= ATTN_SERVE_MAX_SEG_LEN
                 else attention_core_long)
@@ -479,7 +495,7 @@ def fused_attention_residual(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
                     a_thr, a_scale, p_thr, p_scale, _stream(dev))
     _build.check(lib, status, "fused_attention_residual")
     name = _reg_name("fused_attention_residual", gamma, attn_drop, proj_drop)
-    launch_counts[name if use_ln else name + "_bare"] += 1
+    count_launch(name if use_ln else name + "_bare", C)
     return out
 
 
@@ -612,9 +628,10 @@ def fused_mlp_residual(x, ln_scale, ln_bias, w1, b1, w2, b2, ln_eps=1e-6,
     """y = [x +] fc2(gelu(fc1(LN(x)))); x [..., C]. The JAX signature
     (pallas_attention.py:1696). return_hidden=True -> (y, z), z the
     pre-GELU hidden [rows, hidden] (the z form, _fused_mlp_kernel_z). On
-    the card: bf16 x and weights, float32 vectors, hidden a multiple of
-    128. gamma, seed, drop: the reg form's LayerScale and dropout of the
-    hidden and the output (fused_mlp_residual_reg, :1940)."""
+    the card: bf16 x and weights, float32 vectors, C in SHORT_C, hidden a
+    multiple of 128. gamma, seed, drop: the reg form's LayerScale and
+    dropout of the hidden and the output (fused_mlp_residual_reg,
+    :1940)."""
     if x.device.type == "cpu":
         return fused_mlp_residual_plain(x, ln_scale, ln_bias, w1, b1, w2, b2,
                                         ln_eps, use_residual, return_hidden,
@@ -624,7 +641,7 @@ def fused_mlp_residual(x, ln_scale, ln_bias, w1, b1, w2, b2, ln_eps=1e-6,
     C = x.shape[-1]
     hidden = w1.shape[-1]
     rows = x.numel() // C if C else 0
-    _check_width(C, "fused_mlp_residual")
+    _check_width(C, "fused_mlp_residual", SHORT_C)
     _require(hidden % 128 == 0 and hidden > 0,
              f"hidden width {hidden} must be a positive multiple of 128")
     dev, f32, bf16 = x.device, torch.float32, torch.bfloat16
@@ -659,7 +676,7 @@ def fused_mlp_residual(x, ln_scale, ln_bias, w1, b1, w2, b2, ln_eps=1e-6,
     name = _reg_name("fused_mlp_residual", gamma, drop)
     name += "_z" if return_hidden else ""
     _build.check(lib, status, name)
-    launch_counts[name] += 1
+    count_launch(name, C)
     return (out, z) if return_hidden else out
 
 
@@ -698,9 +715,9 @@ def fused_attention_residual_bwd(x, g, ln_scale, ln_bias, wqkv, bqkv, wproj,
             scale, ln_eps, use_ln, use_residual, dw=dw, **reg)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    n_seg, S, C = _check_attention_x(x, seg_len, num_heads,
-                                     "fused_attention_residual_bwd",
-                                     ATTN_LONG_MAX_SEG_LEN)
+    n_seg, S, C = _check_attention_x(
+        x, seg_len, num_heads, "fused_attention_residual_bwd",
+        ATTN_LONG_MAX_SEG_LEN, attention_widths(seg_len))
     dev, f32, bf16 = x.device, torch.float32, torch.bfloat16
     _check_tensor("x", x, dev, bf16, (n_seg, S, C))
     _check_tensor("g", g, dev, bf16, (n_seg, S, C))
@@ -768,7 +785,7 @@ def fused_attention_residual_bwd(x, g, ln_scale, ln_bias, wqkv, bqkv, wproj,
     _build.check(lib, status, "fused_attention_residual_bwd")
     name = _reg_name("fused_attention_residual_bwd", gamma, attn_drop,
                      proj_drop) + ("_dw" if dw else "")
-    launch_counts[name if use_ln else name + "_bare"] += 1
+    count_launch(name if use_ln else name + "_bare", C)
     return out
 
 
@@ -857,7 +874,7 @@ def mlp_dz(g2, z, w2):
         status = fn(_ptr(g2), _ptr(z), _ptr(w2), _ptr(dz), _ptr(db1),
                     _ptr(part), rows, C, hidden, _stream(dev))
     _build.check(lib, status, "mlp_dz")
-    launch_counts["mlp_dz"] += 1
+    count_launch("mlp_dz", C)
     return dz, db1
 
 
@@ -866,7 +883,7 @@ def fused_mlp_bwd(x, g, ln_scale, ln_bias, w1, b1, w2, ln_eps=1e-6):
     (_fused_mlp_bwd_impl, pallas_attention.py:1634-1693): x, g [..., C] ->
     (dx like x, ln [rows, C], h [rows, hidden], dz [rows, hidden], dlns,
     dlnb). dx includes the residual's g. On the card: bf16 x, g and
-    weights, float32 vectors, hidden a multiple of 128."""
+    weights, float32 vectors, C in SHORT_C, hidden a multiple of 128."""
     if x.device.type == "cpu":
         return fused_mlp_bwd_plain(x, g, ln_scale, ln_bias, w1, b1, w2,
                                    ln_eps)
@@ -875,7 +892,7 @@ def fused_mlp_bwd(x, g, ln_scale, ln_bias, w1, b1, w2, ln_eps=1e-6):
     C = x.shape[-1]
     hidden = w1.shape[-1]
     rows = x.numel() // C if C else 0
-    _check_width(C, "fused_mlp_bwd")
+    _check_width(C, "fused_mlp_bwd", SHORT_C)
     _require(hidden % 128 == 0 and hidden > 0,
              f"hidden width {hidden} must be a positive multiple of 128")
     dev, f32, bf16 = x.device, torch.float32, torch.bfloat16
@@ -909,7 +926,7 @@ def fused_mlp_bwd(x, g, ln_scale, ln_bias, w1, b1, w2, ln_eps=1e-6):
                     _ptr(h), _ptr(dz), _ptr(sums), _ptr(part), rows, C,
                     hidden, float(ln_eps), _stream(dev))
     _build.check(lib, status, "fused_mlp_bwd")
-    launch_counts["fused_mlp_bwd"] += 1
+    count_launch("fused_mlp_bwd", C)
     return out
 
 

@@ -24,7 +24,7 @@ from torch import nn
 
 from . import _build
 from . import initializers as init
-from ._build import _check_tensor, _ptr, _require, _stream, launch_counts
+from ._build import _check_tensor, _ptr, _require, _stream, count_launch
 
 
 # ---------------------------------------------------------------------------
@@ -58,7 +58,9 @@ def fused_layernorm_plain(x, scale, bias, eps=1e-6):
 
 def _fused_layernorm_fwd(x, scale, bias, eps):
     """The LayerNorm kernel (pallas_norm._impl, :65-93): x [..., C] -> like
-    x. On the card: bf16 x, float32 scale and bias, C a multiple of 128."""
+    x. On the card: bf16 x, float32 scale and bias, C a multiple of 128
+    (the kernel walks a row in 256-column strides, the last one partial at
+    C = 384; a launch at 384 counts as fused_layernorm_c384)."""
     if x.device.type == "cpu":
         return fused_layernorm_plain(x, scale, bias, eps)
     if x.device.type != "cuda":
@@ -83,7 +85,7 @@ def _fused_layernorm_fwd(x, scale, bias, eps):
         status = fn(_ptr(x), _ptr(scale), _ptr(bias), _ptr(out), rows, C,
                     float(eps), _stream(dev))
     _build.check(lib, status, "layernorm")
-    launch_counts["fused_layernorm"] += 1
+    count_launch("fused_layernorm", C)
     return out
 
 
@@ -184,10 +186,46 @@ def affine(x, scale, bias):
 
 def maxpool2d(x, window=2, stride=2, padding="VALID"):
     """torch MaxPool2d (floor mode) over NCHW; an int padding pads with
-    -inf, as the JAX reduce_window does."""
-    if padding == "VALID":
+    -inf, as the JAX reduce_window does; "SAME" pads XLA's way (low half
+    rounded down, so (0, 1) for the 3x3 stride-2 pool at 112^2) with -inf
+    (nn.py:254-267)."""
+    if padding == "SAME":
+        ph = _same_padding(x.shape[2], window, stride)
+        pw = _same_padding(x.shape[3], window, stride)
+        x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=float("-inf"))
+        padding = 0
+    elif padding == "VALID":
         padding = 0
     return F.max_pool2d(x, window, stride, padding)
+
+
+def groupnorm(x, scale, bias, groups=32, eps=1e-5):
+    """GroupNorm over an NCHW tensor (nn.py:208-221): each group of C /
+    groups channels normalised over (C / groups, H, W) per sample with
+    float32 statistics, then the float32 per-channel affine, rounded once
+    to x's dtype."""
+    return F.group_norm(x.float(), groups, scale.float(), bias.float(),
+                        eps).to(x.dtype)
+
+
+STD_CONV_EPS = 1e-8
+
+
+def standardize_weight(w, eps=STD_CONV_EPS):
+    """Weight standardisation of an OIHW kernel (nn.py:223-233): per
+    output channel over (I, H, W), biased variance, in float32."""
+    w = w.float()
+    mean = w.mean(dim=(1, 2, 3), keepdim=True)
+    var = (w - mean).square().mean(dim=(1, 2, 3), keepdim=True)
+    return (w - mean) * torch.rsqrt(var + eps)
+
+
+def stdconv2d(x, w, stride=1, padding="SAME", eps=STD_CONV_EPS):
+    """The weight-standardised convolution of the ResNetV2 trunks (timm
+    StdConv2dSame): w standardised in float32 from the float32 weight, then
+    conv2d in x's dtype."""
+    return conv2d(x, standardize_weight(w, eps).to(x.dtype), None, stride,
+                  padding)
 
 
 def relu(x):
@@ -268,6 +306,53 @@ class Conv2d(nn.Module):
 
     def forward(self, x, stride=1, padding="SAME"):
         return conv2d(x, self.w.to(x.dtype), self.b, stride, padding)
+
+
+class StdConv2d(Conv2d):
+    """A bias-free Conv2d (torchvision's kaiming fan_out init, as the JAX
+    trunk draws it) whose kernel is standardised at every forward
+    (stdconv2d). standardize_() replaces the kernel by its standardised
+    float32 form once, for serving: the Predictor does it before casting
+    the weights, so the bf16 kernel is the rounded standardised float32
+    one, as the JAX package computes it from its float32 masters."""
+
+    def __init__(self, kh, kw, cin, cout, generator=None):
+        super().__init__(kh, kw, cin, cout, False, "kaiming_fan_out",
+                         generator)
+        self.standardized = False
+
+    @torch.no_grad()
+    def standardize_(self):
+        if not self.standardized:
+            self.w.copy_(standardize_weight(self.w))
+            self.standardized = True
+        return self
+
+    def forward(self, x, stride=1, padding="SAME"):
+        if self.standardized:
+            return conv2d(x, self.w.to(x.dtype), None, stride, padding)
+        return stdconv2d(x, self.w, stride, padding)
+
+
+class GroupNorm(nn.Module):
+    def __init__(self, ch, groups=32, eps=1e-5):
+        super().__init__()
+        self.groups = groups
+        self.eps = eps
+        self.scale = nn.Parameter(init.ones((ch,)))
+        self.bias = nn.Parameter(init.zeros((ch,)))
+
+    def forward(self, x):
+        return groupnorm(x, self.scale, self.bias, self.groups, self.eps)
+
+
+def standardize_weights_(module):
+    """In place: every StdConv2d under `module` to its standardised kernel
+    (StdConv2d.standardize_). Returns `module`."""
+    for m in module.modules():
+        if isinstance(m, StdConv2d):
+            m.standardize_()
+    return module
 
 
 def cast_weights_(module, dtype):

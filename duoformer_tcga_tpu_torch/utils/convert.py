@@ -6,8 +6,10 @@ The tree is the JAX package's nested dict/list of arrays, handed over as
 numpy arrays. The port's module and parameter names are the tree's keys,
 so the walk is by name; what changes is layout:
   * depth-stacked `scale_blocks` / `patch_blocks` (the release family) and
-    `blocks` (the legacy family) leaves [depth, ...] are split over the
-    ModuleList's blocks; lists (the channel fuser's `fuse`) stay lists;
+    `blocks` (the legacy family, the ViTs) leaves [depth, ...] are split
+    over the ModuleList's blocks; lists (the channel fuser's `fuse`, the
+    ResNetV2 trunk's `stages` and each stage's `blocks`, whose blocks
+    differ in shape) stay lists;
   * conv weights HWIO become OIHW;
   * linear weights stay (in, out), the layout the port keeps;
   * int8 weights w_q of a quantized tree (ops/quantize.py) become
@@ -34,7 +36,10 @@ from ..models.duoformer import fold_for_inference
 
 
 def _is_folded(tree) -> bool:
-    return "backbone" in tree and "mean" not in tree["backbone"]["bn1"]
+    """A ResNet-50 backbone's BN without running statistics (a hybrid's
+    trunk has GroupNorm, nothing to fold)."""
+    bn1 = tree.get("backbone", {}).get("bn1")
+    return bn1 is not None and "mean" not in bn1
 
 
 def _is_quantized(tree) -> bool:
@@ -125,6 +130,15 @@ def load_jax_params(model, tree):
 STACKED = ("scale_blocks", "patch_blocks", "blocks")
 
 
+def _stacked(name):
+    """Whether the ModuleList `name` is depth-stacked in the JAX tree: a
+    STACKED name that is not itself inside a list (the trunk's
+    stages.{s}.blocks are lists)."""
+    parts = name.split(".")
+    return parts[-1] in STACKED and not (len(parts) > 1
+                                         and parts[-2].isdigit())
+
+
 def _jax_layout(node, lists, prefix=""):
     """The ModuleLists named in `lists` -> a list, or one depth-stacked
     subtree under the STACKED names."""
@@ -134,8 +148,7 @@ def _jax_layout(node, lists, prefix=""):
             for k, v in node.items()}
     if prefix[:-1] in lists:
         items = [node[str(i)] for i in range(len(node))]
-        return (_stack(items) if prefix[:-1].split(".")[-1] in STACKED
-                else items)
+        return _stack(items) if _stacked(prefix[:-1]) else items
     return node
 
 

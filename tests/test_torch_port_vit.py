@@ -37,6 +37,7 @@ import duoformer_tcga_tpu_torch as port
 from duoformer_tcga_tpu_torch import train as ttrain
 from duoformer_tcga_tpu_torch.models.transformer import ScaleBlock
 from duoformer_tcga_tpu_torch.ops import fused_attention as fa
+from duoformer_tcga_tpu_torch.ops import initializers as port_init
 from duoformer_tcga_tpu_torch.utils.convert import (export_jax_params,
                                                     load_jax_params)
 
@@ -327,11 +328,25 @@ def test_predictor_refuses_int8_for_the_vit():
         port.Predictor(model, device="cpu", quantize=True)
 
 
-@pytest.mark.parametrize("model_type",
-                         ["ViTPretrained", "R50ViTPretrained", "R50ViT"])
-def test_hybrid_vit_types_raise(model_type):
-    with pytest.raises(NotImplementedError, match="resnetv2"):
-        port.ViTBase16(model_type=model_type)
+@pytest.mark.parametrize("model_type,grid,trunk,dim,heads", [
+    ("ViTPretrained", 14, 1024, 768, 12),
+    ("R50ViTPretrained", 14, 1024, 768, 12),
+    ("R50ViT", 7, 2048, 384, 6)])
+def test_hybrid_vit_types_build(monkeypatch, model_type, grid, trunk, dim,
+                                heads):
+    """The ResNetV2 hybrid types build at full width (the JAX package's
+    baselines.py:99-111): the trunk's grid and channels, the 1x1 patch
+    embed from them, the ViT's width, heads and positions (the
+    truncated-normal draws, most of the build's time, are zeros here)."""
+    monkeypatch.setattr(port_init, "trunc_normal",
+                        lambda shape, std=0.02, generator=None:
+                        torch.zeros(shape))
+    m = port.ViTBase16(n_classes=5, model_type=model_type).model
+    assert m.grid == grid and m.backbone.out_channels == trunk
+    assert m.vit.patch_embed.w.shape == (dim, trunk, 1, 1)
+    assert m.vit.pos_embed.shape == (1, grid * grid + 1, dim)
+    assert len(m.vit.blocks) == 12
+    assert m.vit.blocks[0].num_heads == heads
 
 
 def test_unknown_vit_type_raises():
