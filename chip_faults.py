@@ -49,6 +49,7 @@ ATTN86 = f"{PKG}/csrc/fused_attention_residual_s86.cu"
 ATTN886 = f"{PKG}/csrc/fused_attention_residual_int8_s86.cu"
 BWD86 = f"{PKG}/csrc/fused_attention_residual_bwd_s86.cu"
 CHAIN = f"{PKG}/csrc/attention_chain.cuh"
+REG_GRAD = f"{PKG}/csrc/reg_grad.cuh"
 LONG = f"{PKG}/csrc/attention_long.cu"
 TRAIN = f"{PKG}/train.py"
 # the pseudo-form whose case trains the R50ViT hybrid (chip_smoke.
@@ -58,6 +59,8 @@ CHUNK_LOOP = "for (int ci = 0; ci < nchunks; ++ci) {"
 ROW_MAX_LOOP = ("  // ---- the row max over every key tile ----\n"
                 "  for (int kt = 0; kt * 4 < n16; ++kt) {")
 STRIP_CALL = "strip_attention<RT>(sQKV, QKV_LD, warp, S, scale, lane);"
+STRIP_CALL86 = ("strip_attention<RT>(sQKV, QKV_LD, warp, S, scale, lane, "
+                "hdrop, tok0);")
 PARALLEL = 8
 
 # name: (file, text, replacement, the kernel form whose cases must fail
@@ -153,7 +156,7 @@ FAULTS = {
         "pv[u] = c < RT ? __bfloat162float(sP[r * Sh::P_LD + c]) : 0.f;",
         "fused_attention_residual_bwd_reg"),
     "gamma left out of geff (reg backward)": (
-        BWD, "      v.x = __fmul_rn(v.x, gamma[col]);\n"
+        REG_GRAD, "      v.x = __fmul_rn(v.x, gamma[col]);\n"
              "      v.y = __fmul_rn(v.y, gamma[col + 1]);\n", "",
         "fused_attention_residual_bwd_reg"),
     "dz reads dh through bf16 (drop_ew)": (
@@ -188,7 +191,7 @@ FAULTS = {
         "in[u] = live && c >= c0 - S && c < c0 + S;",
         "block_diag_attention"),
     "score mask sees the padding rows 86..95 (s86)": (
-        ATTN86, STRIP_CALL, STRIP_CALL.replace(", S,", ", RT,"),
+        ATTN86, STRIP_CALL86, STRIP_CALL86.replace(", S,", ", RT,"),
         "fused_attention_residual_s86"),
     "head 1's o over head 0's columns (s86)": (
         ATTN86, "store_strip(sQKV, QKV_LD, warp, S, o, row0, C, h * D, lane);",
@@ -259,6 +262,21 @@ FAULTS = {
         "    if (dw && !(C == 384 && h == Sh::H - 1))\n"
         "      for (int mt = warp; mt < C / 16; mt += WARPS) {",
         "fused_attention_residual_bwd_dw_c384"),
+    "attention mask counters from the padded block row (s86 reg core)": (
+        ATTN86, "const uint32_t tok0 = (uint32_t)blockIdx.x * (uint32_t)S;",
+        "const uint32_t tok0 = (uint32_t)blockIdx.x * (uint32_t)RT;",
+        "fused_attention_residual_s86_reg"),
+    "gamma left out (s86 reg proj)": (
+        ATTN86, "        if (gamma != nullptr) {", "        if (false) {",
+        "fused_attention_residual_s86_proj_reg"),
+    "p dropped for o and dv but dp not (s86 reg backward)": (
+        BWD86, "    drop_bits(dp, km, hdrop);   // dp dropped and rescaled "
+               "(reg form)\n", "",
+        "fused_attention_residual_bwd_s86_reg"),
+    "dwA from geff instead of gm (s86 reg dw form)": (
+        CHAIN, "const WgradProblem p1{attnc, gacc, dwA, C, C};",
+        "const WgradProblem p1{attnc, gsrc, dwA, C, C};",
+        "fused_attention_residual_bwd_s86_reg_dw"),
     "the hybrid's trunk frozen by the optimizer": (
         TRAIN, "        labels = frozen_label_fn(params) if frozen_label_fn "
                "else {}",

@@ -39,7 +39,16 @@
    full and bare, at 128 segments (timed), 1024 and a ragged 7, and at
    S=87, held as attention_bwd_big_case holds them, below 1e8 elements
    also at every bar against the float32-input plain version, the dw
-   form's scratch at 128 and 1024 segments at most DW_EXTRA_BYTES; the
+   form's scratch at 128 and 1024 segments at most DW_EXTRA_BYTES), the
+   reg forms at 86 tokens of phase 12's R4r (the core with the attention
+   dropout at 3136 segments, the proj with gamma at 3136, both launches
+   with gamma alone, the attention dropout and gamma (3136 and 6272),
+   all three flags and bare; the backward with the attention dropout and
+   gamma, and with the proj dropout and gamma (gm), dw=False at 3136 and
+   dw at 6272 segments, held as attention_bwd_big_case holds them, the
+   dw form's scratch, geff and gm at most DW_EXTRA_BYTES; small ragged,
+   bare and S=65 shapes; the masks exactly at S=86, forward and
+   backward; the bf16 bars scaled by max gamma / (1 - rate)); the
    block-diagonal attention op's long core at S=197 over 128 segments
    and 7, at S=86 over 3136 (from 1e8 elements held as the backward at
    that size), at S=65, and with scores spread ~150 units (the softmax
@@ -161,12 +170,14 @@
    beside), int8 logits within 0.05 * (max|bf16| + 1) of bf16's, the
    stage times, memory resident and peak during the forwards, and both
    Predictors' tiles/s in interleaved windows.
-9. Runs last: the release DuoFormer trained at 3 scales on the default
+9. Runs last: the release DuoFormer trained (depth 4: SCALES_TRAIN_DEPTH,
+   to keep the script inside its time limit) at 3 scales on the default
    routes at B=128, and at 4 scales (apply_fc_norm and fused_ln, as phase
    7's) on the memory-lean routes at B=128 and on the default routes at
    B=64 (the default routes' saved hidden at B=128 would not fit). Each:
-   one counted step with exactly the launches of SCALES_TRAIN and no other
-   form (12 S=22 or S=86 attention backwards, 12 bare S=50 ones); over 3
+   one counted step with exactly the launches of SCALES_TRAIN at that
+   depth and no other form (4 S=22 or S=86 attention backwards, 4 bare
+   S=50 ones); over 3
    steps a finite loss, every trainable tensor moved, the backbone
    bit-identical; tiles/s (7 windows of 3 steps, 1 at 4 scales), split,
    peak memory and profile as in 4. The gradients of one backward on 2
@@ -211,6 +222,25 @@
    launches of H1_TRAIN / VIT_TRAIN; over 3 steps a finite loss and every
    tensor moved; tiles/s (7 windows of 2 steps), split, peak memory and
    profile as in 4.
+12. Runs last: R4r, the release DuoFormer at 4 scales with the legacy
+   preset's regularisation (build_model_no_extra_params(num_layers=4,
+   init_values=1e-5, attn_drop_rate=0.1, proj_drop_rate=0.1): Q9 makes
+   the rates the attention-probability and MLP dropout and applies the
+   patch blocks' q/k norms, in plain PyTorch off the kernels), full
+   width, depth 12, random weights from a fixed seed: served at B=64 in
+   bf16 (3 forwards counted: exactly the launches of R4R_SERVE; finite
+   logits; embed() on 2 tiles against the port's CPU float32 run,
+   relative L2 <= 0.05; tiles/s in 7 windows; stages; peak memory) and
+   trained on the default routes at B=64 and the memory-lean ones at
+   B=128: the gradients of one backward on 2 tiles with the same seeds
+   on both routes against the CPU float32 run (0.05) and lean against
+   default (0.05), the patch blocks' q/k norms printed and not held (see
+   reg_grad_names); one counted step each with exactly the launches of
+   R4R_TRAIN; over 3 steps a finite loss, every trainable tensor moved
+   but zero biases the loss does not reach, the backbone unchanged;
+   tiles/s (7 windows of 1 step), split, peak memory and profile as in
+   4. Then R3r (3 scales) at depth 2: the gradients on 2 tiles against
+   the CPU (0.05) and one counted step at B=64 (R3R_TRAIN).
 Every kernel form must have launched on some path.
 Prints the card's name and power limit, one JSON line {"kernels": [...]},
 and as its last line {"ok": true, "device": {...}}. Exits non-zero, with
@@ -333,6 +363,14 @@ SOURCES = {
     "fused_attention_residual_bwd_long_dw": CSRC + "attention_long.cu",
     "fused_attention_residual_bwd_long_dw_bare": CSRC + "attention_long.cu",
     "block_diag_attention_long": CSRC + "attention_long.cu",
+    "fused_attention_residual_s86_reg":
+        CSRC + "fused_attention_residual_s86.cu",
+    "fused_attention_residual_s86_proj_reg":
+        CSRC + "fused_attention_residual_s86.cu",
+    "fused_attention_residual_bwd_s86_reg":
+        CSRC + "fused_attention_residual_bwd_s86.cu",
+    "fused_attention_residual_bwd_s86_reg_dw":
+        CSRC + "fused_attention_residual_bwd_s86.cu",
 }
 REPLACES = {
     "fused_attention_residual": PALLAS + "311",
@@ -376,6 +414,10 @@ REPLACES = {
     "fused_attention_residual_bwd_long_dw": PALLAS + "723",
     "fused_attention_residual_bwd_long_dw_bare": PALLAS + "723",
     "block_diag_attention_long": PALLAS + "175",
+    "fused_attention_residual_s86_reg": PALLAS + "311",
+    "fused_attention_residual_s86_proj_reg": PALLAS + "311",
+    "fused_attention_residual_bwd_s86_reg": PALLAS + "723",
+    "fused_attention_residual_bwd_s86_reg_dw": PALLAS + "723",
 }
 SERVING_FORMS = ("fused_attention_residual", "fused_attention_residual_bare",
                  "fused_mlp_residual")
@@ -435,9 +477,14 @@ SCALES_SERVE = {
                   "fused_attention_residual_int8_bare": 12,
                   "fused_mlp_residual_int8": 12},
 }
-# launches per 3- and 4-scale training step (phase 9; 12 ScaleBlocks at
-# S=22 or S=86, 12 PatchBlocks at S=50; the 4-scale model's fc_norm through
-# the LayerNorm kernel); every other form none
+# phase 9's depth: 4, not 12, so that the script stays well inside its
+# time limit (its forms and shapes are the depth-12 step's, a block at a
+# time; phase 12 trains R4r at depth 12 on the same 86-token forms)
+SCALES_TRAIN_DEPTH = 4
+# launches per 3- and 4-scale training step at depth 12 (phase 9 scales
+# them to SCALES_TRAIN_DEPTH; 12 ScaleBlocks at S=22 or S=86, 12
+# PatchBlocks at S=50; the 4-scale model's fc_norm through the LayerNorm
+# kernel); every other form none
 SCALES_TRAIN = {
     "3-scale default": {"fused_attention_residual": 12,
                         "fused_attention_residual_bare": 12,
@@ -499,6 +546,35 @@ H1_TRAIN = {
              "fused_attention_residual_bwd_dw_c384": 12,
              "fused_mlp_bwd_c384": 12},
 }
+# the regularised release DuoFormer (phase 12): R4r, the 4-scale model with
+# the legacy preset's regularisation (config.py:185-187), its 12 ScaleBlocks
+# on the 86-token reg forms (the core with the attention dropout in
+# training, the proj with gamma: Q9 leaves its dropout at 0), its 12
+# PatchBlocks with their q/k norms applied off the kernels (plain PyTorch,
+# the JAX package's XLA route); R3r the same at 3 scales (S=22, the S<=64
+# reg forms), depth 2 here
+R_REG = dict(init_values=1e-5, attn_drop_rate=DROP, proj_drop_rate=DROP)
+R3R_DEPTH = 2
+R4R_SERVE = {"fused_attention_residual_s86": 12,
+             "fused_attention_residual_s86_proj_reg": 12,
+             "fused_mlp_residual_reg": 12}
+R4R_TRAIN = {
+    "default": {"fused_attention_residual_s86_reg": 12,
+                "fused_attention_residual_s86_proj_reg": 12,
+                "fused_mlp_residual_reg_z": 12,
+                "fused_attention_residual_bwd_s86_reg": 12,
+                "drop_ew_hd": 12, "drop_ew_dz": 12, "drop_ew_gm": 12},
+    "lean": {"fused_attention_residual_s86_reg": 12,
+             "fused_attention_residual_s86_proj_reg": 12,
+             "fused_mlp_residual_reg": 12,
+             "fused_attention_residual_bwd_s86_reg_dw": 12,
+             "drop_ew_hd": 12, "drop_ew_dz": 12, "drop_ew_gm": 12},
+}
+R3R_TRAIN = {"fused_attention_residual_reg": R3R_DEPTH,
+             "fused_mlp_residual_reg_z": R3R_DEPTH,
+             "fused_attention_residual_bwd_reg": R3R_DEPTH,
+             "drop_ew_hd": R3R_DEPTH, "drop_ew_dz": R3R_DEPTH,
+             "drop_ew_gm": R3R_DEPTH}
 # the serving-shape cases of the legacy forward's forms, with launches
 LEGACY_SERVING_CASES = (
     ("fused_attention_residual_reg gamma alone n_seg=3136 (serving)", 12),
@@ -590,6 +666,14 @@ def reg_flags(torch, gen, c, reg):
                 **rates)
 
 
+def plain_repeats(S, reg):
+    """Timed launches of a case's plain version: PLAIN_REPEATS for a reg
+    form past 64 tokens (its masks are hashed in int64 tensors of n_seg *
+    heads * S^2 elements, seconds a call at 3136 segments), else
+    REPEATS."""
+    return PLAIN_REPEATS if reg is not None and S > 64 else REPEATS
+
+
 def reg_scale(flags):
     """The largest factor a reg form's flags put on its branch: max gamma
     over the keep probability of its highest rate (1 for an inert form)."""
@@ -661,7 +745,8 @@ def attention_case(torch, F, fa, gen, n_seg, S, c, heads, bare, timed,
     nbytes = (2 * (2 * rows * c + 4 * c * c) + 4 * (2 * c + 4 * c)
               + (4 * c if reg is not None else 0))
     bound_ms, bound_by = bound(flops, nbytes)
-    res.update(ms=median_ms(kernel, torch), plain_ms=median_ms(plain, torch),
+    res.update(ms=median_ms(kernel, torch),
+               plain_ms=median_ms(plain, torch, plain_repeats(S, reg)),
                library_ms=median_ms(library, torch), bound_ms=bound_ms,
                bound_by=bound_by, flops=flops, bytes=nbytes)
     return res
@@ -1071,7 +1156,7 @@ def attention_bwd_dw_case(torch, F, fa, gen, n_seg, S, c, heads, bare,
 
 
 def chunked_compare(torch, outs, plain_part, units, unit_rows, residuals,
-                    chunk):
+                    chunk, scale=1.0):
     """compare_all() of kernel outputs whose plain version is run over
     chunks of `units` (segments or rows; the plain versions' float32
     intermediates over a whole 4-scale step's rows would hold tens of GB):
@@ -1082,7 +1167,8 @@ def chunked_compare(torch, outs, plain_part, units, unit_rows, residuals,
     (float32)}; residuals {name: the residual a row-space output carries}.
     Row-space outputs are held chunk by chunk (the relative L2 error from
     the chunks' sums of squares), the summed ones once, at atol = 0.08 *
-    sqrt(rows)."""
+    sqrt(rows); scale: a reg form's reg_scale, by which atol grows (as in
+    compare)."""
     rows = units * unit_rows
     acc = {k: dict(d2=0.0, b2=0.0, mx=0.0, close=True, n=0) for k in outs}
     sums = {}
@@ -1103,14 +1189,16 @@ def chunked_compare(torch, outs, plain_part, units, unit_rows, residuals,
             a["d2"] += (oc - rc).double().pow(2).sum().item()
             a["b2"] += br.double().pow(2).sum().item()
             a["mx"] = max(a["mx"], (oc - rc).abs().max().item())
-            a["close"] &= bool(torch.allclose(oc, rc, rtol=TOL, atol=TOL))
+            a["close"] &= bool(torch.allclose(oc, rc, rtol=TOL,
+                                              atol=TOL * scale))
             a["n"] += br.numel()
             del oc, rc, br
         del ref
     each = {}
     for k, o in outs.items():
         if k not in ROW_OUTPUTS:
-            each[k] = compare(torch, o, sums[k], None, n_summed=rows)
+            each[k] = compare(torch, o, sums[k], None, n_summed=rows,
+                              scale=scale)
             continue
         a = acc[k]
         rel = (a["d2"] / max(a["b2"], 1e-300)) ** 0.5
@@ -1126,13 +1214,15 @@ def chunked_compare(torch, outs, plain_part, units, unit_rows, residuals,
 
 # the outputs chunked_compare holds row by row; every other one is summed
 # over the rows
-ROW_OUTPUTS = ("dx", "ln", "attn", "dqkv", "out", "z", "dz", "h")
-BWD_NAMES = ("dx", "ln", "attn", "dqkv", "dlns", "dlnb", "dbqkv", "dbproj")
+ROW_OUTPUTS = ("dx", "ln", "attn", "dqkv", "out", "z", "dz", "h", "gm")
+BWD_NAMES = ("dx", "ln", "attn", "dqkv", "dlns", "dlnb", "dbqkv", "dbproj",
+             "gm")
 BWD_DW_NAMES = ("dx", "dlns", "dlnb", "dbqkv", "dbproj", "dwqkv", "dwA")
 
 
 def attention_bwd_big_case(torch, F, fa, gen, n_seg, S, c, heads, bare,
-                           timed, dw=False, twin=False, upcast_bars=False):
+                           timed, dw=False, twin=False, upcast_bars=False,
+                           reg=None):
     """The attention backward, dw=False or the dw form, at a 3- or 4-scale
     training step's size (the 65..86-token chain, or the S<=64 kernel at
     S=22), each plain version run over chunks of PLAIN_CHUNK_SEGS segments:
@@ -1151,9 +1241,13 @@ def attention_bwd_big_case(torch, F, fa, gen, n_seg, S, c, heads, bare,
     the bf16-input plain version also at ROUND_REL_TOL (a rounding point
     moved shows there, below the bf16 bars). upcast_bars: where the
     largest row-space output has fewer than UPCAST_BARS_MAX elements,
-    every bar against the float32-input plain version too. Records the device memory
-    the call held beyond dx, the column sums and the weight gradients
-    (dw=False: ln, attn, dqkv and any scratch; dw: the scratch)."""
+    every bar against the float32-input plain version too. reg (65..86
+    tokens; see reg_flags): the reg form, its atol scaled by reg_scale;
+    with the proj dropout dw=False also holds gm, and the dw form's dwA
+    is held against attn^T gm of the dw=False route. Records the device
+    memory the call held beyond dx, the column sums and the weight
+    gradients (dw=False: ln, attn, dqkv, gm and any scratch; dw: the
+    scratch, the reg form's geff and gm included)."""
     dev, bf16 = "cuda", torch.bfloat16
 
     def rnd(*shape, std=1.0, mean=0.0):
@@ -1170,10 +1264,13 @@ def attention_bwd_big_case(torch, F, fa, gen, n_seg, S, c, heads, bare,
     bqkv = rnd(3 * c, std=0.01).cuda()
     wproj = rnd(c, c, std=c ** -0.5).to(dev, bf16)
     scale = (c // heads) ** -0.5
-    flags = dict(use_ln=not bare, use_residual=not bare)
+    flags = dict(use_ln=not bare, use_residual=not bare,
+                 **reg_flags(torch, gen, c, reg))
     args = (x, g, lns, lnb, wqkv, bqkv, wproj, heads, S, scale)
     names = BWD_DW_NAMES if dw else BWD_NAMES
     rows = n_seg * S
+    p_drop = flags.get("proj_drop", 0.0)
+    rscale = reg_scale(flags)
 
     def kernel():
         return fa.fused_attention_residual_bwd(*args, dw=dw, **flags)
@@ -1183,7 +1280,7 @@ def attention_bwd_big_case(torch, F, fa, gen, n_seg, S, c, heads, bare,
                           for t in (x[lo:hi], g[lo:hi], wqkv, wproj))
         return dict(zip(names, fa.fused_attention_residual_bwd_plain(
             xs, gs, lns, lnb, wq, bqkv, wp, heads, S, scale, dw=dw,
-            **flags)))
+            seg0=lo, **flags)))
 
     def plain():
         return [plain_part(lo, min(n_seg, lo + PLAIN_CHUNK_SEGS))
@@ -1200,9 +1297,9 @@ def attention_bwd_big_case(torch, F, fa, gen, n_seg, S, c, heads, bare,
             if not (bare and k in ("ln", "dlns", "dlnb"))}
     residuals = {} if bare else {"dx": g}
     res = chunked_compare(torch, outs, functools.partial(plain_part, bf=True),
-                          n_seg, S, residuals, PLAIN_CHUNK_SEGS)
+                          n_seg, S, residuals, PLAIN_CHUNK_SEGS, rscale)
     f32 = chunked_compare(torch, outs, plain_part, n_seg, S, residuals,
-                          PLAIN_CHUNK_SEGS)
+                          PLAIN_CHUNK_SEGS, rscale)
     again = kernel()
     if dw and S <= fa.ATTN_MAX_SEG_LEN:
         rerun = compare_all(torch, {k: (a, b.float(), None, rows) for k, a, b
@@ -1225,7 +1322,7 @@ def attention_bwd_big_case(torch, F, fa, gen, n_seg, S, c, heads, bare,
     if dw:
         rs = fa.fused_attention_residual_bwd(*args, **flags)
         route = (fa._mm_f32(rs[1].t(), rs[3]),
-                 fa._mm_f32(rs[2].t(), g.view(rows, c)))
+                 fa._mm_f32(rs[2].t(), rs[8] if p_drop else g.view(rows, c)))
         vs = max(rel_err(a, b) for a, b in zip(out[5:], route))
         res.update(vs_dw_false=vs, ok=res["ok"] and vs <= BRANCH_REL_TOL)
         del rs, route
@@ -1233,33 +1330,42 @@ def attention_bwd_big_case(torch, F, fa, gen, n_seg, S, c, heads, bare,
     if not timed:
         return res
     D = c // heads
+    a_drop = flags.get("attn_drop", 0.0)
     if dw:
         def library():
             r = fa.fused_attention_residual_bwd(*args, **flags)
             return (torch.matmul(r[1].t(), r[3]),
-                    torch.matmul(r[2].t(), g.view(rows, c)))
+                    torch.matmul(r[2].t(), r[8] if p_drop
+                                 else g.view(rows, c)))
     else:
         leaves = [t.detach().clone().requires_grad_(True) for t in (
             x, lns.to(bf16), lnb.to(bf16), wqkv.t().contiguous(),
             bqkv.to(bf16), wproj.t().contiguous())]
+        if reg is not None:
+            leaves.append(flags["gamma"].to(bf16).requires_grad_(True))
 
         def library():
-            xx, ls, lb, wq, bq, wp = leaves
+            xx, ls, lb, wq, bq, wp = leaves[:6]
             h = xx if bare else F.layer_norm(xx, (c,), ls, lb, 1e-6)
             qkv = F.linear(h, wq, bq).view(n_seg, S, 3, heads, D)
             q, k, v = qkv.permute(2, 0, 3, 1, 4)
-            o = F.scaled_dot_product_attention(q, k, v, scale=scale)
+            o = F.scaled_dot_product_attention(q, k, v, dropout_p=a_drop,
+                                               scale=scale)
             y = F.linear(o.transpose(1, 2).reshape(n_seg, S, c), wp)
+            if reg is not None:
+                y = F.dropout(y, p_drop) * leaves[6]
             y = y if bare else y + xx
             return torch.autograd.grad(y, leaves, g, allow_unused=bare)
 
+    reg_vec = 4 * c if reg is not None else 0
     flops = 2 * rows * c * 7 * c + 12 * n_seg * S * S * c
-    nbytes = (2 * (rows * c * (3 + (0 if bare else 1) + 1 + 3) + 4 * c * c)
-              + 4 * (2 * c + 3 * c + 6 * c))
+    nbytes = (2 * (rows * c * (3 + (0 if bare else 1) + 1 + 3
+                               + (1 if p_drop else 0)) + 4 * c * c)
+              + 4 * (2 * c + 3 * c + 6 * c) + reg_vec)
     if dw:
         flops += 8 * rows * c * c
         nbytes = (2 * (3 * rows * c + 4 * c * c)
-                  + 4 * (2 * c + 3 * c + 6 * c + 4 * c * c))
+                  + 4 * (2 * c + 3 * c + 6 * c + 4 * c * c) + reg_vec)
     bound_ms, bound_by = bound(flops, nbytes)
     res.update(ms=median_ms(kernel, torch),
                plain_ms=median_ms(plain, torch, PLAIN_REPEATS),
@@ -1532,13 +1638,15 @@ def check_repeat(torch, res, first, kernel):
 
 
 def attention_s86_case(torch, F, fa, gen, n_seg, S, c, heads, bare, timed,
-                       what, int8=False):
+                       what, int8=False, reg=None):
     """One launch of the 65..86-token attention branch alone: what="core"
     (o = attention(qkv([LN] x))) or "proj" (y = [x +] proj(o) on a random
     o), bf16 or int8 (at 87..197 tokens the bf16 core is the long-segment
     chain, one wrapper call), against its plain twin (bf16: on the same inputs
     upcast to float32; int8: on the same bf16 inputs and int8 weights); a
-    second launch must give the same bits."""
+    second launch must give the same bits. reg (bf16 at 65..86 tokens; see
+    reg_flags): the core takes the attention dropout, the proj gamma and
+    the proj dropout."""
     from duoformer_tcga_tpu_torch.ops import fused_int8 as fi
     dev, bf16 = "cuda", torch.bfloat16
 
@@ -1559,6 +1667,9 @@ def attention_s86_case(torch, F, fa, gen, n_seg, S, c, heads, bare, timed,
     scale = (c // heads) ** -0.5
     rows, D = n_seg * S, c // heads
     lns_b, lnb_b = lns.to(bf16), lnb.to(bf16)
+    flags = reg_flags(torch, gen, c, reg)
+    cflags = {k: v for k, v in flags.items() if k in ("seed", "attn_drop")}
+    pflags = {k: v for k, v in flags.items() if k != "attn_drop"}
     if int8:
         wq, sq = _int8_weight(torch, wqkv)
         wp, sp = _int8_weight(torch, wproj)
@@ -1587,25 +1698,27 @@ def attention_s86_case(torch, F, fa, gen, n_seg, S, c, heads, bare, timed,
 
             def kernel():
                 return core(x, lns, lnb, wqkv, bqkv, heads, S, scale,
-                            use_ln=not bare)
+                            use_ln=not bare, **cflags)
 
             def plain():
                 return fa.attention_core_plain(
                     x.float(), lns, lnb, wqkv.float(), bqkv, heads, S, scale,
-                    use_ln=not bare)
+                    use_ln=not bare, **cflags)
         else:
             def kernel():
                 return fa.attention_proj(o, x, wproj, bproj,
-                                         use_residual=not bare)
+                                         use_residual=not bare, **pflags)
 
             def plain():
                 return fa.attention_proj_plain(
                     o.float(), x.float(), wproj.float(), bproj,
-                    use_residual=not bare)
+                    use_residual=not bare, **pflags)
 
     first = kernel()
     res = compare(torch, first, plain(),
-                  None if bare or what == "core" else x)
+                  None if bare or what == "core" else x,
+                  scale=(reg_scale(pflags) if what == "proj" else
+                         1.0 / (1.0 - cflags.get("attn_drop", 0.0))))
     check_repeat(torch, res, first, kernel)
     if not timed:
         return res
@@ -1631,9 +1744,14 @@ def attention_s86_case(torch, F, fa, gen, n_seg, S, c, heads, bare, timed,
         nbytes = 2 * 2 * rows * c + 3 * c * c + 4 * 8 * c
     elif what == "core":
         wqkv_t, bqkv_b = wqkv.t().contiguous(), bqkv.to(bf16)
+        a_drop = cflags.get("attn_drop", 0.0)
 
         def library():
-            return sdpa(F.linear(ln_in(), wqkv_t, bqkv_b))
+            qkv = F.linear(ln_in(), wqkv_t, bqkv_b)
+            q, k, v = qkv.view(n_seg, S, 3, heads, D).permute(2, 0, 3, 1, 4)
+            o = F.scaled_dot_product_attention(q, k, v, dropout_p=a_drop,
+                                               scale=scale)
+            return o.transpose(1, 2).reshape(n_seg, S, c)
 
         flops = 2 * rows * c * 3 * c + 4 * n_seg * S * S * c
         nbytes = 2 * (2 * rows * c + 3 * c * c) + 4 * 5 * c
@@ -1650,15 +1768,21 @@ def attention_s86_case(torch, F, fa, gen, n_seg, S, c, heads, bare, timed,
         nbytes = 2 * rows * c * (2 if bare else 3) + c * c + 4 * 2 * c
     else:
         wproj_t, bproj_b = wproj.t().contiguous(), bproj.to(bf16)
+        gamma_b = flags["gamma"].to(bf16) if reg is not None else None
+        p_drop = pflags.get("proj_drop", 0.0)
 
         def library():
             y = F.linear(o, wproj_t, bproj_b)
+            if reg is not None:
+                y = F.dropout(y, p_drop) * gamma_b
             return y if bare else y + x
 
         flops = 2 * rows * c * c
-        nbytes = 2 * (rows * c * (2 if bare else 3) + c * c) + 4 * c
+        nbytes = (2 * (rows * c * (2 if bare else 3) + c * c) + 4 * c
+                  + (4 * c if reg is not None else 0))
     bound_ms, bound_by = bound(flops, nbytes, int8_ops)
-    res.update(ms=median_ms(kernel, torch), plain_ms=median_ms(plain, torch),
+    res.update(ms=median_ms(kernel, torch),
+               plain_ms=median_ms(plain, torch, plain_repeats(S, reg)),
                library_ms=median_ms(library, torch), bound_ms=bound_ms,
                bound_by=bound_by, flops=flops, int8_ops=int8_ops,
                bytes=nbytes)
@@ -1696,6 +1820,18 @@ def _case_specs(torch, F, fa, timed):
     s86b = attention_bwd_big_case
     s86b_twin = part(attention_bwd_big_case, twin=True)
     s86dw = part(attention_bwd_big_case, dw=True)
+    # the reg forms at 65..86 tokens (R4r: attention dropout 0.1 and
+    # LayerScale in training, gamma alone in serving)
+    s86_core_r = part(s86_core, reg=dict(gamma=False, attn_drop=DROP))
+    s86_proj_g = part(s86_proj, reg={})
+    s86_proj_pg = part(s86_proj, reg=dict(proj_drop=DROP))
+    att_ag = part(att, reg=dict(attn_drop=DROP))
+    s86b_ag = part(s86b, reg=dict(attn_drop=DROP))
+    s86b_pg = part(s86b, reg=dict(proj_drop=DROP))
+    s86b_all = part(s86b, reg=both)
+    s86dw_ag = part(s86dw, reg=dict(attn_drop=DROP))
+    s86dw_pg = part(s86dw, reg=dict(proj_drop=DROP))
+    s86dw_all = part(s86dw, reg=both)
     rows_4s = B_TRAIN * 49 * 86
     specs = [
         # the serving path's forms (B=64)
@@ -1874,6 +2010,44 @@ def _case_specs(torch, F, fa, timed):
          "points)", 3, 65, 512, 8, False, s86b_twin, False),
         ("fused_attention_residual_bwd_s86_dw n_seg=3 S=65 C=512 H=8", 3, 65,
          512, 8, False, s86dw, False),
+        # the regularised 4-scale model's forms (R4r, phase 12) at small
+        # shapes: the core with the attention dropout, the proj with gamma
+        # and the proj dropout, both launches with every flag, the
+        # backward chain with them (dw=False and dw), and the exact masks
+        ("fused_attention_residual_s86_reg core n_seg=7 S=86", 7, 86, C,
+         HEADS, False, s86_core_r, False),
+        ("fused_attention_residual_s86_reg core bare n_seg=5 S=86 C=256 H=4",
+         5, 86, 256, 4, True, s86_core_r, False),
+        ("fused_attention_residual_s86_reg both launches all three n_seg=7 "
+         "S=86", 7, 86, C, HEADS, False, att_r, False),
+        ("fused_attention_residual_s86_reg both launches bare attention "
+         "dropout n_seg=5 S=86 C=256 H=4", 5, 86, 256, 4, True, att_rb,
+         False),
+        ("fused_attention_residual_s86_reg both launches all three n_seg=3 "
+         "S=65 C=512 H=8", 3, 65, 512, 8, False, att_r, False),
+        ("fused_attention_residual_s86_reg attention masks, exact n_seg=7 "
+         "S=86", 7, 86, C, HEADS, False, attention_mask_case, False),
+        ("fused_attention_residual_s86_proj_reg gamma n_seg=7 S=86", 7, 86,
+         C, HEADS, False, s86_proj_g, False),
+        ("fused_attention_residual_s86_proj_reg proj dropout + gamma n_seg=7 "
+         "S=86", 7, 86, C, HEADS, False, s86_proj_pg, False),
+        ("fused_attention_residual_s86_proj_reg bare gamma rows=430 C=256", 5,
+         86, 256, 4, True, s86_proj_g, False),
+        ("fused_attention_residual_bwd_s86_reg attention dropout + gamma "
+         "n_seg=7 S=86", 7, 86, C, HEADS, False, s86b_ag, False),
+        ("fused_attention_residual_bwd_s86_reg proj dropout + gamma (gm) "
+         "n_seg=7 S=86", 7, 86, C, HEADS, False, s86b_pg, False),
+        ("fused_attention_residual_bwd_s86_reg all three n_seg=3 S=65 C=512 "
+         "H=8", 3, 65, 512, 8, False, s86b_all, False),
+        ("fused_attention_residual_bwd_s86_reg attention masks, exact "
+         "n_seg=7 S=86", 7, 86, C, HEADS, False,
+         part(attention_mask_case, backward=True), False),
+        ("fused_attention_residual_bwd_s86_reg_dw attention dropout + gamma "
+         "n_seg=7 S=86", 7, 86, C, HEADS, False, s86dw_ag, False),
+        ("fused_attention_residual_bwd_s86_reg_dw proj dropout + gamma "
+         "n_seg=7 S=86", 7, 86, C, HEADS, False, s86dw_pg, False),
+        ("fused_attention_residual_bwd_s86_reg_dw all three n_seg=3 S=65 "
+         "C=512 H=8", 3, 65, 512, 8, False, s86dw_all, False),
     ]
     if timed:
         # the MLP forms' times at the 4-scale rows (their checks at other
@@ -1900,6 +2074,41 @@ def _case_specs(torch, F, fa, timed):
              B_TRAIN * 49, 22, C, HEADS, False, s86b, timed),
             ("fused_attention_residual_bwd_dw n_seg=6272 S=22 (3 scales)",
              B_TRAIN * 49, 22, C, HEADS, False, s86dw, timed),
+            # R4r's reg forms at the main path's shapes (timed; left out of
+            # the untimed runs for their memory): the core with the
+            # attention dropout at the default step's 3136 segments (B=64),
+            # the proj with gamma at the serving path's, the backward at
+            # the default step's 3136 (dw=False) and the lean step's 6272
+            # (dw), each also with the proj dropout; both launches with
+            # gamma alone, the attention dropout (also at 6272), every
+            # flag, and bare
+            ("fused_attention_residual_s86_reg", B * 49, 86, C, HEADS, False,
+             s86_core_r, timed),
+            ("fused_attention_residual_s86_proj_reg", B * 49, 86, C, HEADS,
+             False, s86_proj_g, timed),
+            ("fused_attention_residual_bwd_s86_reg", B * 49, 86, C, HEADS,
+             False, s86b_ag, timed),
+            ("fused_attention_residual_bwd_s86_reg_dw", B_TRAIN * 49, 86, C,
+             HEADS, False, s86dw_ag, timed),
+            ("fused_attention_residual_bwd_s86_reg proj dropout + gamma (gm) "
+             "n_seg=3136", B * 49, 86, C, HEADS, False, s86b_pg, timed),
+            ("fused_attention_residual_bwd_s86_reg_dw proj dropout + gamma "
+             "n_seg=6272", B_TRAIN * 49, 86, C, HEADS, False, s86dw_pg,
+             timed),
+            ("fused_attention_residual_s86_reg both launches gamma alone "
+             "n_seg=3136 (serving)", B * 49, 86, C, HEADS, False, att_g,
+             timed),
+            ("fused_attention_residual_s86_reg both launches attention "
+             "dropout + gamma n_seg=3136", B * 49, 86, C, HEADS, False,
+             att_ag, timed),
+            ("fused_attention_residual_s86_reg both launches attention "
+             "dropout + gamma n_seg=6272", B_TRAIN * 49, 86, C, HEADS, False,
+             att_ag, timed),
+            ("fused_attention_residual_s86_reg both launches all three "
+             "n_seg=3136", B * 49, 86, C, HEADS, False, att_r, timed),
+            ("fused_attention_residual_s86_reg both launches bare attention "
+             "dropout n_seg=3136", B * 49, 86, C, HEADS, True, att_rb,
+             timed),
             ("fused_mlp_residual_z rows=539392 (4 scales)", rows_4s, C,
              HIDDEN, part(mlp_rows_case, kind="z"), False),
             ("mlp_dz rows=539392 (4 scales)", rows_4s, C, HIDDEN,
@@ -2647,7 +2856,7 @@ def lean_phase(torch, port, fa, failures, card, cases):
 
 def scales_train_phase(torch, port, fa, failures, card, cases):
     """Phase 9: the release DuoFormer trained at 3 and 4 scales (S=22 and
-    S=86 a region), full width, depth 12, frozen backbone: 3 scales on the
+    S=86 a region), full width, depth SCALES_TRAIN_DEPTH, frozen backbone: 3 scales on the
     default routes at B=128; 4 scales (with apply_fc_norm and fused_ln, as
     phase 7's release model) on the memory-lean routes at B=128 and on the
     default routes at B=64. -> {path: the launch counts of one counted
@@ -2661,7 +2870,8 @@ def scales_train_phase(torch, port, fa, failures, card, cases):
         def build(device):
             return port.build_model_no_extra_params(
                 num_layers=layers, embed_dim=C, proj_dim=C, num_heads=HEADS,
-                depth=12, apply_fc_norm=four, fused_ln=four, device=device,
+                depth=SCALES_TRAIN_DEPTH, apply_fc_norm=four, fused_ln=four,
+                device=device,
                 seed=SEED)
 
         t0 = time.perf_counter()
@@ -2735,7 +2945,9 @@ def scales_train_phase(torch, port, fa, failures, card, cases):
             # zero bias is reached by neither the loss nor the L2 term
             out[f"{what} (1 step)"] = three_steps(
                 torch, fa, failures, what, model, state, step, batches,
-                trainable, before, SCALES_TRAIN[key], cases,
+                trainable, before,
+                {k: SCALES_TRAIN_DEPTH if n == 12 else n
+                 for k, n in SCALES_TRAIN[key].items()}, cases,
                 () if four else ("fc_norm.",))
             del before
             time_step(torch, model, state, step, batches, card, what,
@@ -3276,6 +3488,200 @@ def trunk_trains_case(torch, port):
         max_abs_err=0.0, unchanged=same[:5])}
 
 
+def reg_grad_names(model):
+    """The R4r / R3r tensors whose card-vs-CPU gradients are compared:
+    grad_check_names' but the scale blocks' q/k norms (carried unapplied,
+    Q9: no gradient) and the patch blocks' k_norm bias (a constant shift of
+    every key adds the same score to each key of a query, which the
+    softmax cancels: its gradient is 0 analytically and rounding noise on
+    either device). -> (names, the ones printed but not held: the patch
+    blocks' other q/k norm tensors, which no kernel of the port touches.
+    Their gradients sum bf16-rounded terms of both signs over every row:
+    in a CPU rehearsal at C=128, depth 2, the port's own bf16 run on the
+    CPU sits 1e-2 to 8e-2 from its float32 run there, and the CPU tests
+    hold that route to the JAX package in float32.)"""
+    names = [n for n in grad_check_names(model)
+             if not ((".scale_blocks." in n and "_norm." in n)
+                     or n.endswith("k_norm.bias"))]
+    return names, [n for n in names if "_norm." in n]
+
+
+def reg_scales_phase(torch, port, fa, failures, card, cases):
+    """Phase 12: the regularised release DuoFormer R4r (4 scales, LayerScale
+    1e-5, attention and proj dropout rates 0.1: Q9 makes them the
+    attention-probability and MLP dropout and applies the patch blocks'
+    q/k norms) at full width, depth 12: served at B=64 in bf16 and trained
+    on the default routes at B=64 and the memory-lean ones at B=128; then
+    R3r (3 scales) at depth 2, one step. -> {path: launch counts}."""
+    from duoformer_tcga_tpu_torch import train as train_lib
+    from duoformer_tcga_tpu_torch.inference import Predictor
+    from duoformer_tcga_tpu_torch.models.duoformer import draw_seeds
+    lean = dict(mlp_save_hidden=False, attn_bwd_dw=True)
+    out = {}
+
+    def build(device, layers=4, depth=12):
+        return port.build_model_no_extra_params(
+            num_layers=layers, embed_dim=C, proj_dim=C, num_heads=HEADS,
+            depth=depth, device=device, seed=SEED, **R_REG)
+
+    # ---- serving: 3 forwards counted, embed() vs the CPU, tiles/s ----
+    what = "R4r bf16 serving"
+    t0 = time.perf_counter()
+    pred = Predictor(build("cuda"), dtype=torch.bfloat16)
+    rng = np.random.default_rng(SEED + 12)
+    batches = [rng.integers(0, 256, (B, 224, 224, 3), dtype=np.uint8)
+               for _ in range(3)]
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    outs = [pred(t) for t in batches]
+    torch.cuda.synchronize()
+    launches = dict(fa.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    out[f"{what} ({len(batches)} forwards)"] = launches
+    log(f"{what}: built in {time.perf_counter() - t0:.1f} s; 3 batches of "
+        f"{B}; launches {launches}; memory {resident / 2**30:.2f} GiB "
+        f"resident before the forwards, peak {peak / 2**30:.2f} GiB during "
+        f"them")
+    check_launches(failures, what, launches,
+                   {k: 3 * v for k, v in R4R_SERVE.items()}, cases)
+    for i, lg in enumerate(outs):
+        if tuple(lg.shape) != (B, 2) or not bool(torch.isfinite(lg).all()):
+            failures.append(f"{what} batch {i}: logits {tuple(lg.shape)}, "
+                            f"finite={bool(torch.isfinite(lg).all())}")
+    two = batches[0][:2]
+    g_logits, g_cls = pred.embed(two)
+    c_logits, c_cls = Predictor(build("cpu"), device="cpu",
+                                dtype=torch.float32).embed(two)
+    e_cls, e_logits = rel_err(g_cls, c_cls), rel_err(g_logits, c_logits)
+    log(f"{what}: embed vs CPU float32: rel L2 err cls {e_cls:.3e}, logits "
+        f"{e_logits:.3e} (tolerance {EMBED_REL_TOL})")
+    if not (e_cls <= EMBED_REL_TOL and e_logits <= EMBED_REL_TOL):
+        failures.append(f"{what}: embed vs CPU {e_cls:.3e} / {e_logits:.3e}")
+    stages = serve_stages(torch, pred, batches[0])
+    log(f"{what}: stages at B={B}: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in stages.items()))
+    dt, windows = serve_rates(torch, {what: pred}, batches[0])[what]
+    log(f"{what} throughput: {B / dt:.1f} tiles/s at B={B}, median of 7 "
+        f"windows of 5 forwards (least {B / max(windows):.1f}, greatest "
+        f"{B / min(windows):.1f}; forward {dt * 1e3:.2f} ms) on {card}")
+    del pred, outs
+    torch.cuda.empty_cache()
+
+    # ---- training: gradients on 2 tiles with the same seeds, card bf16 on
+    # both routes against the port's CPU float32 run (phase 4's bar) and
+    # lean against default on the card (phase 7's) ----
+    t0 = time.perf_counter()
+    model = build("cuda")
+    opt = train_lib.make_optimizer(
+        model, train_lib.onecycle_schedule(1e-4, 1000), weight_decay=1e-4,
+        frozen_label_fn=train_lib.backbone_frozen_labels)
+    state = train_lib.init_train_state(model, opt)
+    step = train_lib.make_train_step(model, dtype=torch.bfloat16)
+    trainable = {n for n, p in model.named_parameters() if p.requires_grad}
+    names, unheld = reg_grad_names(model)
+    seeds = draw_seeds(model.transformer.num_seeds(),
+                       torch.Generator().manual_seed(SEED))
+    grads = functools.partial(two_tile_grads, torch, names=names,
+                              image=batches[0][:2], seeds=seeds)
+    g_card = {"default": grads(model, device="cuda",
+                               dtype=torch.bfloat16)[0]}
+    train_lib.set_backward_routes(model, **lean)
+    g_card["lean"] = grads(model, device="cuda", dtype=torch.bfloat16)[0]
+    train_lib.set_backward_routes(model)
+    cpu_model = build("cpu")
+    train_lib.make_train_step(cpu_model, dtype=torch.float32)
+    g_cpu, _ = grads(cpu_model, device="cpu", dtype=torch.float32)
+    del cpu_model
+    errs = {r: {n: rel_err(g[n], g_cpu[n]) for n in names}
+            for r, g in g_card.items()}
+    route = {n: rel_err(g_card["lean"][n], g_card["default"][n])
+             for n in names}
+    log(f"R4r train: set up and gradients on 2 tiles, same seeds "
+        f"({time.perf_counter() - t0:.1f} s); rel L2 err card bf16 vs CPU "
+        f"float32 (default | lean routes, tolerance {GRAD_REL_TOL}) || lean "
+        f"vs default routes on the card (tolerance {LEAN_ROUTE_TOL}); the "
+        f"patch blocks' q/k norms printed, not held:")
+    for n in names:
+        log(f"  {n}: {errs['default'][n]:.3e} | {errs['lean'][n]:.3e} || "
+            f"{route[n]:.3e}" + (" (not held)" if n in unheld else ""))
+    for r, e in errs.items():
+        failures += [f"R4r {r} gradient of {n}: {v:.3e}"
+                     for n, v in e.items()
+                     if n not in unheld and not v <= GRAD_REL_TOL]
+    failures += [f"R4r gradient of {n} (lean vs default): {v:.3e}"
+                 for n, v in route.items()
+                 if n not in unheld and not v <= LEAN_ROUTE_TOL]
+    del g_card, g_cpu
+
+    # ---- 3 steps on each route, counted; tiles/s, split, memory ----
+    for name, routes, bsz in (("default", {}, B), ("lean", lean, B_TRAIN)):
+        what = f"R4r {name} train"
+        train_lib.set_backward_routes(model, **routes)
+        step = train_lib.make_train_step(model, dtype=torch.bfloat16,
+                                         **routes)
+        batches_t = [{"image": rng.integers(0, 256, (bsz, 224, 224, 3),
+                                            dtype=np.uint8),
+                      "label": rng.integers(0, 2, (bsz,))} for _ in range(3)]
+        before = {n: t.detach().clone() for n, t in model.state_dict().items()}
+        # the loss reaches neither the scale blocks' carried q/k norms nor
+        # fc_norm (Q9, Q7): the L2 term moves their ones, not their zeros
+        out[f"{what} (1 step)"] = three_steps(
+            torch, fa, failures, what, model, state, step, batches_t,
+            trainable, before, R4R_TRAIN[name], cases, ("_norm.bias",))
+        del before
+        time_step(torch, model, state, step, batches_t, card, what, 1)
+        del batches_t
+        torch.cuda.empty_cache()
+    del model, state, step
+    torch.cuda.empty_cache()
+
+    # ---- R3r at depth 2: one counted step, gradients vs the CPU ----
+    t0 = time.perf_counter()
+    model = build("cuda", 3, R3R_DEPTH)
+    opt = train_lib.make_optimizer(
+        model, train_lib.onecycle_schedule(1e-4, 1000), weight_decay=1e-4,
+        frozen_label_fn=train_lib.backbone_frozen_labels)
+    state = train_lib.init_train_state(model, opt)
+    step = train_lib.make_train_step(model, dtype=torch.bfloat16)
+    names, unheld = reg_grad_names(model)
+    seeds = draw_seeds(model.transformer.num_seeds(),
+                       torch.Generator().manual_seed(SEED))
+    grads = functools.partial(two_tile_grads, torch, names=names,
+                              image=two, seeds=seeds)
+    g_card, _ = grads(model, device="cuda", dtype=torch.bfloat16)
+    cpu_model = build("cpu", 3, R3R_DEPTH)
+    train_lib.make_train_step(cpu_model, dtype=torch.float32)
+    g_cpu, _ = grads(cpu_model, device="cpu", dtype=torch.float32)
+    del cpu_model
+    errs = {n: rel_err(g_card[n], g_cpu[n]) for n in names}
+    held = {n: e for n, e in errs.items() if n not in unheld}
+    worst = max(held, key=held.get)
+    log(f"R3r train (depth {R3R_DEPTH}): gradients on 2 tiles, same seeds, "
+        f"card bf16 vs CPU float32 ({time.perf_counter() - t0:.1f} s): "
+        f"worst {worst} {held[worst]:.3e} of {len(held)} tensors held "
+        f"(tolerance {GRAD_REL_TOL}); the patch blocks' q/k norms, not "
+        f"held: " + ", ".join(f"{n} {errs[n]:.3e}" for n in unheld))
+    failures += [f"R3r gradient of {n}: {v:.3e}" for n, v in held.items()
+                 if not v <= GRAD_REL_TOL]
+    batch = {"image": rng.integers(0, 256, (B, 224, 224, 3), dtype=np.uint8),
+             "label": rng.integers(0, 2, (B,))}
+    fa.reset_launch_counts()
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    launches = dict(fa.launch_counts)
+    log(f"R3r train: one step at B={B}, launches {launches}, loss "
+        f"{float(m['loss']):.4f}")
+    out["R3r train (1 step)"] = launches
+    check_launches(failures, "R3r train step", launches, R3R_TRAIN, cases)
+    if not np.isfinite(float(m["loss"])):
+        failures.append(f"R3r train loss {float(m['loss'])}")
+    del model, state, step
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3360,15 +3766,25 @@ def main() -> int:
         if not res["extra_bytes"] <= DW_EXTRA_BYTES:
             failures.append(f"{label} held {res['extra_bytes'] / 1e6:.1f} "
                             f"MB of scratch")
-    dw86 = cases["fused_attention_residual_bwd_s86_dw"]
-    log(f"the 86-token dw form's extra device memory at n_seg "
-        f"{B_TRAIN * 49}: {dw86['extra_bytes'] / 1e6:.1f} MB (bar "
-        f"{DW_EXTRA_BYTES / 1e6:.0f} MB), against "
-        f"{cases['fused_attention_residual_bwd_s86']['extra_bytes'] / 1e6:.1f}"
-        f" MB of row-space tensors and scratch on the dw=False route")
-    if not dw86["extra_bytes"] <= DW_EXTRA_BYTES:
-        failures.append(f"the 86-token dw form held "
-                        f"{dw86['extra_bytes'] / 1e6:.1f} MB of scratch")
+    for dw_form, label in (
+            ("fused_attention_residual_bwd_s86_dw",
+             "fused_attention_residual_bwd_s86"),
+            ("fused_attention_residual_bwd_s86_reg_dw",
+             "fused_attention_residual_bwd_s86_reg proj dropout + gamma (gm) "
+             "n_seg=3136"),
+            ("fused_attention_residual_bwd_s86_reg_dw proj dropout + gamma "
+             "n_seg=6272", None)):
+        dw86 = cases.get(dw_form) or others[dw_form]
+        rows = (cases.get(label) or others[label]) if label else None
+        log(f"the 86-token dw form's extra device memory ({dw_form}) at "
+            f"n_seg {B_TRAIN * 49}: {dw86['extra_bytes'] / 1e6:.1f} MB (bar "
+            f"{DW_EXTRA_BYTES / 1e6:.0f} MB)" + (
+                f", against {rows['extra_bytes'] / 1e6:.1f} MB of row-space "
+                f"tensors and scratch on the dw=False route ({label})"
+                if rows else ""))
+        if not dw86["extra_bytes"] <= DW_EXTRA_BYTES:
+            failures.append(f"{dw_form} held "
+                            f"{dw86['extra_bytes'] / 1e6:.1f} MB of scratch")
 
     log(f"at {time.perf_counter() - t_start:.0f} s")
     # ---- 3. the serving path ----
@@ -3467,6 +3883,11 @@ def main() -> int:
     log(f"at {time.perf_counter() - t_start:.0f} s")
     # ---- 11. the ResNetV2 hybrid baselines: serving and training ----
     hybrid_launches = hybrid_phase(torch, port, fa, failures, card, cases)
+    torch.cuda.empty_cache()
+
+    log(f"at {time.perf_counter() - t_start:.0f} s")
+    # ---- 12. the regularised release DuoFormer (R4r, R3r) ----
+    reg_launches = reg_scales_phase(torch, port, fa, failures, card, cases)
 
     paths = {f"serve ({len(batches)} forwards)": launches,
              "train (1 step)": train_launches,
@@ -3475,7 +3896,7 @@ def main() -> int:
              "legacy train (1 step)": legacy_train, **lean_launches,
              "block_diag_attention op (2 calls)": op_launches,
              **scales_launches, **scales_train_launches, **vit_launches,
-             **hybrid_launches}
+             **hybrid_launches, **reg_launches}
     idle = [name for name in cases
             if not any(v.get(name, 0) for v in paths.values())]
     if idle:

@@ -53,13 +53,15 @@ def build_model_no_extra_params(
     proj_drop_rate=0.0, freeze_backbone=True, backbone="r50",
     scale_token="random", patch_attn=True, remat=False,
     apply_fc_norm=False, fused_ln=False, dtype=torch.float32, device=None,
-    seed=0,
+    seed=0, init_values=None,
 ):
     """Release-variant DuoFormer (reference build_model_no_extra_params),
     initialised from torch.Generator(seed) on the CPU, in eval mode, moved
     to `device` (None -> the card) and cast to `dtype`. fused_ln: fc_norm
-    through the LayerNorm kernel (DUOFORMER_FUSED_LN=1). Options of the JAX
-    factory that this slice does not cover raise NotImplementedError."""
+    through the LayerNorm kernel (DUOFORMER_FUSED_LN=1). init_values:
+    LayerScale, as the JAX CLI's --model.init_values builds the release
+    family (config.py:36, 58-66). Options of the JAX factory that this
+    slice does not cover raise NotImplementedError."""
     if remat:
         raise NotImplementedError(
             "remat (activation rematerialization) is not ported to the "
@@ -72,8 +74,8 @@ def build_model_no_extra_params(
         attn_drop_rate=attn_drop_rate, proj_drop_rate=proj_drop_rate,
         proj_dim=proj_dim, freeze_backbone=freeze_backbone,
         backbone=backbone, scale_token=scale_token, patch_attn=patch_attn,
-        apply_fc_norm=apply_fc_norm, fused_ln=fused_ln,
-        generator=torch.Generator().manual_seed(seed))
+        init_values=init_values, apply_fc_norm=apply_fc_norm,
+        fused_ln=fused_ln, generator=torch.Generator().manual_seed(seed))
     return model.eval().to(device=device, dtype=dtype)
 
 

@@ -16,11 +16,15 @@
 // the per-chunk scratch, and attention_bwd_chain, the backward's chain
 // around an attention-core launch that the including file supplies. The
 // rounding points are the TPU kernel's (pallas_attention.py:791-918), as
-// set out in csrc/fused_attention_residual_bwd_s86.cu.
+// set out in csrc/fused_attention_residual_bwd_s86.cu. The chain takes the
+// reg form's flags (LayerScale gamma, the attention and proj dropout; the
+// 65..86-token chain only): per chunk geff and gm (csrc/reg_grad.cuh)
+// feed dattn and the dw form's dwA, the core regenerates the attention
+// masks, and dbproj sums the proj-masked g.
 
 #pragma once
 
-#include "tile_ops.cuh"
+#include "reg_grad.cuh"
 
 namespace {
 
@@ -253,7 +257,9 @@ __device__ __forceinline__ void store_strip_acc(
 // 6. The LN backward by rows: dx = 1/std (dxh - mean(dxh) - xhat
 // mean(dxh xhat)) [+ g], dxh = dln * lns (full form), or dln [+ g] (bare);
 // rounded once. part [blocks, 3C]: the block's column sums of dln * xhat,
-// dln (zeros in the bare form) and g.
+// dln (zeros in the bare form) and g, or with the proj dropout on the
+// float32 g * proj mask / keep (the residual adds raw g); the mask at the
+// global row grow0 + the chunk's row.
 // ---------------------------------------------------------------------------
 
 constexpr int RP_ROWS = 32;
@@ -264,7 +270,7 @@ ln_bwd_rows_kernel(const float* __restrict__ dln, const bf16* __restrict__ x,
                    const bf16* __restrict__ g, const float* __restrict__ lns,
                    const float* __restrict__ stats, bf16* __restrict__ dx,
                    float* __restrict__ part, int rows, int use_ln,
-                   int use_residual) {
+                   int use_residual, Drop pdrop, long grow0) {
   __shared__ float sRow[RP_ROWS][4];     // mean, 1/std, m1, m2
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long r0 = (long)blockIdx.x * RP_ROWS;
@@ -322,7 +328,9 @@ ln_bwd_rows_kernel(const float* __restrict__ dln, const bf16* __restrict__ x,
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         if (use_residual) out[e] += gg[e];
-        cs[2][e] += gg[e];
+        cs[2][e] += pdrop.on ? pdrop.apply(gg[e], (uint32_t)(grow0 + r0 + r),
+                                           c + e)
+                             : gg[e];
       }
       *reinterpret_cast<__nv_bfloat162*>(dx + off) =
           __floats2bfloat162_rn(out[0], out[1]);
@@ -476,15 +484,18 @@ __global__ void sum_rows_kernel(const float* __restrict__ part, int nb,
 
 // The per-chunk scratch of the backward, carved from one buffer (each piece
 // 256-byte aligned), for chunks of at most chunk_segs segments; dattn has
-// spare_rows rows past the chunk's last segment (never read). With base
+// spare_rows rows past the chunk's last segment (never read). geff: the
+// reg form's geff (gamma given or the proj dropout on); gm_rows: the dw
+// form's gm (the proj dropout on; dw=False writes the caller's). With base
 // null only the size is computed.
 struct Scratch {
-  bf16 *qkv, *dattn, *ln, *attn, *dqkv;
+  bf16 *qkv, *dattn, *ln, *attn, *dqkv, *geff, *gm;
   float *dln, *stats, *part_q, *part_r, *chunk_sums;
   size_t bytes;
 
   Scratch(char* base, int n_seg, int S, int C, bool dw, bool use_ln,
-          int chunk_segs, int spare_rows) {
+          int chunk_segs, int spare_rows, bool geff_rows = false,
+          bool gm_rows = false) {
     const int segs = n_seg < chunk_segs ? n_seg : chunk_segs;
     const long rows = (long)segs * S;
     const int nchunks = (n_seg + chunk_segs - 1) / chunk_segs;
@@ -502,12 +513,14 @@ struct Scratch {
     part_r = reinterpret_cast<float*>(
         take(4 * ((rows + RP_ROWS - 1) / RP_ROWS) * 3 * C));
     chunk_sums = reinterpret_cast<float*>(take(4 * (long)nchunks * 6 * C));
-    ln = attn = dqkv = nullptr;
+    ln = attn = dqkv = geff = gm = nullptr;
     if (dw) {
       if (use_ln) ln = reinterpret_cast<bf16*>(take(2 * rows * C));
       attn = reinterpret_cast<bf16*>(take(2 * rows * C));
       dqkv = reinterpret_cast<bf16*>(take(2 * rows * 3 * C));
+      if (gm_rows) gm = reinterpret_cast<bf16*>(take(2 * rows * C));
     }
+    if (geff_rows) geff = reinterpret_cast<bf16*>(take(2 * rows * C));
     bytes = off;
   }
 };
@@ -538,26 +551,44 @@ cudaError_t sum_rows(const float* part, int nb, int width, float* out_lo,
     if (e_ != cudaSuccess) return e_;       \
   } while (0)
 
+// The reg form's flags of a backward chain: gamma (LayerScale, or null),
+// the attention and proj dropout sites (off in the inert form), and gm,
+// the caller's [rows, C] proj-masked g (dw=False with the proj dropout on;
+// else null).
+struct ChainReg {
+  const float* gamma;
+  Drop adrop, pdrop;
+  bf16* gm;
+};
+
+constexpr ChainReg INERT{nullptr, Drop{0u, 0u, 1.f, 0}, Drop{0u, 0u, 1.f, 0},
+                         nullptr};
+
 // The attention branch's backward over chunks of chunk_segs segments (the
 // outputs and the dw form as launch_attention_bwd_s86 documents them):
-// per chunk LN, qkv = bf16(ln wqkv + bqkv), dattn = bf16(g wproj^T), the
-// attention core, dln = dqkv wqkv^T in float32, the LN backward by rows,
-// the dw form's products, and the chunk's fixed-order sums; then the
-// chunks' sums in order. core(qkv, dattn, attn, dqkv, part_q, segments,
-// stream) launches the attention core of one chunk: from its qkv [rows,
-// 3C] and dattn [rows, C], attn [rows, C] and dqkv [rows, 3C] out and each
-// segment's column sums of dq | dk | dv as one row of part_q [segments,
-// 3C].
+// per chunk LN, qkv = bf16(ln wqkv + bqkv), in the reg form geff and gm,
+// dattn = bf16(geff wproj^T) (g where the form is inert), the attention
+// core, dln = dqkv wqkv^T in float32, the LN backward by rows, the dw
+// form's products (dwA from gm, or g: the caller applies gamma), and the
+// chunk's fixed-order sums; then the chunks' sums in order. core(qkv,
+// dattn, attn, dqkv, part_q, segments, row0, adrop, stream) launches the
+// attention core of one chunk: from its qkv [rows, 3C] and dattn [rows,
+// C], attn [rows, C] and dqkv [rows, 3C] out and each segment's column
+// sums of dq | dk | dv as one row of part_q [segments, 3C]; row0 is the
+// chunk's first global row, where the attention dropout adrop (when on)
+// counts its tokens from.
 template <int C, class Core>
 cudaError_t attention_bwd_chain(
     const bf16* x, const bf16* g, const float* lns, const float* lnb,
     const bf16* wqkv, const float* bqkv, const bf16* wproj, bf16* dx,
     bf16* ln, bf16* attn, bf16* dqkv, float* sums, float* dwqkv, float* dwA,
     char* scratch, int n_seg, int S, int chunk_segs, int spare_rows,
-    float eps, int use_ln, int use_residual, Core core,
+    float eps, int use_ln, int use_residual, Core core, ChainReg reg,
     cudaStream_t stream) {
   const bool dw = dwqkv != nullptr;
-  const Scratch sc(scratch, n_seg, S, C, dw, use_ln, chunk_segs, spare_rows);
+  const bool geff = reg.gamma != nullptr || reg.pdrop.on;
+  const Scratch sc(scratch, n_seg, S, C, dw, use_ln, chunk_segs, spare_rows,
+                   geff, dw && reg.pdrop.on);
   CHAIN_CHECK(cudaFuncSetAttribute(
       wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)WGRAD_SMEM));
@@ -573,6 +604,16 @@ cudaError_t attention_bwd_chain(
     const bf16* ain = use_ln ? lnc : xc;  // the bare form's ln is x
     bf16* attnc = dw ? sc.attn : attn + r0 * C;
     bf16* dqkvc = dw ? sc.dqkv : dqkv + r0 * 3 * C;
+    // the cotangent proj's transpose takes (geff in the reg form), and
+    // dwA's (gm with the proj dropout on, else g: no gamma)
+    const bf16* gsrc = gc;
+    bf16* gmc = reg.pdrop.on ? (dw ? sc.gm : reg.gm + r0 * C) : nullptr;
+    if (geff) {
+      CHAIN_CHECK(launch_geff(gc, reg.gamma, reg.pdrop, sc.geff, gmc,
+                              (long)rows * C, C, r0, stream));
+      gsrc = sc.geff;
+    }
+    const bf16* gacc = gmc != nullptr ? gmc : gc;
     if (use_ln) {
       ln_kernel<C><<<(rows + 7) / 8, 256, 0, stream>>>(xc, lns, lnb, eps, lnc,
                                                         sc.stats, rows);
@@ -580,19 +621,20 @@ cudaError_t attention_bwd_chain(
     }
     CHAIN_CHECK((gemm<false, false>(ain, wqkv, bqkv, sc.qkv, rows, C, 3 * C,
                                     stream)));
-    CHAIN_CHECK((gemm<true, false>(gc, wproj, nullptr, sc.dattn, rows, C, C,
-                                   stream)));
-    CHAIN_CHECK(core(sc.qkv, sc.dattn, attnc, dqkvc, sc.part_q, ns, stream));
+    CHAIN_CHECK((gemm<true, false>(gsrc, wproj, nullptr, sc.dattn, rows, C,
+                                   C, stream)));
+    CHAIN_CHECK(core(sc.qkv, sc.dattn, attnc, dqkvc, sc.part_q, ns, r0,
+                     reg.adrop, stream));
     CHAIN_CHECK((gemm<true, true>(dqkvc, wqkv, nullptr, sc.dln, rows, 3 * C,
                                   C, stream)));
     const int rb = (rows + RP_ROWS - 1) / RP_ROWS;
     ln_bwd_rows_kernel<C><<<rb, 256, 0, stream>>>(
         sc.dln, xc, gc, lns, sc.stats, dx + r0 * C, sc.part_r, rows, use_ln,
-        use_residual);
+        use_residual, reg.pdrop, r0);
     CHAIN_CHECK(cudaGetLastError());
     if (dw) {
       const WgradProblem p0{ain, dqkvc, dwqkv, C, 3 * C};
-      const WgradProblem p1{attnc, gc, dwA, C, C};
+      const WgradProblem p1{attnc, gacc, dwA, C, C};
       const int tiles = (C / BM) * (3 * C / BN) + (C / BM) * (C / BN);
       wgrad_kernel<<<tiles, GEMM_THREADS, WGRAD_SMEM, stream>>>(p0, p1, rows);
       CHAIN_CHECK(cudaGetLastError());

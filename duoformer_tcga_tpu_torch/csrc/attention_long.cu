@@ -508,12 +508,13 @@ attention_long_bwd_core_kernel(const bf16* __restrict__ qkv,
   }
 }
 
-// The backward core of one chunk (attention_bwd_chain's core launch).
+// The backward core of one chunk (attention_bwd_chain's core launch; the
+// inert form only: the chain's row0 and dropout site go unused).
 struct LongCore {
   int H, S;
   float scale;
   cudaError_t operator()(const bf16* qkv, const bf16* dattn, bf16* attn,
-                         bf16* dqkv, float* part, int ns,
+                         bf16* dqkv, float* part, int ns, long, Drop,
                          cudaStream_t stream) const {
     const cudaError_t err = cudaFuncSetAttribute(
         attention_long_bwd_core_kernel,
@@ -537,7 +538,7 @@ cudaError_t launch_bwd(const bf16* x, const bf16* g, const float* lns,
                                 attn, dqkv, sums, dwqkv, dwA, scratch, n_seg,
                                 S, chunk_segs(n_seg, S), RTL, eps, use_ln,
                                 use_residual, LongCore{C / D, S, scale},
-                                stream);
+                                INERT, stream);
 }
 
 }  // namespace

@@ -23,7 +23,8 @@
 // (use_ln = use_residual = 0) in every PatchBlock at S=50.
 //
 // The reg instantiation (_far_reg_bwd, pallas_attention.py:809-822,
-// 848-870, 896-905), as runtime arguments: a first small kernel forms the
+// 848-870, 896-905), as runtime arguments: a first small kernel (geff_kernel,
+// csrc/reg_grad.cuh, which the 65..86-token chain shares) forms the
 // upstream gradient the branch saw, geff = bf16(bf16(g * proj mask / keep)
 // * gamma), and writes gm = bf16(g * proj mask / keep) when the proj
 // dropout is on; the main kernel streams geff where it streamed g, drops
@@ -112,7 +113,7 @@
 // kernel plus two large matmuls on this card. Wider row tiles in dw mode
 // (fewer additions per row) would cut it; they need more shared memory.
 
-#include "tile_ops.cuh"
+#include "reg_grad.cuh"
 
 namespace {
 
@@ -795,34 +796,6 @@ attention_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
   }
 }
 
-// The reg form's upstream gradients, elementwise over [rows, C] in bf16
-// pairs: gm = bf16(g * proj mask / keep) (written when the proj dropout is
-// on), geff = bf16(gm or g) times gamma (when given), rounded again.
-__global__ void geff_kernel(const bf16* __restrict__ g,
-                            const float* __restrict__ gamma, Drop pdrop,
-                            bf16* __restrict__ geff, bf16* __restrict__ gm,
-                            long n, int C) {
-  for (long i = 2 * ((long)blockIdx.x * blockDim.x + threadIdx.x); i < n;
-       i += 2L * gridDim.x * blockDim.x) {
-    const uint32_t row = (uint32_t)(i / C);
-    const int col = (int)(i % C);
-    float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-        g + i));
-    if (pdrop.on) {
-      const __nv_bfloat162 m = __floats2bfloat162_rn(
-          pdrop.apply(v.x, row, col), pdrop.apply(v.y, row, col + 1));
-      if (gm != nullptr) *reinterpret_cast<__nv_bfloat162*>(gm + i) = m;
-      v = __bfloat1622float2(m);
-    }
-    if (gamma != nullptr) {
-      v.x = __fmul_rn(v.x, gamma[col]);
-      v.y = __fmul_rn(v.y, gamma[col + 1]);
-    }
-    *reinterpret_cast<__nv_bfloat162*>(geff + i) =
-        __floats2bfloat162_rn(v.x, v.y);
-  }
-}
-
 // out[j] = sum over b < nb of part[b * width + j], in order of b.
 __global__ void sum_partials_kernel(const float* __restrict__ part, int nb,
                                     int width, float* __restrict__ out) {
@@ -854,12 +827,8 @@ cudaError_t launch(const bf16* x, const bf16* g, const float* lns,
   if (err != cudaSuccess) return err;
   const bf16* gsrc = g;
   if (gamma != nullptr || pdrop.on) {
-    const long n = (long)n_seg * S * C;
-    const long pairs = n / 2;
-    const int eb = (int)((pairs + 255) / 256 < 4096 ? (pairs + 255) / 256
-                                                     : 4096);
-    geff_kernel<<<eb, 256, 0, stream>>>(g, gamma, pdrop, geff, gm, n, C);
-    err = cudaGetLastError();
+    err = launch_geff(g, gamma, pdrop, geff, gm, (long)n_seg * S * C, C, 0,
+                      stream);
     if (err != cudaSuccess) return err;
     gsrc = geff;
   }

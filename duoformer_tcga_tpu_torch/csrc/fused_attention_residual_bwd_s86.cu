@@ -26,6 +26,19 @@
 // (use_ln = use_residual = 0). S <= 64 stays in
 // csrc/fused_attention_residual_bwd.cu.
 //
+// The reg instantiation (_far_reg_bwd, pallas_attention.py:809-822,
+// 848-870, 885-905), as runtime arguments of the same chain, for the
+// 4-scale release DuoFormer with LayerScale and dropout: per chunk,
+// geff_kernel (csrc/reg_grad.cuh) forms geff = bf16(bf16(g * proj mask /
+// keep) * gamma), which dattn takes instead of g, and gm = bf16(g * proj
+// mask / keep) (the ninth output with dw=False, per-chunk scratch in the
+// dw form, whose dwA = attn^T gm, or attn^T g without the proj dropout:
+// the caller applies gamma); the core regenerates the forward's attention
+// mask of each (segment, head) at the global token indices, drops the
+// bf16 p for o and for dv = p^T do, drops and rescales dp, and takes the
+// softmax Jacobian with the undropped float32 p; dbproj sums the float32
+// proj-masked g without gamma; the residual adds raw g.
+//
 // Rounding points are the TPU kernel's (pallas_attention.py:791-918): ln
 // in bf16; qkv in bf16 after its bias; p in float32 for the softmax
 // Jacobian and in bf16 for P.V and dv; each head's output o in bf16; each
@@ -113,16 +126,57 @@ constexpr int CHUNK_SEGS = 264;        // segments a chunk (2 x 132 SMs)
 // 4. The attention backward of one (segment, head).
 // ---------------------------------------------------------------------------
 
+// The keep bits of the attention mask over a warp's strip tile [16, RT]:
+// bit 4j + q for the accumulator element [j][q], which sits at strip row
+// r0 + g (+ 8 for q >= 2) and tile column 8j + 2t (+ 1). The mask is taken
+// at (query, key) in global token indices, tok0 + the segment's row: the
+// strip's rows are queries (keys with TRANSPOSED), its columns keys
+// (queries).
+template <bool TRANSPOSED>
+__device__ __forceinline__ unsigned long long strip_keep_bits(
+    const Drop& d, uint32_t tok0, int r0, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  unsigned long long bits = 0ull;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const uint32_t r = tok0 + r0 + g + 8 * (q >> 1);
+      const uint32_t c = tok0 + 8 * j + 2 * t + (q & 1);
+      if (keep_mask(d.seed_plus, TRANSPOSED ? c : r, TRANSPOSED ? r : c,
+                    d.thr))
+        bits |= 1ull << (4 * j + q);
+    }
+  return bits;
+}
+
+// v[j][q] dropped with the keep bits of strip_keep_bits, when d is on.
+__device__ __forceinline__ float kept(float v, unsigned long long bits,
+                                      int bit, const Drop& d) {
+  return !d.on ? v : ((bits >> bit) & 1ull) ? v * d.scale : 0.f;
+}
+
+__device__ __forceinline__ void drop_bits(float (&v)[NT][4],
+                                          unsigned long long bits,
+                                          const Drop& d) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) v[j][q] = kept(v[j][q], bits, 4 * j + q, d);
+}
+
 // One block per (segment, head): blockIdx.x = segment * H + head. qkv [rows,
 // 3C] and dattn [rows, C] of the chunk in; attn [rows, C] and dqkv [rows,
 // 3C] out; part [segments, 3C] the block's column sums of dq | dk | dv at
-// its head's columns. Warp w takes query strip w, then key strip w.
+// its head's columns. Warp w takes query strip w, then key strip w. grow0:
+// the chunk's first global row; adrop: the reg form's attention dropout
+// (its head salt added here; off in the inert form).
 __global__ void __launch_bounds__(CORE_THREADS, 2)
 attention_bwd_core_kernel(const bf16* __restrict__ qkv,
                           const bf16* __restrict__ dattn,
                           bf16* __restrict__ attn, bf16* __restrict__ dqkv,
                           float* __restrict__ part, int H, int S,
-                          float scale) {
+                          float scale, long grow0, Drop adrop) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sQKV = reinterpret_cast<bf16*>(smem);
   bf16* sDO = sQKV + RT * QKV_LD;
@@ -137,6 +191,9 @@ attention_bwd_core_kernel(const bf16* __restrict__ qkv,
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;   // mma fragment row / column pair
+  Drop hdrop = adrop;                      // head h's site
+  hdrop.seed_plus = site_seed(adrop.seed_plus, SITE_ATTN + 4 * h);
+  const uint32_t tok0 = (uint32_t)(grow0 + row0);   // the mask's counters
 
   // ---- the head's q | k | v and do; rows at or past S are zeros ----
   for (int i = threadIdx.x; i < RT * 3 * (D / 8); i += CORE_THREADS) {
@@ -207,8 +264,11 @@ attention_bwd_core_kernel(const bf16* __restrict__ qkv,
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int q = 0; q < 4; ++q) p[j][q] = p[j][q] / sum[q >> 1];
+    // the forward's mask of the strip (reg form)
+    const unsigned long long km =
+        hdrop.on ? strip_keep_bits<false>(hdrop, tok0, m * 16, lane) : 0ull;
 
-    // o = bf16(p) v, to attn
+    // o = bf16(drop(p)) v, to attn
     {
       float o[D / 8][4];
 #pragma unroll
@@ -218,10 +278,15 @@ attention_bwd_core_kernel(const bf16* __restrict__ qkv,
 #pragma unroll
       for (int kb = 0; kb < MT; ++kb) {
         unsigned a[4];
-        a[0] = pack_bf16(p[2 * kb][0], p[2 * kb][1]);
-        a[1] = pack_bf16(p[2 * kb][2], p[2 * kb][3]);
-        a[2] = pack_bf16(p[2 * kb + 1][0], p[2 * kb + 1][1]);
-        a[3] = pack_bf16(p[2 * kb + 1][2], p[2 * kb + 1][3]);
+        const int b0 = 8 * kb;   // keep bit of p[2kb][0]
+        a[0] = pack_bf16(kept(p[2 * kb][0], km, b0, hdrop),
+                         kept(p[2 * kb][1], km, b0 + 1, hdrop));
+        a[1] = pack_bf16(kept(p[2 * kb][2], km, b0 + 2, hdrop),
+                         kept(p[2 * kb][3], km, b0 + 3, hdrop));
+        a[2] = pack_bf16(kept(p[2 * kb + 1][0], km, b0 + 4, hdrop),
+                         kept(p[2 * kb + 1][1], km, b0 + 5, hdrop));
+        a[3] = pack_bf16(kept(p[2 * kb + 1][2], km, b0 + 6, hdrop),
+                         kept(p[2 * kb + 1][3], km, b0 + 7, hdrop));
 #pragma unroll
         for (int nt = 0; nt < D / 16; ++nt) {
           unsigned b[4];
@@ -251,6 +316,7 @@ attention_bwd_core_kernel(const bf16* __restrict__ qkv,
         mma16816(dp[2 * nt + 1], a, b[2], b[3]);
       }
     }
+    drop_bits(dp, km, hdrop);   // dp dropped and rescaled (reg form)
     float rs[2] = {0.f, 0.f};
 #pragma unroll
     for (int j = 0; j < NT; ++j)
@@ -330,7 +396,9 @@ attention_bwd_core_kernel(const bf16* __restrict__ qkv,
                                             sMax[qi])) / sSum[qi]
                            : 0.f;
       }
-    // dv = bf16(p)^T do
+    const unsigned long long kmt =
+        hdrop.on ? strip_keep_bits<true>(hdrop, tok0, kst * 16, lane) : 0ull;
+    // dv = bf16(drop(p))^T do
     {
       float dv[D / 8][4];
 #pragma unroll
@@ -340,10 +408,15 @@ attention_bwd_core_kernel(const bf16* __restrict__ qkv,
 #pragma unroll
       for (int kb = 0; kb < MT; ++kb) {
         unsigned a[4];
-        a[0] = pack_bf16(pt[2 * kb][0], pt[2 * kb][1]);
-        a[1] = pack_bf16(pt[2 * kb][2], pt[2 * kb][3]);
-        a[2] = pack_bf16(pt[2 * kb + 1][0], pt[2 * kb + 1][1]);
-        a[3] = pack_bf16(pt[2 * kb + 1][2], pt[2 * kb + 1][3]);
+        const int b0 = 8 * kb;
+        a[0] = pack_bf16(kept(pt[2 * kb][0], kmt, b0, hdrop),
+                         kept(pt[2 * kb][1], kmt, b0 + 1, hdrop));
+        a[1] = pack_bf16(kept(pt[2 * kb][2], kmt, b0 + 2, hdrop),
+                         kept(pt[2 * kb][3], kmt, b0 + 3, hdrop));
+        a[2] = pack_bf16(kept(pt[2 * kb + 1][0], kmt, b0 + 4, hdrop),
+                         kept(pt[2 * kb + 1][1], kmt, b0 + 5, hdrop));
+        a[3] = pack_bf16(kept(pt[2 * kb + 1][2], kmt, b0 + 6, hdrop),
+                         kept(pt[2 * kb + 1][3], kmt, b0 + 7, hdrop));
 #pragma unroll
         for (int nt = 0; nt < D / 16; ++nt) {
           unsigned b[4];
@@ -375,6 +448,7 @@ attention_bwd_core_kernel(const bf16* __restrict__ qkv,
           mma16816(dpt[2 * nt + 1], a, b[2], b[3]);
         }
       }
+      drop_bits(dpt, kmt, hdrop);
 #pragma unroll
       for (int kb = 0; kb < MT; ++kb)
 #pragma unroll
@@ -424,14 +498,14 @@ struct S86Core {
   int H, S;
   float scale;
   cudaError_t operator()(const bf16* qkv, const bf16* dattn, bf16* attn,
-                         bf16* dqkv, float* part, int ns,
-                         cudaStream_t stream) const {
+                         bf16* dqkv, float* part, int ns, long grow0,
+                         Drop adrop, cudaStream_t stream) const {
     const cudaError_t err = cudaFuncSetAttribute(
         attention_bwd_core_kernel,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)CORE_SMEM);
     if (err != cudaSuccess) return err;
     attention_bwd_core_kernel<<<ns * H, CORE_THREADS, CORE_SMEM, stream>>>(
-        qkv, dattn, attn, dqkv, part, H, S, scale);
+        qkv, dattn, attn, dqkv, part, H, S, scale, grow0, adrop);
     return cudaGetLastError();
   }
 };
@@ -442,33 +516,41 @@ cudaError_t launch(const bf16* x, const bf16* g, const float* lns,
                    const bf16* wproj, bf16* dx, bf16* ln, bf16* attn,
                    bf16* dqkv, float* sums, float* dwqkv, float* dwA,
                    char* scratch, int n_seg, int S, float scale, float eps,
-                   int use_ln, int use_residual, cudaStream_t stream) {
+                   int use_ln, int use_residual, ChainReg reg,
+                   cudaStream_t stream) {
   return attention_bwd_chain<C>(x, g, lns, lnb, wqkv, bqkv, wproj, dx, ln,
                                 attn, dqkv, sums, dwqkv, dwA, scratch, n_seg,
                                 S, CHUNK_SEGS, RT, eps, use_ln, use_residual,
-                                S86Core{C / D, S, scale}, stream);
+                                S86Core{C / D, S, scale}, reg, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// The bytes of scratch launch_attention_bwd_s86 needs.
+// The bytes of scratch launch_attention_bwd_s86 needs; geff: gamma given
+// or the proj dropout on; proj_drop: the proj dropout on.
 long long attention_bwd_s86_scratch_bytes(int n_seg, int S, int C, int dw,
-                                          int use_ln) {
+                                          int use_ln, int geff,
+                                          int proj_drop) {
   return (long long)Scratch(nullptr, n_seg, S, C, dw != 0, use_ln != 0,
-                            CHUNK_SEGS, RT).bytes;
+                            CHUNK_SEGS, RT, geff != 0,
+                            dw != 0 && proj_drop != 0).bytes;
 }
 
 // Returns the first cudaGetLastError() of the chain (0 on success).
 // Arguments are checked by the Python wrapper: S in 65..86 (the kernels
 // take 1..96), C = 64 * num_heads with C in {256, 512, 768}, n_seg >= 1,
 // every pointer 32-byte aligned. ln is null in the bare form; sums is
-// float32 [6C]: dlns | dlnb | dbqkv (3C) | dbproj. The dw form: dwqkv
-// float32 [C, 3C] and dwA float32 [C, C], zeroed by the caller, both given
-// (else both null); ln, attn and dqkv are then null. scratch: a device
-// buffer of attention_bwd_s86_scratch_bytes(n_seg, S, C, dw, use_ln),
-// 256-byte aligned.
+// float32 [6C]: dlns | dlnb | dbqkv (3C) | dbproj (with the proj dropout
+// on, the sum of the float32 proj-masked g). The dw form: dwqkv float32
+// [C, 3C] and dwA float32 [C, C], zeroed by the caller, both given (else
+// both null); ln, attn, dqkv and gm are then null. The reg form: gamma
+// float32 [C] or null; gm bf16 [rows, C], written when the proj dropout is
+// on with dw=False (else null); seed, the thresholds (< 0: off) and keep
+// scales of the two dropout sites, as the forward took them. scratch: a
+// device buffer of attention_bwd_s86_scratch_bytes(n_seg, S, C, dw,
+// use_ln, gamma or the proj dropout, the proj dropout), 256-byte aligned.
 int launch_attention_bwd_s86(const void* x, const void* g, const void* lns,
                              const void* lnb, const void* wqkv,
                              const void* bqkv, const void* wproj, void* dx,
@@ -476,19 +558,26 @@ int launch_attention_bwd_s86(const void* x, const void* g, const void* lns,
                              void* dwqkv, void* dwA, void* scratch,
                              int n_seg, int S, int C, int num_heads,
                              float scale, float eps, int use_ln,
-                             int use_residual, void* stream) {
+                             int use_residual, const void* gamma, void* gm,
+                             int seed, int attn_thr, float attn_scale,
+                             int proj_thr, float proj_scale, void* stream) {
   const bool dw = dwqkv != nullptr;
+  const ChainReg reg{(const float*)gamma,
+                     make_drop(seed, SITE_ATTN, attn_thr, attn_scale),
+                     make_drop(seed, SITE_PROJ, proj_thr, proj_scale),
+                     (bf16*)gm};
   if (S < 1 || S > RT || C != num_heads * D || n_seg < 1 ||
       (dwqkv == nullptr) != (dwA == nullptr) ||
       (!dw && (attn == nullptr || dqkv == nullptr ||
-               (use_ln && ln == nullptr))))
+               (use_ln && ln == nullptr))) ||
+      (!dw && reg.pdrop.on) != (gm != nullptr))
     return (int)cudaErrorInvalidValue;
 #define ARGS                                                                 \
   (const bf16*)x, (const bf16*)g, (const float*)lns, (const float*)lnb,     \
       (const bf16*)wqkv, (const float*)bqkv, (const bf16*)wproj, (bf16*)dx, \
       (bf16*)ln, (bf16*)attn, (bf16*)dqkv, (float*)sums, (float*)dwqkv,     \
       (float*)dwA, (char*)scratch, n_seg, S, scale, eps, use_ln,            \
-      use_residual, (cudaStream_t)stream
+      use_residual, reg, (cudaStream_t)stream
   switch (C) {
     case 256: return (int)launch<256>(ARGS);
     case 512: return (int)launch<512>(ARGS);

@@ -17,6 +17,17 @@
 // (fea_dim 86) and the bare form (use_ln = use_residual = 0). The S <= 64
 // forms stay in csrc/fused_attention_residual.cu.
 //
+// The reg instantiation at 65..86 tokens (fused_attention_residual_reg,
+// pallas_attention.py:1202), as runtime arguments: the core drops each
+// head's float32 probabilities before their bf16 cast (site 4h at the
+// global token indices segment * S + t, :378-383; csrc/strip_attention
+// .cuh), and the proj's epilogue takes bias, then the proj dropout at the
+// global row and column, then gamma, then the residual, accumulated in
+// float32 and cast once (:428-439). The 4-scale release DuoFormer with
+// LayerScale and dropout runs it in every ScaleBlock: the core with the
+// attention dropout in training, the proj with gamma (Q9: its dropout is
+// 0 there; the flag is held by kernel cases alone).
+//
 // Rounding points are the TPU kernel's: LN output cast to bf16, qkv cast
 // after its bias, softmax probabilities cast to bf16, each head's output
 // cast to bf16 (so writing o to device memory between the two launches
@@ -108,7 +119,7 @@ attention_core_s86_kernel(const bf16* __restrict__ x,
                           const bf16* __restrict__ wqkv,
                           const float* __restrict__ bqkv,
                           bf16* __restrict__ o, int S, float scale,
-                          float eps, int use_ln) {
+                          float eps, int use_ln, Drop adrop) {
   typedef CoreShape<C> Sh;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sLN = reinterpret_cast<bf16*>(smem);
@@ -119,6 +130,8 @@ attention_core_s86_kernel(const bf16* __restrict__ x,
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;   // mma fragment row / column pair
   const long row0 = (long)blockIdx.x * S;  // the block's segment
+  // the dropout counters' global token index of row 0
+  const uint32_t tok0 = (uint32_t)blockIdx.x * (uint32_t)S;
 
   constexpr int total = Sh::H * Sh::QSLABS;
   load_qslab<C>(stage0, 0, 0, wqkv);
@@ -185,7 +198,9 @@ attention_core_s86_kernel(const bf16* __restrict__ x,
       __syncthreads();
       // ---- 3. attention of head h: one query strip a warp ----
       if (warp < MT && warp * 16 < S) {
-        strip_attention<RT>(sQKV, QKV_LD, warp, S, scale, lane);
+        Drop hdrop = adrop;                // head h's site
+        hdrop.seed_plus = site_seed(adrop.seed_plus, SITE_ATTN + 4 * h);
+        strip_attention<RT>(sQKV, QKV_LD, warp, S, scale, lane, hdrop, tok0);
         store_strip(sQKV, QKV_LD, warp, S, o, row0, C, h * D, lane);
       }
     }
@@ -193,7 +208,7 @@ attention_core_s86_kernel(const bf16* __restrict__ x,
   }
 }
 
-// ---- the proj: y = o wproj + bproj [+ x] ----
+// ---- the proj: y = [x +] gamma * drop(o wproj + bproj) ----
 
 constexpr int BM = 128, BN = 128, BK = 64, STAGES = 3;
 constexpr int A_LD = BK + 8;
@@ -227,7 +242,8 @@ attention_proj_kernel(const bf16* __restrict__ o,
                       const bf16* __restrict__ wproj,
                       const float* __restrict__ bproj,
                       bf16* __restrict__ out, int R, int C,
-                      int use_residual) {
+                      int use_residual, const float* __restrict__ gamma,
+                      Drop pdrop) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sA = reinterpret_cast<bf16*>(smem);
   bf16* sB = sA + STAGES * A_STAGE;
@@ -283,7 +299,8 @@ attention_proj_kernel(const bf16* __restrict__ o,
     }
   }
 
-  // ---- epilogue: + bproj [+ x] in float32, one cast, live rows only ----
+  // ---- epilogue: + bproj (, proj dropout at the global row and column,
+  // * gamma) [+ x] in float32, one cast, live rows only ----
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
     const int col = cbase + wn * 64 + n * 8 + 2 * t;
@@ -296,6 +313,14 @@ attention_proj_kernel(const bf16* __restrict__ o,
         if (row >= R) continue;
         float y0 = acc[mi][n][2 * hr] + bb0, y1 = acc[mi][n][2 * hr + 1] + bb1;
         const long off = row * C + col;
+        if (pdrop.on) {
+          y0 = pdrop.apply(y0, (uint32_t)row, col);
+          y1 = pdrop.apply(y1, (uint32_t)row, col + 1);
+        }
+        if (gamma != nullptr) {
+          y0 = __fmul_rn(y0, gamma[col]);
+          y1 = __fmul_rn(y1, gamma[col + 1]);
+        }
         if (use_residual) {
           const float2 r2 = __bfloat1622float2(
               *reinterpret_cast<const __nv_bfloat162*>(x + off));
@@ -312,14 +337,14 @@ template <int C>
 cudaError_t launch_core(const bf16* x, const float* lns, const float* lnb,
                         const bf16* wqkv, const float* bqkv, bf16* o,
                         int n_seg, int S, float scale, float eps, int use_ln,
-                        cudaStream_t stream) {
+                        Drop adrop, cudaStream_t stream) {
   constexpr size_t smem = CoreShape<C>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
       attention_core_s86_kernel<C>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   attention_core_s86_kernel<C><<<n_seg, THREADS, smem, stream>>>(
-      x, lns, lnb, wqkv, bqkv, o, S, scale, eps, use_ln);
+      x, lns, lnb, wqkv, bqkv, o, S, scale, eps, use_ln, adrop);
   return cudaGetLastError();
 }
 
@@ -330,17 +355,19 @@ extern "C" {
 // The core: o [n_seg * S, C] from x [n_seg, S, C]. Returns the launch's
 // cudaGetLastError() (0 on success). Arguments are checked by the Python
 // wrapper: S in 65..86 (the kernel takes 1..96), C = 64 * num_heads with C
-// in {256, 512, 768}, every pointer 32-byte aligned.
+// in {256, 512, 768}, every pointer 32-byte aligned. seed, attn_thr,
+// attn_scale: the reg form's attention dropout (attn_thr < 0: off).
 int launch_attention_core_s86(const void* x, const void* lns,
                               const void* lnb, const void* wqkv,
                               const void* bqkv, void* o, int n_seg, int S,
                               int C, int num_heads, float scale, float eps,
-                              int use_ln, void* stream) {
+                              int use_ln, int seed, int attn_thr,
+                              float attn_scale, void* stream) {
   if (S < 1 || S > RT || C != num_heads * D) return (int)cudaErrorInvalidValue;
 #define ARGS                                                                \
   (const bf16*)x, (const float*)lns, (const float*)lnb, (const bf16*)wqkv, \
       (const float*)bqkv, (bf16*)o, n_seg, S, scale, eps, use_ln,          \
-      (cudaStream_t)stream
+      make_drop(seed, SITE_ATTN, attn_thr, attn_scale), (cudaStream_t)stream
   switch (C) {
     case 256: return (int)launch_core<256>(ARGS);
     case 512: return (int)launch_core<512>(ARGS);
@@ -350,10 +377,13 @@ int launch_attention_core_s86(const void* x, const void* lns,
 #undef ARGS
 }
 
-// The proj: out [rows, C] = o wproj + bproj [+ x]. C a multiple of 128.
+// The proj: out [rows, C] = [x +] gamma * drop(o wproj + bproj). C a
+// multiple of 128. gamma float32 [C] or null; seed, proj_thr, proj_scale:
+// the reg form's proj dropout (proj_thr < 0: off).
 int launch_attention_proj(const void* o, const void* x, const void* wproj,
                           const void* bproj, void* out, int rows, int C,
-                          int use_residual, void* stream) {
+                          int use_residual, const void* gamma, int seed,
+                          int proj_thr, float proj_scale, void* stream) {
   if (rows < 1 || C % BN != 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       attention_proj_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -363,7 +393,8 @@ int launch_attention_proj(const void* o, const void* x, const void* wproj,
   attention_proj_kernel<<<(unsigned)blocks, THREADS, PROJ_SMEM,
                           (cudaStream_t)stream>>>(
       (const bf16*)o, (const bf16*)x, (const bf16*)wproj,
-      (const float*)bproj, (bf16*)out, rows, C, use_residual);
+      (const float*)bproj, (bf16*)out, rows, C, use_residual,
+      (const float*)gamma, make_drop(seed, SITE_PROJ, proj_thr, proj_scale));
   return (int)cudaGetLastError();
 }
 

@@ -96,11 +96,11 @@ def draw_seeds(n, generator=None) -> list:
 class DuoFormer(_PyramidModel):
     """Release-variant DuoFormer (MyModel_no_extra_params twin), at 2, 3
     or 4 scales (num_layers; 6, 22 or 86 tokens a region). What the
-    port does not cover raises NotImplementedError: q/k norms applied in
-    the patch blocks (attn_drop_rate > 0, quirk Q9), r18, 1 scale,
-    LayerScale (init_values) at 3 and 4 scales (the reg forms stop at 64
-    tokens a segment), and training with an unfrozen backbone (batch-stat
-    BN). proj_drop_rate and init_values train through the reg kernels."""
+    port does not cover raises NotImplementedError: r18, 1 scale, and
+    training with an unfrozen backbone (batch-stat BN). proj_drop_rate
+    and init_values train through the reg kernels at every scale;
+    attn_drop_rate > 0 creates q/k norms, which the patch blocks apply
+    outside the kernels (quirk Q9, models/transformer.py)."""
 
     def __init__(self, depth=12, embed_dim=768, num_heads=12, num_classes=2,
                  num_layers=2, num_patches=49, mlp_ratio=4.0,
@@ -113,13 +113,9 @@ class DuoFormer(_PyramidModel):
             raise ValueError(f"scale_token must be 'random' or 'channel', "
                              f"got {scale_token}")
         unported = [
-            (attn_drop_rate > 0.0, "attn_drop_rate > 0 (q/k norms applied "
-                                   "by the patch blocks, Q9)"),
             (backbone not in ("r50", "r50_Swav"), f"backbone {backbone!r}"),
             (num_layers not in (2, 3, 4),
              f"num_layers={num_layers} (2, 3 or 4 scales)"),
-            (num_layers > 2 and init_values is not None,
-             f"init_values (LayerScale) at num_layers={num_layers}"),
         ]
         for hit, what in unported:
             if hit:
@@ -150,7 +146,8 @@ class DuoFormer(_PyramidModel):
             num_classes=num_classes, num_patches=num_patches,
             patch_attn=patch_attn, apply_fc_norm=apply_fc_norm,
             proj_drop_rate=proj_drop_rate, init_values=init_values,
-            fused_ln=fused_ln, generator=generator)
+            fused_ln=fused_ln, generator=generator,
+            attn_drop_rate=attn_drop_rate)
         if scale_token == "random":
             # learned (1,1,1,proj_dim) token, normal std 0.036
             # (model_wo_extra_params.py:77-79)

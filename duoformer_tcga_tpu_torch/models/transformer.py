@@ -9,14 +9,17 @@ Every ScaleBlock runs the two fused kernels (attention branch, then MLP
 branch); every PatchBlock runs the bare form of the attention kernel. Both
 go through the kernels' autograd functions, so the same forward trains.
 At 4 scales (S = 86 tokens a region) the attention branch runs its
-86-token kernels, inert or int8 (the backward inert, in both forms): the
-reg forms raise NotImplementedError beyond 64 tokens
-(ops/fused_attention.py).
+86-token kernels, inert, reg or int8, and its backward (both forms, inert
+or reg).
 A block with LayerScale (ls1, ls2) or an active dropout runs the reg forms
 instead (ops/fused_reg.py, transformer.py:277-327), as every block of the
-legacy family does. A model quantized by ops/quantize.quantize_model_
-(QuantLinear qkv, proj, fc1, fc2) runs the int8 forms of both kernels
-instead, serving only.
+legacy family does. A release model with attn_drop_rate > 0 (quirk Q9)
+creates q/k norms in every ScaleBlock and PatchBlock: the ScaleBlocks
+carry them unapplied and stay on the kernels; the PatchBlocks apply them
+and leave the kernels for the JAX package's XLA route in plain PyTorch
+(ops/attention.qk_norm_attention, transformer.py:342-352). A model
+quantized by ops/quantize.quantize_model_ (QuantLinear qkv, proj, fc1,
+fc2) runs the int8 forms of both kernels instead, serving only.
 
 Dropout seeds. A core's forward takes an optional list of int32 seeds, one
 per dropout call, in one order: for each scale block i, (attention i,
@@ -45,8 +48,10 @@ Reference quirks kept:
   * Scale = head_dim ** -0.5 in both stacks (the release family).
   * Q6 (fixed in the JAX package too): num_scale_tokens counts 1 + 4^i.
   * Q9: the release family's dropout rates are shifted (attention
-    probabilities and MLP at proj_drop_rate, attention proj at 0); the
-    legacy blocks' attn2 carries q/k norms that no forward applies.
+    probabilities and MLP at proj_drop_rate, attention proj at 0), and
+    attn_drop_rate > 0 only creates q/k norms (applied by the PatchBlocks
+    alone); the legacy blocks' attn2 carries q/k norms that no forward
+    applies.
   * Q4, Q12, Q13 (legacy): the region pass runs block 0, then block
     depth-1 on block 0's output; both passes scale by 2 * dim ** -0.5;
     the logits are squeezed.
@@ -91,18 +96,20 @@ class ScaleBlock(nn.Module):
     LayerScale ls1, ls2; attn_drop, proj_drop, mlp_drop: the dropout
     rates of the attention probabilities, the attention proj output and
     the MLP (its hidden and output); scale: the attention scale (None:
-    head_dim ** -0.5)."""
+    head_dim ** -0.5); qk_norm: q/k norms carried unapplied (the release
+    family's Q9, scale_attention.py:28-45)."""
 
     def __init__(self, dim, num_heads, mlp_ratio=4.0, qkv_bias=True,
                  ln_eps=1e-6, generator=None, init_values=None,
-                 attn_drop=0.0, proj_drop=0.0, mlp_drop=0.0, scale=None):
+                 attn_drop=0.0, proj_drop=0.0, mlp_drop=0.0, scale=None,
+                 qk_norm=False):
         super().__init__()
         self.num_heads = num_heads
         self.ln_eps = ln_eps
         self.rates = (attn_drop, proj_drop, mlp_drop)
         self.scale = scale
         self.norm1 = ops.LayerNorm(dim, ln_eps)
-        self.attn = Attention(dim, num_heads, qkv_bias, generator)
+        self.attn = Attention(dim, num_heads, qkv_bias, generator, qk_norm)
         self.norm2 = ops.LayerNorm(dim, ln_eps)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), generator)
         self.mlp_save_hidden = True          # backward routes (see module)
@@ -170,15 +177,16 @@ class ScaleBlock(nn.Module):
 
 class PatchBlock(nn.Module):
     """Bare attention, no residual and no MLP (scale_attention.py:214-236);
-    attn_drop: the dropout rate of its probabilities."""
+    attn_drop: the dropout rate of its probabilities; qk_norm: q/k norms,
+    applied (AttentionForPatch, scale_attention.py:201)."""
 
     def __init__(self, dim, num_heads, qkv_bias=True, generator=None,
-                 attn_drop=0.0):
+                 attn_drop=0.0, qk_norm=False):
         super().__init__()
         self.num_heads = num_heads
         self.attn_drop = attn_drop
         self.attn_bwd_dw = False             # backward route (see module)
-        self.attn = Attention(dim, num_heads, qkv_bias, generator)
+        self.attn = Attention(dim, num_heads, qkv_bias, generator, qk_norm)
 
     def forward(self, x, seed=None):
         return multihead_attention(self.attn, x, self.num_heads,
@@ -192,13 +200,14 @@ class MultiscaleFormer(nn.Module):
     PatchBlocks over [B, 50, C]; the head on the un-normalised CLS (Q7).
     patch_attn=False classifies from the mean of the per-region scale
     tokens instead (the JAX package's extension). fused_ln: fc_norm
-    through the LayerNorm kernel."""
+    through the LayerNorm kernel. attn_drop_rate > 0 creates q/k norms in
+    every block (Q9)."""
 
     def __init__(self, depth=12, scales=2, num_heads=12, embed_dim=768,
                  mlp_ratio=4.0, qkv_bias=True, num_classes=100,
                  num_patches=49, patch_attn=True, ln_eps=1e-6,
                  apply_fc_norm=False, proj_drop_rate=0.0, init_values=None,
-                 fused_ln=False, generator=None):
+                 fused_ln=False, generator=None, attn_drop_rate=0.0):
         super().__init__()
         self.num_heads = num_heads
         self.embed_dim = embed_dim
@@ -207,16 +216,18 @@ class MultiscaleFormer(nn.Module):
         self.apply_fc_norm = apply_fc_norm
         self.fea_dim = num_scale_tokens(scales)
         self.has_dropout = proj_drop_rate > 0.0
+        # Q9 creation rule (transformer.py:462-464)
+        self.qk_norm = attn_drop_rate > 0.0
         g = generator
         # Q9 effective rates (transformer.py:529-536, 574-583)
         self.scale_blocks = nn.ModuleList(
             ScaleBlock(embed_dim, num_heads, mlp_ratio, qkv_bias, ln_eps, g,
                        init_values, attn_drop=proj_drop_rate,
-                       mlp_drop=proj_drop_rate)
+                       mlp_drop=proj_drop_rate, qk_norm=self.qk_norm)
             for _ in range(depth))
         self.patch_blocks = nn.ModuleList(
             PatchBlock(embed_dim, num_heads, qkv_bias, g,
-                       attn_drop=proj_drop_rate)
+                       attn_drop=proj_drop_rate, qk_norm=self.qk_norm)
             for _ in range(depth))
         # trunc_normal / normal std 0.036 (scale_attention.py:324-326)
         self.pos_embed_for_scale = nn.Parameter(init.trunc_normal(
@@ -348,7 +359,8 @@ class MultiscaleTransformer(nn.Module):
                                    scale=self.attn_scale,
                                    attn_drop=self.drop_rate,
                                    seed=seed if self.training else None,
-                                   bwd_dw=blk.attn_bwd_dw)
+                                   bwd_dw=blk.attn_bwd_dw,
+                                   apply_qk_norm=False)
 
     def cls_embedding(self, x, seeds=None):
         """Scale-stack output -> the post-norm CLS the head reads [B, C]

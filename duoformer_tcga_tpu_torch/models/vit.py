@@ -42,7 +42,7 @@ class VisionTransformer(nn.Module):
         """The JAX constructor's arguments, and fused_ln (the final norm
         through the LayerNorm kernel). LayerScale and dropout (no
         baseline uses them) raise NotImplementedError: at 197 tokens they
-        need the reg forms past 64 tokens, which are not ported."""
+        need the reg forms past 86 tokens, which are not ported."""
         super().__init__()
         if img_size % patch_size:
             raise ValueError(f"img_size {img_size} is not a multiple of "

@@ -7,8 +7,9 @@ and the drop_ew kernel are in ops/fused_reg.py).
   fused_attention_residual: y = [x +] proj(block-diag attn(qkv([LN] x)))
     kernel: csrc/fused_attention_residual.cu (seg_len <= 64); for 65 to 86
     tokens (the 4-scale model's 86) two launches, attention_core_s86 (o =
-    block-diag attn(qkv([LN] x))) and attention_proj (y = [x +] proj(o)),
-    kernels: csrc/fused_attention_residual_s86.cu; for 87 to 197 (the ViT's
+    block-diag attn(qkv([LN] x)), with the attention dropout) and
+    attention_proj (y = [x +] gamma * drop(proj(o))), kernels:
+    csrc/fused_attention_residual_s86.cu; for 87 to 197 (the ViT's
     197) attention_core_long (a chain over chunks of segments: LN, the qkv
     product, the attention core; csrc/attention_long.cu) and
     attention_proj
@@ -58,10 +59,13 @@ where).
 
 The reg forms (pallas_attention.py:1119-1281, 1894-1946) are the same
 kernels with runtime flags: gamma (LayerScale, float32 [C]) and an int32
-dropout seed with its rates. Their masks are ops/dropout.py's, which the
-kernels compute with the same hash (csrc/dropout_hash.cuh); a wrapper
-given gamma or a dropout rate counts its launch under the form's "_reg"
-name.
+dropout seed with its rates, up to ATTN_SERVE_MAX_SEG_LEN tokens a segment
+for the attention branch and its backward (at 65..86 the core takes the
+attention dropout, the proj gamma and the proj dropout, and the backward
+chain all three). Their masks are ops/dropout.py's, which the kernels
+compute with the same hash (csrc/dropout_hash.cuh); a wrapper given gamma
+or a dropout rate counts its launch under the form's "_reg" name (the
+65..86-token core only for the attention dropout, which is all it takes).
 """
 
 from __future__ import annotations
@@ -78,8 +82,8 @@ from .nn import layernorm
 
 ATTN_MAX_SEG_LEN = 64         # a block holds at most 64 rows (csrc note)
 # the forward, bf16 and int8, and the backward in both forms also take
-# 65..86 tokens (one 96-row block a segment, csrc/*_s86.cu); the reg flags
-# stop at ATTN_MAX_SEG_LEN
+# 65..86 tokens (one 96-row block a segment, csrc/*_s86.cu); so do the reg
+# flags, which stop there
 ATTN_SERVE_MAX_SEG_LEN = 86
 # the bf16 forward, the backward in both forms and block_diag_attention
 # take up to 197 tokens (ViT-B/16 at 224^2: 196 patches + CLS;
@@ -222,7 +226,7 @@ def fused_attention_residual_bwd_plain(x, g, ln_scale, ln_bias, wqkv, bqkv,
                                        ln_eps=1e-6, use_ln=True,
                                        use_residual=True, gamma=None, seed=0,
                                        attn_drop=0.0, proj_drop=0.0,
-                                       dw=False):
+                                       dw=False, seg0=0):
     """Plain twin of the attention backward kernel
     (_fused_block_bwd_kernel, dw=False, pallas_attention.py:723-918). x, g
     [n_seg, seg_len, C] -> (dx [n_seg, seg_len, C], ln [rows, C], attn
@@ -241,7 +245,10 @@ def fused_attention_residual_bwd_plain(x, g, ln_scale, ln_bias, wqkv, bqkv,
     dw=True (the dw form, :885-895, 932-934): (dx, dlns, dlnb, dbqkv,
     dbproj, dwqkv, dwA) instead, dwqkv = ln^T dqkv [C, 3C] and dwA =
     attn^T (gm if proj_drop > 0 else g) [C, C], float32 sums of the
-    rounded operands."""
+    rounded operands.
+
+    seg0: the global index of x's first segment, where the masks count
+    from (a caller that runs this over chunks of segments; 0 otherwise)."""
     n_seg, S, C = x.shape
     if S != seg_len:
         raise ValueError(f"x has {S} tokens per segment, seg_len={seg_len}")
@@ -254,7 +261,8 @@ def fused_attention_residual_bwd_plain(x, g, ln_scale, ln_bias, wqkv, bqkv,
     geff = g2
     if proj_drop > 0.0:
         gsum = dr.drop(gsum, dr.row_keep_mask(rows, C, seed, dr._SITE_PROJ,
-                                              proj_drop, x.device), proj_drop)
+                                              proj_drop, x.device,
+                                              seg0 * S), proj_drop)
         geff = gm = gsum.to(dt)
     if gamma is not None:
         geff = (geff.float() * gamma.float()).to(dt)
@@ -268,7 +276,8 @@ def fused_attention_residual_bwd_plain(x, g, ln_scale, ln_bias, wqkv, bqkv,
                qkv.view(n_seg, S, 3, H, D).permute(2, 0, 3, 1, 4))
     p = torch.softmax(torch.matmul(q, k.transpose(-1, -2)) * scale, dim=-1)
     if attn_drop > 0.0:
-        km = dr.attn_keep_masks(n_seg, S, H, seed, attn_drop, x.device)
+        km = dr.attn_keep_masks(n_seg, S, H, seed, attn_drop, x.device,
+                                seg0)
         pb = dr.drop(p, km, attn_drop).to(dt).float()
     else:
         pb = p.to(dt).float()
@@ -398,10 +407,10 @@ def _reg_name(name, gamma, *rates):
         r > 0.0 for r in rates) else name
 
 
-def refuse_long_segments(what, seg_len, limit=ATTN_MAX_SEG_LEN):
+def refuse_long_segments(what, seg_len, limit=ATTN_SERVE_MAX_SEG_LEN):
     """What runs only up to `limit` tokens a segment raises beyond it, on
-    either device: the reg flags past ATTN_MAX_SEG_LEN; the bf16 forward,
-    the backward (both forms) and block_diag_attention past
+    either device: the reg flags past ATTN_SERVE_MAX_SEG_LEN; the bf16
+    forward, the backward (both forms) and block_diag_attention past
     ATTN_LONG_MAX_SEG_LEN."""
     if seg_len > limit:
         raise NotImplementedError(
@@ -441,7 +450,7 @@ def fused_attention_residual(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
     attention_core_long and attention_proj). gamma, seed, attn_drop,
     proj_drop: the reg form's LayerScale and dropout
     (fused_attention_residual_reg, pallas_attention.py:1202), seg_len <=
-    64 only."""
+    86 only."""
     reg = dict(gamma=gamma, seed=seed, attn_drop=attn_drop,
                proj_drop=proj_drop)
     if gamma is not None or attn_drop > 0.0 or proj_drop > 0.0:
@@ -458,12 +467,15 @@ def fused_attention_residual(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
     n_seg, S, C = _check_attention_x(
         x, seg_len, num_heads, "fused_attention_residual",
         ATTN_LONG_MAX_SEG_LEN, attention_widths(seg_len))
-    if S > ATTN_MAX_SEG_LEN:
-        core = (attention_core_s86 if S <= ATTN_SERVE_MAX_SEG_LEN
-                else attention_core_long)
-        o = core(x, ln_scale, ln_bias, wqkv, bqkv, num_heads, S, scale,
-                 ln_eps, use_ln)
+    if S > ATTN_SERVE_MAX_SEG_LEN:
+        o = attention_core_long(x, ln_scale, ln_bias, wqkv, bqkv, num_heads,
+                                S, scale, ln_eps, use_ln)
         return attention_proj(o, x, wproj, bproj, use_residual)
+    if S > ATTN_MAX_SEG_LEN:
+        o = attention_core_s86(x, ln_scale, ln_bias, wqkv, bqkv, num_heads,
+                               S, scale, ln_eps, use_ln, seed, attn_drop)
+        return attention_proj(o, x, wproj, bproj, use_residual, gamma, seed,
+                              proj_drop)
     dev, f32, bf16 = x.device, torch.float32, torch.bfloat16
     _check_tensor("x", x, dev, bf16, (n_seg, S, C))
     _check_tensor("ln_scale", ln_scale, dev, f32, (C,))
@@ -500,14 +512,18 @@ def fused_attention_residual(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
 
 
 def attention_core_s86(x, ln_scale, ln_bias, wqkv, bqkv, num_heads, seg_len,
-                       scale, ln_eps=1e-6, use_ln=True):
+                       scale, ln_eps=1e-6, use_ln=True, seed=0,
+                       attn_drop=0.0):
     """The first launch of the 65..86-token attention branch: o =
     block_diag_attn(qkv([LN](x))), x [n_seg, seg_len, C] -> o [n_seg,
     seg_len, C], every head's output in its columns. On the card: bf16 x
-    and wqkv, float32 vectors, head width 64, 65 <= seg_len <= 86."""
+    and wqkv, float32 vectors, head width 64, 65 <= seg_len <= 86. seed,
+    attn_drop: the reg form's dropout of the probabilities (counted as
+    "fused_attention_residual_s86_reg")."""
     if x.device.type == "cpu":
         return attention_core_plain(x, ln_scale, ln_bias, wqkv, bqkv,
-                                    num_heads, seg_len, scale, ln_eps, use_ln)
+                                    num_heads, seg_len, scale, ln_eps, use_ln,
+                                    seed, attn_drop)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     n_seg, S, C = _check_attention_x(x, seg_len, num_heads,
@@ -521,22 +537,24 @@ def attention_core_s86(x, ln_scale, ln_bias, wqkv, bqkv, num_heads, seg_len,
     _check_tensor("ln_bias", ln_bias, dev, f32, (C,))
     _check_tensor("wqkv", wqkv, dev, bf16, (C, 3 * C))
     _check_tensor("bqkv", bqkv, dev, f32, (3 * C,))
+    a_thr, a_scale = drop_args(attn_drop)
     o = torch.empty_like(x)
     if n_seg == 0:
         return o
     lib = _build.load_library("fused_attention_residual_s86")
     fn = lib.launch_attention_core_s86
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + \
-        [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p]
+        [ctypes.c_float] * 2 + [ctypes.c_int] * 3 + \
+        [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         status = fn(_ptr(x), _ptr(ln_scale), _ptr(ln_bias), _ptr(wqkv),
                     _ptr(bqkv), _ptr(o), n_seg, S, C, num_heads,
                     float(scale), float(ln_eps), int(bool(use_ln)),
-                    _stream(dev))
+                    int32_seed(seed), a_thr, a_scale, _stream(dev))
     _build.check(lib, status, "attention_core_s86")
-    launch_counts["fused_attention_residual_s86" if use_ln
-                  else "fused_attention_residual_s86_bare"] += 1
+    name = _reg_name("fused_attention_residual_s86", None, attn_drop)
+    launch_counts[name if use_ln else name + "_bare"] += 1
     return o
 
 
@@ -588,13 +606,17 @@ def attention_core_long(x, ln_scale, ln_bias, wqkv, bqkv, num_heads,
     return o
 
 
-def attention_proj(o, x, wproj, bproj, use_residual=True):
+def attention_proj(o, x, wproj, bproj, use_residual=True, gamma=None, seed=0,
+                   proj_drop=0.0):
     """The second launch of the 65..86-token attention branch: y = [x +]
-    o wproj + bproj, accumulated in float32 and cast once; o, x [..., C]
-    (x is read only with use_residual). On the card: bf16 o, x and wproj,
-    float32 bproj, C in SUPPORTED_C."""
+    gamma * drop(o wproj + bproj), accumulated in float32 and cast once;
+    o, x [..., C] (x is read only with use_residual). On the card: bf16 o,
+    x and wproj, float32 bproj (and gamma), C in SUPPORTED_C. gamma, seed,
+    proj_drop: the reg form's epilogue (counted as
+    "fused_attention_residual_s86_proj_reg")."""
     if o.device.type == "cpu":
-        return attention_proj_plain(o, x, wproj, bproj, use_residual)
+        return attention_proj_plain(o, x, wproj, bproj, use_residual, gamma,
+                                    seed, proj_drop)
     if o.device.type != "cuda":
         raise ValueError(f"no kernel for device {o.device}")
     C = o.shape[-1]
@@ -605,20 +627,26 @@ def attention_proj(o, x, wproj, bproj, use_residual=True):
     _check_tensor("x", x, dev, bf16, o.shape)
     _check_tensor("wproj", wproj, dev, bf16, (C, C))
     _check_tensor("bproj", bproj, dev, torch.float32, (C,))
+    if gamma is not None:
+        _check_tensor("gamma", gamma, dev, torch.float32, (C,))
+    p_thr, p_scale = drop_args(proj_drop)
     out = torch.empty_like(x)
     if rows == 0:
         return out
     lib = _build.load_library("fused_attention_residual_s86")
     fn = lib.launch_attention_proj
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + \
-        [ctypes.c_void_p]
+        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         status = fn(_ptr(o), _ptr(x), _ptr(wproj), _ptr(bproj), _ptr(out),
-                    rows, C, int(bool(use_residual)), _stream(dev))
+                    rows, C, int(bool(use_residual)),
+                    None if gamma is None else _ptr(gamma), int32_seed(seed),
+                    p_thr, p_scale, _stream(dev))
     _build.check(lib, status, "attention_proj")
-    launch_counts["fused_attention_residual_s86_proj" if use_residual
-                  else "fused_attention_residual_s86_proj_bare"] += 1
+    name = _reg_name("fused_attention_residual_s86_proj", gamma, proj_drop)
+    launch_counts[name if use_residual else name + "_bare"] += 1
     return out
 
 
@@ -697,11 +725,12 @@ def fused_attention_residual_bwd(x, g, ln_scale, ln_bias, wqkv, bqkv, wproj,
     dw=True (_fused_block_bwd_impl, dw=True, :921-1049): (dx, dlns, dlnb,
     dbqkv, dbproj, dwqkv [C, 3C], dwA [C, C]), the weight gradients formed
     by the kernels (float32; at seg_len <= 64 their sums in an order that
-    varies between launches) and no row-space tensor returned. At 65..197
-    tokens (inert forms only) a chain runs over chunks of segments and the
-    dw form's row-space tensors live in per-chunk scratch (65..86:
-    csrc/fused_attention_residual_bwd_s86.cu, 87..197:
-    csrc/attention_long.cu)."""
+    varies between launches) and no row-space tensor returned; dwA = attn^T
+    gm (g without the proj dropout: no gamma). At 65..197 tokens a chain
+    runs over chunks of segments and the dw form's row-space tensors (and
+    the reg form's geff and gm) live in per-chunk scratch (65..86:
+    csrc/fused_attention_residual_bwd_s86.cu, with the reg flags; 87..197:
+    csrc/attention_long.cu, inert forms only)."""
     reg = dict(gamma=gamma, seed=seed, attn_drop=attn_drop,
                proj_drop=proj_drop)
     what = "fused_attention_residual_bwd" + (" (dw form)" if dw else "")
@@ -733,8 +762,10 @@ def fused_attention_residual_bwd(x, g, ln_scale, ln_bias, wqkv, bqkv, wproj,
     rows = n_seg * S
     dx = torch.empty_like(x)
     sums = torch.zeros(6 * C, dtype=f32, device=dev)
+    # the S <= 64 kernel's geff (the chain's lives in its per-chunk scratch)
     geff = (torch.empty(rows, C, dtype=bf16, device=dev)
-            if gamma is not None or proj_drop > 0.0 else None)
+            if (gamma is not None or proj_drop > 0.0)
+            and S <= ATTN_MAX_SEG_LEN else None)
     ln = attn = dqkv = gm = dwqkv = dwA = None
     if dw:
         dwqkv = torch.zeros(C, 3 * C, dtype=f32, device=dev)
@@ -756,7 +787,8 @@ def fused_attention_residual_bwd(x, g, ln_scale, ln_bias, wqkv, bqkv, wproj,
     if S > ATTN_MAX_SEG_LEN:
         return _attention_bwd_chain(x, g, ln_scale, ln_bias, wqkv, bqkv,
                                     wproj, out, sums, n_seg, S, C, num_heads,
-                                    scale, ln_eps, use_ln, use_residual, dw)
+                                    scale, ln_eps, use_ln, use_residual, dw,
+                                    gm, **reg)
     lib = _build.load_library("fused_attention_residual_bwd")
     lib.blocks_for.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.blocks_for.restype = ctypes.c_int
@@ -791,11 +823,14 @@ def fused_attention_residual_bwd(x, g, ln_scale, ln_bias, wqkv, bqkv, wproj,
 
 def _attention_bwd_chain(x, g, ln_scale, ln_bias, wqkv, bqkv, wproj, out,
                          sums, n_seg, S, C, num_heads, scale, ln_eps, use_ln,
-                         use_residual, dw):
+                         use_residual, dw, gm=None, gamma=None, seed=0,
+                         attn_drop=0.0, proj_drop=0.0):
     """fused_attention_residual_bwd at 65..197 tokens on the card: the
-    chain of csrc/fused_attention_residual_bwd_s86.cu (S <= 86) or
-    csrc/attention_long.cu into the outputs `out` and the float32 [6C]
-    column sums `sums` (checked and allocated by the caller), with a
+    chain of csrc/fused_attention_residual_bwd_s86.cu (S <= 86, with the
+    reg flags gamma, seed, attn_drop, proj_drop, and gm the caller's
+    proj-masked g where dw=False has the proj dropout) or
+    csrc/attention_long.cu (inert) into the outputs `out` and the float32
+    [6C] column sums `sums` (checked and allocated by the caller), with a
     scratch buffer of the size the library names (bounded by its chunk of
     segments)."""
     dev = x.device
@@ -810,13 +845,25 @@ def _attention_bwd_chain(x, g, ln_scale, ln_bias, wqkv, bqkv, wproj, out,
     lib = _build.load_library("fused_attention_residual_bwd_s86" if short
                               else "attention_long")
     size = getattr(lib, f"attention_bwd_{tag}_scratch_bytes")
-    size.argtypes = [ctypes.c_int] * 5
+    reg_args = []
+    size_args = [n_seg, S, C, int(dw), int(bool(use_ln))]
+    if short:
+        a_thr, a_scale = drop_args(attn_drop)
+        p_thr, p_scale = drop_args(proj_drop)
+        reg_args = [None if gamma is None else _ptr(gamma),
+                    None if gm is None else _ptr(gm), int32_seed(seed),
+                    a_thr, a_scale, p_thr, p_scale]
+        size_args += [int(gamma is not None or proj_drop > 0.0),
+                      int(proj_drop > 0.0)]
+    size.argtypes = [ctypes.c_int] * len(size_args)
     size.restype = ctypes.c_longlong
-    scratch = torch.empty(size(n_seg, S, C, int(dw), int(bool(use_ln))),
-                          dtype=torch.uint8, device=dev)
+    scratch = torch.empty(size(*size_args), dtype=torch.uint8, device=dev)
     fn = getattr(lib, f"launch_attention_bwd_{tag}")
     fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + \
-        [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + \
+        ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 +
+         [ctypes.c_float, ctypes.c_int, ctypes.c_float] if short else []) + \
+        [ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
     def opt(t):
@@ -828,11 +875,11 @@ def _attention_bwd_chain(x, g, ln_scale, ln_bias, wqkv, bqkv, wproj, out,
                     opt(ln) if use_ln else None, opt(attn), opt(dqkv),
                     _ptr(sums), opt(dwqkv), opt(dwA), _ptr(scratch), n_seg,
                     S, C, num_heads, float(scale), float(ln_eps),
-                    int(bool(use_ln)), int(bool(use_residual)),
+                    int(bool(use_ln)), int(bool(use_residual)), *reg_args,
                     _stream(dev))
     name = f"fused_attention_residual_bwd_{tag}"
     _build.check(lib, status, name)
-    name += "_dw" if dw else ""
+    name = _reg_name(name, gamma, attn_drop, proj_drop) + ("_dw" if dw else "")
     launch_counts[name if use_ln else name + "_bare"] += 1
     return out
 

@@ -48,7 +48,8 @@ from duoformer_tcga_tpu_torch.utils.convert import (export_jax_params,
                                                     load_jax_params)
 
 from test_torch_port_reg import (_arr, _attention_args, _close_in_rms_units,
-                                 _flat, _gamma, _rel_l2, _rms, legacy_seeds)
+                                 _flat, _gamma, _rel_l2, _rms, legacy_seeds,
+                                 seeded_tree)
 
 TOL = dict(atol=3e-5, rtol=3e-5)
 PARITY = dict(atol=1e-4, rtol=1e-4)
@@ -329,11 +330,12 @@ def test_new_entries_count_no_launch_on_the_cpu():
 # The memory-lean training step, release and legacy
 # ---------------------------------------------------------------------------
 
-def _jax_step(jm, steps, seeds_of=None):
+def _jax_step(jm, p0, steps, seeds_of=None):
     """JAX: the first gradients and `steps` steps of make_train_step on 2
-    tiles from PRNGKey(0)'s params, under LEAN_ENV. -> (params0, grads,
-    losses, params after each step, the port's input, labels, the step
-    rng's seeds for the port)."""
+    tiles from p0 (the port's seeded init in the JAX layout, numpy) or,
+    with p0 None, from PRNGKey(0)'s params, under LEAN_ENV. -> (params0,
+    grads, losses, params after each step, the port's input, labels, the
+    step rng's seeds for the port)."""
     tiles = np.random.default_rng(0).integers(0, 256, (2, 224, 224, 3),
                                               dtype=np.uint8)
     labels = np.array([0, 2], np.int32)
@@ -344,8 +346,14 @@ def _jax_step(jm, steps, seeds_of=None):
         opt = jtrain.make_optimizer(
             jtrain.onecycle_schedule(1e-3, 10), 1e-4,
             frozen_label_fn=jtrain.backbone_frozen_labels)
-        state = jtrain.init_train_state(jm, jax.random.PRNGKey(0), opt)
-        p0 = jax.tree.map(np.asarray, state["params"])
+        if p0 is None:
+            state = jtrain.init_train_state(jm, jax.random.PRNGKey(0), opt)
+            p0 = jax.tree.map(np.asarray, state["params"])
+        else:
+            params = jax.tree.map(jnp.asarray, p0)
+            state = {"params": params,
+                     "opt_state": jax.jit(opt.init)(params),
+                     "step": jnp.zeros((), jnp.int32)}
         x = jpipeline.preprocess_tiles(jnp.asarray(tiles), dtype=jnp.float32)
         batch = {"image": x, "label": jnp.asarray(labels)}
         rng = jax.random.PRNGKey(1)
@@ -396,7 +404,8 @@ def release_lean():
     """The release DuoFormer with the Q7 fix (apply_fc_norm=True), 2 steps
     on each side: the port with fused_ln and the lean step options."""
     p0, j_grads, j_losses, j_params, x, labels, _ = _jax_step(
-        JaxDuoFormer(**CFG, num_layers=2, apply_fc_norm=True), 2)
+        JaxDuoFormer(**CFG, num_layers=2, apply_fc_norm=True),
+        seeded_tree(port.DuoFormer, 0, num_layers=2, apply_fc_norm=True), 2)
     model = port.DuoFormer(**CFG, num_layers=2, apply_fc_norm=True,
                            fused_ln=True)
     t_grads, t_losses, t_params = _port_step(model, p0, x, labels, 2)
@@ -409,9 +418,11 @@ def release_lean():
 @pytest.fixture(scope="module")
 def legacy_lean():
     """The legacy DuoFormer, 1 step on each side with the seeds JAX
-    derives: the port with fused_ln and the lean step options."""
+    derives: the port with fused_ln and the lean step options. (JAX's own
+    draw of the params, as tests/test_torch_port_reg.py's legacy fixture
+    keeps it.)"""
     p0, j_grads, j_losses, j_params, x, labels, seeds = _jax_step(
-        JaxLegacy(**CFG), 1, legacy_seeds)
+        JaxLegacy(**CFG), None, 1, legacy_seeds)
     model = port.DuoFormerLegacy(**CFG, fused_ln=True)
     t_grads, t_losses, t_params = _port_step(model, p0, x, labels, 1, seeds)
     return dict(p0=_flat(p0), labels=_flat(jtrain.backbone_frozen_labels(p0)),

@@ -164,13 +164,13 @@ def test_parameter_count_matches_jax(pair):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(num_layers=1), dict(attn_drop_rate=0.1),
-    dict(backbone="r18"), dict(remat=True),
+    dict(num_layers=1), dict(backbone="r18"), dict(remat=True),
 ])
 def test_unported_options_raise(kwargs):
-    """(The channel scale token and 3 and 4 scales, once refused here, are
-    held to the JAX package in tests/test_torch_port_reg.py and
-    tests/test_torch_port_scales.py.)"""
+    """(The channel scale token, 3 and 4 scales and attn_drop_rate > 0,
+    once refused here, are held to the JAX package in
+    tests/test_torch_port_reg.py, tests/test_torch_port_scales.py and
+    tests/test_torch_port_reg_scales.py.)"""
     with pytest.raises(NotImplementedError):
         port.build_model_no_extra_params(
             **{**CFG, **kwargs, "device": "cpu"})

@@ -140,6 +140,15 @@ def _gamma(rng, C):
     return (0.5 + rng.uniform(size=C)).astype(np.float32)
 
 
+def seeded_tree(model_cls, seed, **kwargs):
+    """The port's seeded init of model_cls(**CFG, **kwargs) in the JAX
+    layout (numpy leaves): the JAX package's eager init of a ResNet-50
+    pyramid compiles each of its ops first, 15-20 s on the CPU in the
+    first process that does it."""
+    return export_jax_params(model_cls(
+        **CFG, **kwargs, generator=torch.Generator().manual_seed(seed)))
+
+
 # ---------------------------------------------------------------------------
 # The masks and the kernels' plain versions
 # ---------------------------------------------------------------------------
@@ -337,13 +346,15 @@ def test_core_trains_like_jax_with_its_seeds(family):
     (block i of the port against slice i of JAX's stacked gradient)."""
     mp = _jax_env()
     try:
+        gen = torch.Generator().manual_seed(0)
         if family == "legacy":
             j_core = jtfm.MultiscaleTransformer(
                 depth=2, num_heads=2, embed_dim=128, drop_rate=0.1,
                 attn_drop_rate=0.1, init_values=1e-5, num_classes=3)
             t_core = ttfm.MultiscaleTransformer(
                 depth=2, num_heads=2, embed_dim=128, drop_rate=0.1,
-                attn_drop_rate=0.1, init_values=1e-5, num_classes=3)
+                attn_drop_rate=0.1, init_values=1e-5, num_classes=3,
+                generator=gen)
             seeds_of = legacy_seeds
         else:
             j_core = jtfm.MultiscaleFormer(
@@ -351,10 +362,9 @@ def test_core_trains_like_jax_with_its_seeds(family):
                 init_values=1e-5, num_classes=3)
             t_core = ttfm.MultiscaleFormer(
                 depth=2, num_heads=2, embed_dim=128, proj_drop_rate=0.1,
-                init_values=1e-5, num_classes=3)
+                init_values=1e-5, num_classes=3, generator=gen)
             seeds_of = release_seeds
-        j_params = j_core.init(jax.random.PRNGKey(0))
-        tree = jax.tree.map(np.asarray, j_params)
+        tree = export_jax_params(t_core)          # the port's seeded init
         for blk in ("blocks", "scale_blocks"):
             if blk in tree:    # LayerScale away from 1e-5: visible gammas
                 for ls in ("ls1", "ls2"):
@@ -409,7 +419,10 @@ def test_seed_chain_drives_the_masks():
 def legacy():
     """One JAX DuoFormerLegacy (depth 2, C=128, 2 heads, 3 classes) from
     PRNGKey(0): its Predictor's embed() on 2 tiles, and one train step
-    (Adam, L2 1e-4, OneCycle, the frozen partition) with its gradients."""
+    (Adam, L2 1e-4, OneCycle, the frozen partition) with its gradients.
+    (Its params stay JAX's own draw: from the port's seeded init the
+    channel fusers' batch-stat BN backward reads 2.0e-4 on
+    channel_proj.l1_conv1.w, over the 1e-4 bar above.)"""
     tiles = np.random.default_rng(0).integers(0, 256, (2, 224, 224, 3),
                                               dtype=np.uint8)
     labels = np.array([0, 2], np.int32)
@@ -537,10 +550,11 @@ def test_release_channel_token_matches_jax():
     lifted): embed() against the JAX Predictor, in units of RMS."""
     tiles = np.random.default_rng(0).integers(0, 256, (2, 224, 224, 3),
                                               dtype=np.uint8)
+    raw = jax.tree.map(jnp.asarray, seeded_tree(
+        port.DuoFormer, 0, num_layers=2, scale_token="channel"))
     mp = _jax_env()
     try:
         jm = JaxDuoFormer(**CFG, num_layers=2, scale_token="channel")
-        raw = jm.init(jax.random.PRNGKey(0))
         j_logits, j_cls = JaxPredictor(jm, raw, dtype=jnp.float32).embed(
             tiles)
     finally:
@@ -559,7 +573,8 @@ def test_jax_trees_round_trip(tree):
     """load_jax_params -> export_jax_params returns every leaf of the JAX
     tree bit for bit: the legacy tree (blocks with attn1, attn2 and its
     carried Q9 q/k norms, ls1, ls2; channel_proj with fuse[i].conv/bn;
-    norm; head) and a release tree with ls1, ls2 and the channel token."""
+    norm; head) and a release tree with ls1, ls2 and the channel token
+    (random values in the structure JAX's init gives)."""
     if tree == "legacy":
         jm = JaxLegacy(**CFG)
         model = port.DuoFormerLegacy(**CFG)
@@ -567,7 +582,9 @@ def test_jax_trees_round_trip(tree):
         jm = JaxDuoFormer(**CFG, init_values=1e-5, scale_token="channel")
         model = port.DuoFormer(**CFG, init_values=1e-5,
                                scale_token="channel")
-    raw = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(2)))
+    rng = np.random.default_rng(2)
+    raw = jax.tree.map(lambda s: rng.standard_normal(s.shape).astype(
+        s.dtype), jax.eval_shape(jm.init, jax.random.PRNGKey(2)))
     load_jax_params(model, raw)
     ref, got = _flat(raw), _flat(export_jax_params(model))
     assert set(got) == set(ref)
@@ -599,8 +616,9 @@ def test_build_model_and_refusals():
         port.build_model(**CFG, num_layers=3, device="cpu")
     with pytest.raises(NotImplementedError):
         port.build_model(**CFG, remat=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        port.DuoFormer(**CFG, attn_drop_rate=0.1)
+    # attn_drop_rate > 0 builds (Q9: q/k norms, applied by the patch
+    # blocks; tests/test_torch_port_reg_scales.py)
+    assert port.DuoFormer(**CFG, attn_drop_rate=0.1).transformer.qk_norm
     unfrozen = port.build_model(**CFG, freeze=False, device="cpu").train()
     with pytest.raises(NotImplementedError):
         unfrozen(torch.zeros(1, 224, 224, 3))
