@@ -2,9 +2,11 @@
 """Plant faults in copies of the port's CUDA kernels and show that the
 kernel checks of chip_smoke.py fail on each.
 
-    python3 chip_faults.py
+    python3 chip_faults.py [word ...]
 
-For each fault in FAULTS, copies chip_smoke.py and duoformer_tcga_tpu_torch/
+With words, only the faults whose names contain one of them run, and the
+control runs only the cases of their kernel forms' sources. For each
+fault in FAULTS, copies chip_smoke.py and duoformer_tcga_tpu_torch/
 (without its build directory) into duoformer_tcga_tpu_torch/_build/faults/
 <name>/, changes one place in one kernel source (or the header the
 kernels share, or train.py) there, and runs chip_smoke.kernel_checks
@@ -15,7 +17,8 @@ a process of its own, at most PARALLEL at once (the reg cases' plain
 versions hold several GB of mask counters each). The fault "none"
 changes nothing, runs every case and is the control. Prints, per fault
 and case, whether the case passed, its relative L2 error, and whether the
-elementwise atol = rtol = 0.08 bar alone passed it. Exits non-zero when
+elementwise bar alone (atol = rtol = 0.08; 1e-4 for the float32
+forms) passed it. Exits non-zero when
 the control fails a case or a fault passes every case of its kernel form,
 unless the fault names why the checks may pass it (then it is listed
 under "passed_as_allowed"). Needs one CUDA device and nvcc; imports
@@ -52,6 +55,8 @@ CHAIN = f"{PKG}/csrc/attention_chain.cuh"
 REG_GRAD = f"{PKG}/csrc/reg_grad.cuh"
 LONG = f"{PKG}/csrc/attention_long.cu"
 TRAIN = f"{PKG}/train.py"
+F32 = f"{PKG}/csrc/f32_tile.cuh"
+ATTN32 = f"{PKG}/csrc/fused_attention_residual_f32.cu"
 # the pseudo-form whose case trains the R50ViT hybrid (chip_smoke.
 # trunk_trains_case) where a fault of train.py shows
 TRUNK = "hybrid_trunk_trains"
@@ -277,6 +282,24 @@ FAULTS = {
         CHAIN, "const WgradProblem p1{attnc, gacc, dwA, C, C};",
         "const WgradProblem p1{attnc, gsrc, dwA, C, C};",
         "fused_attention_residual_bwd_s86_reg_dw"),
+    "single-pass TF32 in the scores product (f32)": (
+        F32, "      a = fmaf(sq[r * ATT_LD + d], sk[j * ATT_LD + d], a);",
+        "      a = fmaf(__uint_as_float(__float_as_uint(sq[r * ATT_LD + d]) "
+        "& 0xffffe000u),\n               __uint_as_float(__float_as_uint("
+        "sk[j * ATT_LD + d]) & 0xffffe000u), a);",
+        "fused_attention_residual_f32"),
+    "the full form without its LayerNorm (f32)": (
+        ATTN32, "  if (use_ln) {", "  if (false) {",
+        "fused_attention_residual_f32"),
+    "db1 without the ragged last chunk of rows (f32 mlp_dz)": (
+        F32, "const long r1 = r0 + COLSUM_ROWS < rows ? r0 + COLSUM_ROWS : "
+             "rows;",
+        "const long r1 = r0 + COLSUM_ROWS <= rows ? r0 + COLSUM_ROWS : r0;",
+        "mlp_dz_f32"),
+    "dv from the unnormalised probabilities (f32 backward)": (
+        F32, "dv = fmaf(se[j * SL + r] * sinv[j], sdo[j * ATT_LD + d], dv);",
+        "dv = fmaf(se[j * SL + r], sdo[j * ATT_LD + d], dv);",
+        "fused_attention_residual_bwd_f32"),
     "the hybrid's trunk frozen by the optimizer": (
         TRAIN, "        labels = frozen_label_fn(params) if frozen_label_fn "
                "else {}",
@@ -295,6 +318,16 @@ form = sys.argv[1] or None
 if form == "%s":
     import duoformer_tcga_tpu_torch as port
     print(json.dumps(chip_smoke.trunk_trains_case(torch, port)))
+    sys.exit(0)
+if form is None and len(sys.argv) > 2:     # the control, on some sources
+    results = {}
+    for src in dict.fromkeys(chip_smoke.SOURCES[f]
+                             for f in sys.argv[2].split(",")):
+        cases, others = chip_smoke.kernel_checks(torch, F, fa, timed=False,
+                                                 source=src)
+        results.update(cases)
+        results.update(others)
+    print(json.dumps(results))
     sys.exit(0)
 cases, others = chip_smoke.kernel_checks(
     torch, F, fa, timed=False,
@@ -321,13 +354,22 @@ def plant(name, fault):
 
 
 def main() -> int:
-    dirs = {name: plant(name, f) for name, f in FAULTS.items()}
+    words = sys.argv[1:]
+    chosen = {name: f for name, f in FAULTS.items()
+              if not words or name == "none" or any(w in name for w in words)}
+    dirs = {name: plant(name, f) for name, f in chosen.items()}
     names = list(dirs)
     procs, done = {}, {}
+    # the control runs every case, or with words the cases of the chosen
+    # faults' kernel forms' sources (the hybrid trunk's case has none)
+    forms = [f[3] for n, f in chosen.items() if f[3] not in (None, TRUNK)]
+    control = [",".join(forms)] if words else []
 
     def start(name):
         procs[name] = subprocess.Popen([sys.executable, "-c", CHILD,
-                                        FAULTS[name][3] or ""],
+                                        FAULTS[name][3] or "",
+                                        *(control if name == "none"
+                                          else [])],
                                        cwd=dirs[name],
                                        stdout=subprocess.PIPE,
                                        stderr=subprocess.PIPE, text=True)
@@ -351,7 +393,7 @@ def main() -> int:
         mine = [c for c in results if c.split(" ")[0] == kernel]
         for case, r in results.items():
             print(f"{name} | {case}: {'ok' if r['ok'] else 'FAIL'}, branch "
-                  f"rel err {r['rel_err']:.4g}, atol=rtol=0.08 alone "
+                  f"rel err {r['rel_err']:.4g}, the elementwise bar alone "
                   f"{'passes' if r['close'] else 'fails'}", flush=True)
         if kernel is None and not all(r["ok"] for r in results.values()):
             bad.append(name)

@@ -27,7 +27,14 @@ attention on the long-segment kernels; and its ResNetV2 hybrids
 (`build_vit_base16(model_type="R50ViT" | "ViTPretrained" |
 "R50ViTPretrained")`, models/resnetv2.py) the same way, R26-S/32's ViT-S
 on the kernels' 384-wide forms, with timm-layout weights loaded by
-`utils.timm_convert.load_timm_vit`.
+`utils.timm_convert.load_timm_vit`. The release DuoFormer at 2 and 3
+scales also serves and trains in float32 on the card (`Predictor(model,
+dtype=torch.float32)`, `make_train_step(model, dtype=torch.float32)` on
+the default routes; the JAX package's dtype float32) through the float32
+forms of its kernels (csrc/*_f32.cu), with TF32 off inside those entry
+points whatever the process set; a float32 tensor reaching a form with no
+float32 kernel (4 scales, the reg forms, the lean routes, the ViTs, C=384)
+raises NotImplementedError naming ROADMAP B5a.
 
 Entry points run on the card unless the caller passes device="cpu";
 without a CUDA device and without that request they raise.

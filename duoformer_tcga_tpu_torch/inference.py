@@ -20,7 +20,7 @@ import json
 import numpy as np
 import torch
 
-from ._device import resolve_device
+from ._device import float32_precision, resolve_device
 from .data import pipeline as data_lib
 from .models.duoformer import fold_for_inference
 from .ops.nn import cast_weights_, standardize_weights_
@@ -78,8 +78,10 @@ class Predictor:
     @torch.inference_mode()
     def __call__(self, tiles):
         """tiles: [B, 224, 224, 3] uint8 (numpy or torch) -> logits
-        [B, num_classes] on the Predictor's device."""
-        return self.model(self.prepare(tiles))
+        [B, num_classes] on the Predictor's device. At dtype float32 with
+        TF32 off (_device.float32_precision)."""
+        with float32_precision(self.dtype):
+            return self.model(self.prepare(tiles))
 
     @torch.inference_mode()
     def predict_proba(self, tiles, tta: bool = False,
@@ -90,14 +92,16 @@ class Predictor:
             raise NotImplementedError(
                 "test-time augmentation is not ported to the PyTorch "
                 "package yet")
-        logits = self.model(self.prepare(tiles)).float()
+        with float32_precision(self.dtype):
+            logits = self.model(self.prepare(tiles)).float()
         return torch.softmax(logits / temperature, dim=-1)
 
     @torch.inference_mode()
     def embed(self, tiles):
         """tiles -> (logits [B, num_classes], pre-head CLS [B, embed_dim])
-        in one forward."""
-        return self.model(self.prepare(tiles), with_embedding=True)
+        in one forward (float32: with TF32 off, as __call__)."""
+        with float32_precision(self.dtype):
+            return self.model(self.prepare(tiles), with_embedding=True)
 
 
 def _list_paths(tree):

@@ -33,7 +33,9 @@ KERNELS = ("fused_attention_residual", "fused_attention_residual_bwd",
            "fused_mlp_residual_int8", "drop_ew", "fused_mlp_bwd",
            "layernorm", "block_diag_attention", "fused_attention_residual_s86",
            "fused_attention_residual_int8_s86",
-           "fused_attention_residual_bwd_s86", "attention_long")
+           "fused_attention_residual_bwd_s86", "attention_long",
+           "fused_attention_residual_f32", "fused_mlp_residual_f32",
+           "fused_attention_residual_bwd_f32", "mlp_dz_f32")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -51,6 +53,43 @@ def count_launch(name: str, C: int):
     384-wide instantiation (ViT-S) counts under name + "_c384", so a run
     shows that the path went through that form."""
     launch_counts[name + ("_c384" if C == 384 else "")] += 1
+
+
+# float32 on the card (ROADMAP B5a): the forms with a float32 kernel
+# (csrc/*_f32.cu), the release model's default routes, at up to
+# F32_MAX_SEG_LEN tokens a segment and the widths F32_C
+F32_FORMS = ("fused_attention_residual", "fused_mlp_residual",
+             "fused_mlp_residual_z", "fused_attention_residual_bwd",
+             "mlp_dz")
+F32_MAX_SEG_LEN = 64
+F32_C = (256, 512, 768)
+
+
+def f32_form(what: str, seg_len: int = 1, C: int = 768, reg: bool = False,
+             dw: bool = False) -> str:
+    """The launch name of form `what`'s float32 kernel (what + "_f32"), or
+    NotImplementedError naming ROADMAP B5a where a float32 tensor on the
+    card reaches a form that has none: a form outside F32_FORMS (the lean
+    route's fused_mlp_bwd and fused_layernorm, block_diag_attention, the
+    65..197-token launches), seg_len past F32_MAX_SEG_LEN, the reg flags
+    (LayerScale, dropout), the backward's dw form, or C outside F32_C.
+    Nothing falls back to a plain version. Takes no tensor."""
+    if what not in F32_FORMS:
+        why = "has no float32 form"
+    elif reg:
+        why = "has no float32 form with the reg flags (LayerScale, dropout)"
+    elif dw:
+        why = "has no float32 form of its dw route (attn_bwd_dw)"
+    elif seg_len > F32_MAX_SEG_LEN:
+        why = (f"has no float32 form at seg_len {seg_len} > "
+               f"{F32_MAX_SEG_LEN}")
+    elif C not in F32_C:
+        why = f"has no float32 form at C={C} (only C in {F32_C})"
+    else:
+        return what + "_f32"
+    raise NotImplementedError(
+        f"{what} {why} on the card: float32 kernels exist for the release "
+        f"model's default routes only (ROADMAP B5a)")
 
 
 class KernelBuildError(RuntimeError):

@@ -57,6 +57,16 @@ the types the JAX path feeds its kernels. The plain versions round where
 the TPU kernels round (each function's docstring and kernel source say
 where).
 
+Float32 on the card (the JAX package's dtype float32, ROADMAP B5a): a
+float32 CUDA tensor reaching fused_attention_residual,
+fused_attention_residual_bwd (dw=False), fused_mlp_residual (both forms)
+or mlp_dz launches its float32 form, every operand float32, inert, at up
+to 64 tokens a segment and C in F32_C (csrc/*_f32.cu, chains of the
+float32 FMA tiles of csrc/f32_tile.cuh); its launch counts under the
+form's name + "_f32" (the bare forms then + "_bare"). Every other form
+raises NotImplementedError from _build.f32_form; nothing falls back to the
+plain version.
+
 The reg forms (pallas_attention.py:1119-1281, 1894-1946) are the same
 kernels with runtime flags: gamma (LayerScale, float32 [C]) and an int32
 dropout seed with its rates, up to ATTN_SERVE_MAX_SEG_LEN tokens a segment
@@ -76,8 +86,8 @@ import torch
 
 from . import _build
 from . import dropout as dr
-from ._build import (_check_tensor, _ptr, _require, _stream, count_launch,
-                     launch_counts)
+from ._build import (F32_C, _check_tensor, _ptr, _require, _stream,
+                     count_launch, f32_form, launch_counts)
 from .nn import layernorm
 
 ATTN_MAX_SEG_LEN = 64         # a block holds at most 64 rows (csrc note)
@@ -447,8 +457,9 @@ def fused_attention_residual(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
     weights, float32 vectors, head width 64, C in attention_widths(seg_len)
     (384 only up to 64 tokens), seg_len <= 197 (65..86 in two
     launches, attention_core_s86 and attention_proj; 87..197
-    attention_core_long and attention_proj). gamma, seed, attn_drop,
-    proj_drop: the reg form's LayerScale and dropout
+    attention_core_long and attention_proj); or float32 x, weights and
+    vectors, the float32 form (inert, seg_len <= 64, C in F32_C). gamma,
+    seed, attn_drop, proj_drop: the reg form's LayerScale and dropout
     (fused_attention_residual_reg, pallas_attention.py:1202), seg_len <=
     86 only."""
     reg = dict(gamma=gamma, seed=seed, attn_drop=attn_drop,
@@ -464,6 +475,11 @@ def fused_attention_residual(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
             seg_len, scale, ln_eps, use_ln, use_residual, **reg)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
+    if x.dtype == torch.float32:
+        return _fused_attention_residual_f32(
+            x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, num_heads,
+            seg_len, scale, ln_eps, use_ln, use_residual,
+            gamma is not None or attn_drop > 0.0 or proj_drop > 0.0)
     n_seg, S, C = _check_attention_x(
         x, seg_len, num_heads, "fused_attention_residual",
         ATTN_LONG_MAX_SEG_LEN, attention_widths(seg_len))
@@ -511,6 +527,51 @@ def fused_attention_residual(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
     return out
 
 
+def _f32_scratch(*shape, device):
+    return torch.empty(*shape, dtype=torch.float32, device=device)
+
+
+def _fused_attention_residual_f32(x, ln_scale, ln_bias, wqkv, bqkv, wproj,
+                                  bproj, num_heads, seg_len, scale, ln_eps,
+                                  use_ln, use_residual, reg):
+    """fused_attention_residual's float32 form on the card
+    (csrc/fused_attention_residual_f32.cu: LN, the qkv product, the
+    attention core, the proj product with bias and residual, into float32
+    scratch): every operand float32, inert, seg_len <= 64, C in F32_C;
+    anything else raises NotImplementedError (f32_form)."""
+    name = f32_form("fused_attention_residual", seg_len, x.shape[-1], reg)
+    n_seg, S, C = _check_attention_x(x, seg_len, num_heads, name,
+                                     ATTN_MAX_SEG_LEN, F32_C)
+    dev, f32 = x.device, torch.float32
+    for what, t, shape in (
+            ("x", x, (n_seg, S, C)), ("ln_scale", ln_scale, (C,)),
+            ("ln_bias", ln_bias, (C,)), ("wqkv", wqkv, (C, 3 * C)),
+            ("bqkv", bqkv, (3 * C,)), ("wproj", wproj, (C, C)),
+            ("bproj", bproj, (C,))):
+        _check_tensor(what, t, dev, f32, shape)
+    out = torch.empty_like(x)
+    if n_seg == 0:
+        return out
+    rows = n_seg * S
+    ln = _f32_scratch(rows, C, device=dev) if use_ln else None
+    qkv = _f32_scratch(rows, 3 * C, device=dev)
+    o = _f32_scratch(rows, C, device=dev)
+    lib = _build.load_library("fused_attention_residual_f32")
+    fn = lib.launch_fused_attention_residual_f32
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + \
+        [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        status = fn(_ptr(x), _ptr(ln_scale), _ptr(ln_bias), _ptr(wqkv),
+                    _ptr(bqkv), _ptr(wproj), _ptr(bproj), _ptr(out),
+                    None if ln is None else _ptr(ln), _ptr(qkv), _ptr(o),
+                    n_seg, S, C, num_heads, float(scale), float(ln_eps),
+                    int(bool(use_ln)), int(bool(use_residual)), _stream(dev))
+    _build.check(lib, status, name)
+    count_launch(name if use_ln else name + "_bare", C)
+    return out
+
+
 def attention_core_s86(x, ln_scale, ln_bias, wqkv, bqkv, num_heads, seg_len,
                        scale, ln_eps=1e-6, use_ln=True, seed=0,
                        attn_drop=0.0):
@@ -526,6 +587,8 @@ def attention_core_s86(x, ln_scale, ln_bias, wqkv, bqkv, num_heads, seg_len,
                                     seed, attn_drop)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
+    if x.dtype == torch.float32:
+        f32_form("attention_core_s86", seg_len, x.shape[-1])
     n_seg, S, C = _check_attention_x(x, seg_len, num_heads,
                                      "attention_core_s86",
                                      ATTN_SERVE_MAX_SEG_LEN)
@@ -571,6 +634,8 @@ def attention_core_long(x, ln_scale, ln_bias, wqkv, bqkv, num_heads,
                                     num_heads, seg_len, scale, ln_eps, use_ln)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
+    if x.dtype == torch.float32:
+        f32_form("attention_core_long", seg_len, x.shape[-1])
     n_seg, S, C = _check_attention_x(x, seg_len, num_heads,
                                      "attention_core_long",
                                      ATTN_LONG_MAX_SEG_LEN)
@@ -619,6 +684,8 @@ def attention_proj(o, x, wproj, bproj, use_residual=True, gamma=None, seed=0,
                                     seed, proj_drop)
     if o.device.type != "cuda":
         raise ValueError(f"no kernel for device {o.device}")
+    if o.dtype == torch.float32:
+        f32_form("attention_proj", C=o.shape[-1])
     C = o.shape[-1]
     rows = o.numel() // C if C else 0
     _check_width(C, "attention_proj")
@@ -657,7 +724,8 @@ def fused_mlp_residual(x, ln_scale, ln_bias, w1, b1, w2, b2, ln_eps=1e-6,
     (pallas_attention.py:1696). return_hidden=True -> (y, z), z the
     pre-GELU hidden [rows, hidden] (the z form, _fused_mlp_kernel_z). On
     the card: bf16 x and weights, float32 vectors, C in SHORT_C, hidden a
-    multiple of 128. gamma, seed, drop: the reg form's LayerScale and
+    multiple of 128; or every operand float32, the float32 form (inert, C
+    in F32_C). gamma, seed, drop: the reg form's LayerScale and
     dropout of the hidden and the output (fused_mlp_residual_reg,
     :1940)."""
     if x.device.type == "cpu":
@@ -666,6 +734,10 @@ def fused_mlp_residual(x, ln_scale, ln_bias, w1, b1, w2, b2, ln_eps=1e-6,
                                         gamma, seed, drop)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
+    if x.dtype == torch.float32:
+        return _fused_mlp_residual_f32(
+            x, ln_scale, ln_bias, w1, b1, w2, b2, ln_eps, use_residual,
+            return_hidden, gamma is not None or drop > 0.0)
     C = x.shape[-1]
     hidden = w1.shape[-1]
     rows = x.numel() // C if C else 0
@@ -708,6 +780,48 @@ def fused_mlp_residual(x, ln_scale, ln_bias, w1, b1, w2, b2, ln_eps=1e-6,
     return (out, z) if return_hidden else out
 
 
+def _fused_mlp_residual_f32(x, ln_scale, ln_bias, w1, b1, w2, b2, ln_eps,
+                            use_residual, return_hidden, reg):
+    """fused_mlp_residual's float32 form on the card
+    (csrc/fused_mlp_residual_f32.cu: LN, fc1 with the exact GELU in its
+    epilogue, fc2 with bias and residual; the z form also writes z):
+    every operand float32, inert, C in F32_C, hidden a multiple of 128;
+    anything else raises NotImplementedError (f32_form)."""
+    C = x.shape[-1]
+    name = f32_form("fused_mlp_residual_z" if return_hidden
+                    else "fused_mlp_residual", C=C, reg=reg)
+    hidden = w1.shape[-1]
+    rows = x.numel() // C
+    _require(hidden % 128 == 0 and hidden > 0,
+             f"hidden width {hidden} must be a positive multiple of 128")
+    dev, f32 = x.device, torch.float32
+    for what, t, shape in (
+            ("x", x, x.shape), ("ln_scale", ln_scale, (C,)),
+            ("ln_bias", ln_bias, (C,)), ("w1", w1, (C, hidden)),
+            ("b1", b1, (hidden,)), ("w2", w2, (hidden, C)), ("b2", b2, (C,))):
+        _check_tensor(what, t, dev, f32, shape)
+    out = torch.empty_like(x)
+    z = _f32_scratch(rows, hidden, device=dev) if return_hidden else None
+    if rows == 0:
+        return (out, z) if return_hidden else out
+    ln = _f32_scratch(rows, C, device=dev)
+    h = _f32_scratch(rows, hidden, device=dev)
+    lib = _build.load_library("fused_mlp_residual_f32")
+    fn = lib.launch_fused_mlp_residual_f32
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + \
+        [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        status = fn(_ptr(x), _ptr(ln_scale), _ptr(ln_bias), _ptr(w1),
+                    _ptr(b1), _ptr(w2), _ptr(b2), _ptr(out),
+                    None if z is None else _ptr(z), _ptr(ln), _ptr(h), rows,
+                    C, hidden, float(ln_eps), int(bool(use_residual)),
+                    _stream(dev))
+    _build.check(lib, status, name)
+    count_launch(name, C)
+    return (out, z) if return_hidden else out
+
+
 def fused_attention_residual_bwd(x, g, ln_scale, ln_bias, wqkv, bqkv, wproj,
                                  num_heads, seg_len, scale, ln_eps=1e-6,
                                  use_ln=True, use_residual=True, gamma=None,
@@ -717,7 +831,8 @@ def fused_attention_residual_bwd(x, g, ln_scale, ln_bias, wqkv, bqkv, wproj,
     (_fused_block_bwd_impl, dw=False, pallas_attention.py:921-1049): x, g
     [n_seg, seg_len, C] -> (dx, ln [rows, C], attn [rows, C], dqkv
     [rows, 3C], dlns, dlnb, dbqkv, dbproj). The bare form's ln is x
-    itself. On the card: as fused_attention_residual, g bf16 like x.
+    itself. On the card: as fused_attention_residual, g like x (float32:
+    the float32 form, dw=False only).
     gamma, seed, attn_drop, proj_drop: the reg form, as the forward took
     them; with proj_drop > 0 a ninth output gm [rows, C] (the proj-masked
     g) and dbproj sums it (float32, without gamma).
@@ -744,6 +859,11 @@ def fused_attention_residual_bwd(x, g, ln_scale, ln_bias, wqkv, bqkv, wproj,
             scale, ln_eps, use_ln, use_residual, dw=dw, **reg)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
+    if x.dtype == torch.float32:
+        return _fused_attention_residual_bwd_f32(
+            x, g, ln_scale, ln_bias, wqkv, bqkv, wproj, num_heads, seg_len,
+            scale, ln_eps, use_ln, use_residual,
+            gamma is not None or attn_drop > 0.0 or proj_drop > 0.0, dw)
     n_seg, S, C = _check_attention_x(
         x, seg_len, num_heads, "fused_attention_residual_bwd",
         ATTN_LONG_MAX_SEG_LEN, attention_widths(seg_len))
@@ -821,6 +941,64 @@ def fused_attention_residual_bwd(x, g, ln_scale, ln_bias, wqkv, bqkv, wproj,
     return out
 
 
+def _fused_attention_residual_bwd_f32(x, g, ln_scale, ln_bias, wqkv, bqkv,
+                                      wproj, num_heads, seg_len, scale,
+                                      ln_eps, use_ln, use_residual, reg, dw):
+    """fused_attention_residual_bwd's float32 form on the card, dw=False
+    (csrc/fused_attention_residual_bwd_f32.cu): the outputs of the
+    dw=False form, every operand float32, inert, seg_len <= 64, C in
+    F32_C; anything else raises NotImplementedError (f32_form)."""
+    name = f32_form("fused_attention_residual_bwd", seg_len, x.shape[-1],
+                    reg, dw)
+    n_seg, S, C = _check_attention_x(x, seg_len, num_heads, name,
+                                     ATTN_MAX_SEG_LEN, F32_C)
+    dev, f32 = x.device, torch.float32
+    for what, t, shape in (
+            ("x", x, (n_seg, S, C)), ("g", g, (n_seg, S, C)),
+            ("ln_scale", ln_scale, (C,)), ("ln_bias", ln_bias, (C,)),
+            ("wqkv", wqkv, (C, 3 * C)), ("bqkv", bqkv, (3 * C,)),
+            ("wproj", wproj, (C, C))):
+        _check_tensor(what, t, dev, f32, shape)
+    rows = n_seg * S
+    dx = torch.empty_like(x)
+    sums = torch.zeros(6 * C, dtype=f32, device=dev)
+    ln = _f32_scratch(rows, C, device=dev) if use_ln else x.view(rows, C)
+    attn = _f32_scratch(rows, C, device=dev)
+    dqkv = _f32_scratch(rows, 3 * C, device=dev)
+    out = (dx, ln, attn, dqkv, sums[:C], sums[C:2 * C], sums[2 * C:5 * C],
+           sums[5 * C:])
+    if n_seg == 0:
+        return out
+    lib = _build.load_library("fused_attention_residual_bwd_f32")
+    lib.attention_bwd_f32_part_floats.argtypes = [ctypes.c_int] * 2
+    lib.attention_bwd_f32_part_floats.restype = ctypes.c_longlong
+    part = _f32_scratch(lib.attention_bwd_f32_part_floats(rows, C),
+                        device=dev)
+    qkv = _f32_scratch(rows, 3 * C, device=dev)
+    dattn = _f32_scratch(rows, C, device=dev)
+    dln = _f32_scratch(rows, C, device=dev) if use_ln else None
+    stats = _f32_scratch(rows, 2, device=dev) if use_ln else None
+    fn = lib.launch_fused_attention_residual_bwd_f32
+    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 4 + \
+        [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def opt(t):
+        return None if t is None else _ptr(t)
+
+    with torch.cuda.device(dev):
+        status = fn(_ptr(x), _ptr(g), _ptr(ln_scale), _ptr(ln_bias),
+                    _ptr(wqkv), _ptr(bqkv), _ptr(wproj), _ptr(dx),
+                    _ptr(ln) if use_ln else None, _ptr(attn), _ptr(dqkv),
+                    _ptr(sums), _ptr(qkv), _ptr(dattn), opt(dln), opt(stats),
+                    _ptr(part), n_seg, S, C, num_heads, float(scale),
+                    float(ln_eps), int(bool(use_ln)),
+                    int(bool(use_residual)), _stream(dev))
+    _build.check(lib, status, name)
+    count_launch(name if use_ln else name + "_bare", C)
+    return out
+
+
 def _attention_bwd_chain(x, g, ln_scale, ln_bias, wqkv, bqkv, wproj, out,
                          sums, n_seg, S, C, num_heads, scale, ln_eps, use_ln,
                          use_residual, dw, gm=None, gamma=None, seed=0,
@@ -889,7 +1067,7 @@ def mlp_dz(g2, z, w2):
     emit_h=False, pallas_attention.py:1751-1789): g2 [rows, C], z [rows,
     hidden], w2 [hidden, C] -> (dz [rows, hidden], db1 [hidden] float32).
     On the card: bf16 g2, z and w2, C a multiple of 64, hidden a multiple
-    of 128."""
+    of 128; or all three float32, the float32 form (C in F32_C)."""
     if g2.device.type == "cpu":
         return mlp_dz_plain(g2, z, w2)
     if g2.device.type != "cuda":
@@ -899,6 +1077,8 @@ def mlp_dz(g2, z, w2):
              f"{tuple(z.shape)}")
     rows, C = g2.shape
     hidden = z.shape[1]
+    if g2.dtype == torch.float32:
+        return _mlp_dz_f32(g2, z, w2, f32_form("mlp_dz", C=C))
     _require(C % 64 == 0 and C > 0, f"C={C} must be a multiple of 64")
     _require(hidden % 128 == 0 and hidden > 0,
              f"hidden width {hidden} must be a positive multiple of 128")
@@ -925,6 +1105,38 @@ def mlp_dz(g2, z, w2):
     return dz, db1
 
 
+def _mlp_dz_f32(g2, z, w2, name):
+    """mlp_dz's float32 form on the card (csrc/mlp_dz_f32.cu: the product
+    with gelu' in its epilogue, then db1 as column sums in a fixed order):
+    every operand float32, C in F32_C, hidden a multiple of 128."""
+    rows, C = g2.shape
+    hidden = z.shape[1]
+    _require(hidden % 128 == 0 and hidden > 0,
+             f"hidden width {hidden} must be a positive multiple of 128")
+    dev, f32 = g2.device, torch.float32
+    _check_tensor("g2", g2, dev, f32, (rows, C))
+    _check_tensor("z", z, dev, f32, (rows, hidden))
+    _check_tensor("w2", w2, dev, f32, (hidden, C))
+    dz = torch.empty_like(z)
+    db1 = torch.zeros(hidden, dtype=f32, device=dev)
+    if rows == 0:
+        return dz, db1
+    lib = _build.load_library("mlp_dz_f32")
+    lib.mlp_dz_f32_part_floats.argtypes = [ctypes.c_int] * 2
+    lib.mlp_dz_f32_part_floats.restype = ctypes.c_longlong
+    part = _f32_scratch(lib.mlp_dz_f32_part_floats(rows, hidden), device=dev)
+    fn = lib.launch_mlp_dz_f32
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        status = fn(_ptr(g2), _ptr(z), _ptr(w2), _ptr(dz), _ptr(db1),
+                    _ptr(part), rows, C, hidden, _stream(dev))
+    _build.check(lib, status, name)
+    count_launch(name, C)
+    return dz, db1
+
+
 def fused_mlp_bwd(x, g, ln_scale, ln_bias, w1, b1, w2, ln_eps=1e-6):
     """The MLP residual branch's backward from x, with no saved hidden
     (_fused_mlp_bwd_impl, pallas_attention.py:1634-1693): x, g [..., C] ->
@@ -936,6 +1148,8 @@ def fused_mlp_bwd(x, g, ln_scale, ln_bias, w1, b1, w2, ln_eps=1e-6):
                                    ln_eps)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
+    if x.dtype == torch.float32:
+        f32_form("fused_mlp_bwd", C=x.shape[-1])
     C = x.shape[-1]
     hidden = w1.shape[-1]
     rows = x.numel() // C if C else 0
@@ -989,6 +1203,8 @@ def block_diag_attention_fwd(qkv, num_heads, seg_len, scale):
         return block_diag_attention_plain(qkv, num_heads, seg_len, scale)
     if qkv.device.type != "cuda":
         raise ValueError(f"no kernel for device {qkv.device}")
+    if qkv.dtype == torch.float32:
+        f32_form("block_diag_attention", seg_len, qkv.shape[-1] // 3)
     _require(qkv.dim() == 3, f"qkv must be [n_seg, seg_len, 3C], got "
              f"{tuple(qkv.shape)}")
     n_seg, S, C3 = qkv.shape

@@ -24,7 +24,8 @@ from torch import nn
 
 from . import _build
 from . import initializers as init
-from ._build import _check_tensor, _ptr, _require, _stream, count_launch
+from ._build import (_check_tensor, _ptr, _require, _stream, count_launch,
+                     f32_form)
 
 
 # ---------------------------------------------------------------------------
@@ -65,6 +66,8 @@ def _fused_layernorm_fwd(x, scale, bias, eps):
         return fused_layernorm_plain(x, scale, bias, eps)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
+    if x.dtype == torch.float32:
+        f32_form("fused_layernorm", C=x.shape[-1])
     C = x.shape[-1]
     _require(C > 0 and C % 128 == 0,
              f"the LayerNorm kernel needs C a multiple of 128, got {C}")

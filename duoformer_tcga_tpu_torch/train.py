@@ -39,6 +39,7 @@ import math
 import torch
 from torch import nn
 
+from ._device import float32_precision
 from .data import pipeline as data_lib
 from .models.duoformer import draw_seeds
 from .ops.nn import cast_weights_
@@ -213,7 +214,9 @@ def make_train_step(model, dtype=torch.bfloat16, label_smoothing=0.0,
     A model with no backbone and no `transformer` core (the ViT baseline)
     casts nothing and draws no seeds.
     The trainable parameters stay the caller's (float32 masters) and are
-    cast to `dtype` where they are used."""
+    cast to `dtype` where they are used. At dtype float32 (on the card the
+    float32 kernel forms) a step runs, forward and backward, with TF32 off
+    (_device.float32_precision)."""
     unported = dict(accum_steps=accum_steps != 1, augment=augment != "none",
                     jitter=jitter != 0.0, mixup=mixup != 0.0, ema=ema != 0.0,
                     bn_stats=bool(bn_stats), mesh=mesh is not None,
@@ -243,9 +246,10 @@ def make_train_step(model, dtype=torch.bfloat16, label_smoothing=0.0,
         state["optimizer"].zero_grad(set_to_none=True)
         if seeds is None and dropout:
             seeds = draw_seeds(tf.num_seeds(), gen)
-        logits = state["model"](x, seeds=seeds)
-        loss = cross_entropy(logits, labels, label_smoothing, weights)
-        loss.backward()
+        with float32_precision(dtype):
+            logits = state["model"](x, seeds=seeds)
+            loss = cross_entropy(logits, labels, label_smoothing, weights)
+            loss.backward()
         apply_update(state)
         return state, {"loss": loss.detach(),
                        "accuracy": accuracy(logits.detach(), labels)}
