@@ -85,19 +85,29 @@ FAULTS = {
         ATTN, "    } else {\n      // ---- 6.",
         "    } else if (h != Sh::H - 1) {\n      // ---- 6.",
         "fused_attention_residual"),
-    "relu for gelu": (
-        MLP, "a0 = 0.5f * z0 * (1.f + erff(z0 * 0.70710678118654752f));",
-        "a0 = fmaxf(z0, 0.f);", "fused_mlp_residual"),
-    "last hidden chunk skipped": (
-        MLP, "    } else {\n      // ---- 3.",
-        "    } else if (s / S::SLABS != hidden / HC - 1) {\n      // ---- 3.",
+    "relu for gelu (mlp)": (
+        MLP, "float a0 = gelu(acc[c8 * 4 + 2 * hr] + bb.x);",
+        "float a0 = fmaxf(acc[c8 * 4 + 2 * hr] + bb.x, 0.f);",
         "fused_mlp_residual"),
-    "z written after gelu": (
-        MLP, "zout + (row0 + row) * hidden + c0 + col) =\n"
-             "                    __floats2bfloat162_rn(z0, z1);",
-        "zout + (row0 + row) * hidden + c0 + col) =\n"
-        "                    __floats2bfloat162_rn(a0, a1);",
-        "fused_mlp_residual_z"),
+    "last hidden chunk skipped (mlp)": (
+        MLP, "st_shared(tile_addr + out_offset(r, col), pack_bf16(a0, a1));",
+        "st_shared(tile_addr + out_offset(r, col),\n"
+        "                      n0 + BN == g.N ? 0u : pack_bf16(a0, a1));",
+        "fused_mlp_residual"),
+    "z written after gelu (mlp)": (
+        MLP, "pack_bf16(acc[c8 * 4 + 2 * hr] + bb.x,\n"
+             "                                  acc[c8 * 4 + 2 * hr + 1] + bb.y)",
+        "pack_bf16(gelu(acc[c8 * 4 + 2 * hr] + bb.x),\n"
+        "                                  gelu(acc[c8 * 4 + 2 * hr + 1] + "
+        "bb.y))", "fused_mlp_residual_z"),
+    "last k-tile of the TMA ring skipped (mlp)": (
+        MLP, "  const int ktiles = g.K / BK;",
+        "  const int ktiles = g.K / BK - 1;", "fused_mlp_residual"),
+    "second row chunk's masks from chunk-local rows (mlp)": (
+        MLP, "make_drop(seed, SITE_MLP_HID, drop_thr, drop_scale),\n"
+             "                    (uint32_t)row0};",
+        "make_drop(seed, SITE_MLP_HID, drop_thr, drop_scale),\n"
+        "                    (uint32_t)0};", "fused_mlp_residual_reg"),
     "rowsum(dp p) dropped": (
         BWD, "pv[u] * (dpv[u] - rs) * scale", "pv[u] * dpv[u] * scale",
         "fused_attention_residual_bwd"),
@@ -152,7 +162,7 @@ FAULTS = {
     "arithmetic shift in the hash": (
         HASH, "return (x >> 8) < thr;",
         "return (uint32_t)((int32_t)x >> 8) < thr;", "drop_ew_gm"),
-    "MLP output dropout salted as the hidden's": (
+    "mlp output dropout salted as the hidden's": (
         MLP, "make_drop(seed, SITE_MLP_OUT, drop_thr, drop_scale)",
         "make_drop(seed, SITE_MLP_HID, drop_thr, drop_scale)",
         "fused_mlp_residual_reg"),
@@ -257,10 +267,10 @@ FAULTS = {
         "          if (C == 384 && warp * (C / 8) + n * 8 >= 256) continue;\n"
         "          ldsm_b2(b, slab + kk * Sh::WP_LD + warp * (C / 8) + "
         "n * 8,", "fused_attention_residual_c384"),
-    "last 128 input columns skipped at C=384 (MLP fc1)": (
-        MLP, "      for (int kk = 0; kk < S::K1; kk += 16) {",
-        "      for (int kk = 0; kk < (C == 384 && j == S::SLABS1 - 1 ? 0 "
-        ": S::K1); kk += 16) {", "fused_mlp_residual_c384"),
+    "last 128 input columns skipped at C=384 (mlp fc1)": (
+        MLP, "  const int ktiles = g.K / BK;",
+        "  const int ktiles = g.K / BK - (FC1 && g.K == 384 ? 2 : 0);",
+        "fused_mlp_residual_c384"),
     "last head's dwqkv dropped at C=384 (dw form)": (
         BWD, "    if (dw)\n      for (int mt = warp; mt < C / 16; "
              "mt += WARPS) {",

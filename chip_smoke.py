@@ -33,7 +33,8 @@
    bf16-input plain version also at ROUND_REL_TOL in two cases; the dw
    form's extra device memory at 6272 segments at most DW_EXTRA_BYTES), the MLP
    kernels at the 4-scale step's 539,392 rows (held row chunk by row
-   chunk, untimed), the ViT-B/16 baseline's long-segment forms (S=197:
+   chunk, untimed), the MLP forward at a ragged 18,817 rows and, with
+   dropout, at rows its wrapper takes in two chunks (mlp_chunks_case), the ViT-B/16 baseline's long-segment forms (S=197:
    the forward chain alone at 128 segments, full and bare, both launches
    at 64 and 128 and a ragged 7, and at S=87; the backward in both forms,
    full and bare, at 128 segments (timed), 1024 and a ragged 7, and at
@@ -886,6 +887,15 @@ def mlp_case(torch, F, fa, gen, rows, c, hidden, timed, z_form=False,
     res.update(ms=median_ms(kernel, torch), plain_ms=median_ms(plain, torch),
                library_ms=median_ms(library, torch), bound_ms=bound_ms,
                bound_by=bound_by, flops=flops, bytes=nbytes)
+    return res
+
+
+def mlp_chunks_case(torch, F, fa, gen, rows, c, hidden, timed, **kw):
+    """mlp_case at rows the wrapper runs in two or more chunks (its
+    mlp_row_chunks); fails when they fit in one."""
+    res = mlp_case(torch, F, fa, gen, rows, c, hidden, timed, **kw)
+    res["chunks"] = len(fa.mlp_row_chunks(rows, c, hidden))
+    res["ok"] = res["ok"] and res["chunks"] >= 2
     return res
 
 
@@ -1915,6 +1925,9 @@ def _case_specs(torch, F, fa, timed):
     s86dw_pg = part(s86dw, reg=dict(proj_drop=DROP))
     s86dw_all = part(s86dw, reg=both)
     rows_4s = B_TRAIN * 49 * 86
+    # past one chunk of the MLP wrapper's rows at C=768 (ragged)
+    rows_2c = (fa.MLP_SCRATCH_BYTES // (2 * (C + HIDDEN)) // fa.MLP_ROW_TILE
+               * fa.MLP_ROW_TILE + 1001)
     specs = [
         # the serving path's forms (B=64)
         ("fused_attention_residual", B * 49, 6, C, HEADS, False, att, timed),
@@ -1937,6 +1950,11 @@ def _case_specs(torch, F, fa, timed):
         ("fused_mlp_residual rows=222 C=256 hidden=1024", 222, 256, 1024,
          mlp, False),
         ("fused_mlp_residual_z rows=222 C=256 hidden=1024", 222, 256, 1024,
+         mlp_z, False),
+        # a ragged last row tile at the main path's width (128-row tiles)
+        ("fused_mlp_residual rows=18817 (ragged)", rows_s + 1, C, HIDDEN,
+         mlp, False),
+        ("fused_mlp_residual_z rows=18817 (ragged)", rows_s + 1, C, HIDDEN,
          mlp_z, False),
         ("fused_attention_residual_bwd n_seg=13 S=6 C=256 H=4", 13, 6, 256,
          4, False, bwd, False),
@@ -1995,6 +2013,13 @@ def _case_specs(torch, F, fa, timed):
          4, False, att_r, False),
         ("fused_attention_residual_reg_bare n_seg=3 S=50 C=256 H=4", 3, 50,
          256, 4, True, att_rb, False),
+        # the rows of two chunks of the MLP wrapper, dropout on: a chunk
+        # whose masks counted from its own first row would show
+        ("fused_mlp_residual_reg rows=%d (two chunks)" % rows_2c, rows_2c, C,
+         HIDDEN, part(mlp_chunks_case, reg=dict(drop=DROP)), False),
+        ("fused_mlp_residual_reg_z rows=%d (two chunks)" % rows_2c, rows_2c,
+         C, HIDDEN, part(mlp_chunks_case, z_form=True, reg=dict(drop=DROP)),
+         False),
         ("fused_mlp_residual_reg_z rows=222 C=256 hidden=1024", 222, 256,
          1024, mlp_rz, False),
         ("fused_attention_residual_bwd_reg n_seg=13 S=6 C=256 H=4", 13, 6,

@@ -24,7 +24,9 @@ and the drop_ew kernel are in ops/fused_reg.py).
     launches in csrc/attention_chain.cuh)
   fused_mlp_residual:       y = [x +] fc2(gelu_erf(fc1(LN x))), and with
     return_hidden=True also the pre-GELU hidden z
-    kernel: csrc/fused_mlp_residual.cu
+    kernel: csrc/fused_mlp_residual.cu (per chunk of rows, mlp_row_chunks:
+    a LayerNorm pass, then fc1 with GELU and fc2 with the residual, each a
+    TMA-fed wgmma product through a bf16 scratch)
   mlp_dz:                   dz = (g w2^T) * gelu'(z), db1 = colsum(dz)
     kernel: csrc/mlp_dz.cu
   fused_mlp_bwd:            the MLP backward from x (no saved hidden): dx,
@@ -106,6 +108,11 @@ SUPPORTED_C = (256, 512, 768)   # widths every kernel is instantiated for
 # forward (serving and z forms), mlp_dz and the recompute-from-x MLP
 # backward; a launch at 384 counts under its form's name + "_c384"
 SHORT_C = (256, 384, 512, 768)
+# fused_mlp_residual's bf16 kernel holds two scratches for a chunk of rows,
+# the LayerNorm [rows, C] and the post-GELU hidden [rows, hidden] in bf16,
+# together at most this many bytes (csrc/fused_mlp_residual.cu)
+MLP_SCRATCH_BYTES = 192 << 20
+MLP_ROW_TILE = 128            # the kernel's output tile rows
 
 
 def reset_launch_counts():
@@ -717,6 +724,21 @@ def attention_proj(o, x, wproj, bproj, use_residual=True, gamma=None, seed=0,
     return out
 
 
+def mlp_row_chunks(rows, C, hidden):
+    """The row chunks of one fused_mlp_residual call on the card: [(first
+    row, rows)], tiling [0, rows) in order, as few as keep each chunk's
+    scratch (2 * (C + hidden) bytes a row) within MLP_SCRATCH_BYTES, of
+    equal size rounded up to MLP_ROW_TILE rows but the last. Each chunk's
+    first row is global: the dropout masks count from it."""
+    tile = MLP_ROW_TILE
+    cap = max(tile, MLP_SCRATCH_BYTES // (2 * (C + hidden)) // tile * tile)
+    if rows <= 0:
+        return []
+    n = -(-rows // cap)
+    size = -(-(-(-rows // n)) // tile) * tile    # ceil(ceil(rows / n), tile)
+    return [(r, min(size, rows - r)) for r in range(0, rows, size)]
+
+
 def fused_mlp_residual(x, ln_scale, ln_bias, w1, b1, w2, b2, ln_eps=1e-6,
                        use_residual=True, return_hidden=False, gamma=None,
                        seed=0, drop=0.0):
@@ -745,37 +767,62 @@ def fused_mlp_residual(x, ln_scale, ln_bias, w1, b1, w2, b2, ln_eps=1e-6,
     _require(hidden % 128 == 0 and hidden > 0,
              f"hidden width {hidden} must be a positive multiple of 128")
     dev, f32, bf16 = x.device, torch.float32, torch.bfloat16
+    # what the LayerNorm pass reads is checked first: its launch overlaps
+    # the rest of the host work
     _check_tensor("x", x, dev, bf16, x.shape)
     _check_tensor("ln_scale", ln_scale, dev, f32, (C,))
     _check_tensor("ln_bias", ln_bias, dev, f32, (C,))
-    _check_tensor("w1", w1, dev, bf16, (C, hidden))
-    _check_tensor("b1", b1, dev, f32, (hidden,))
-    _check_tensor("w2", w2, dev, bf16, (hidden, C))
-    _check_tensor("b2", b2, dev, f32, (C,))
-    if gamma is not None:
-        _check_tensor("gamma", gamma, dev, f32, (C,))
-    d_thr, d_scale = drop_args(drop)
-    out = torch.empty_like(x)
-    z = (torch.empty(rows, hidden, dtype=bf16, device=dev) if return_hidden
-         else None)
-    if rows == 0:
-        return (out, z) if return_hidden else out
     lib = _build.load_library("fused_mlp_residual")
-    fn = lib.launch_fused_mlp_residual
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + \
-        [ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-         ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    ln_fn, fn = lib.launch_mlp_layernorm, lib.launch_mlp_products
+    if fn.argtypes is None:
+        ln_fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + \
+            [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + \
+            [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+             ctypes.c_void_p]
+        ln_fn.restype = fn.restype = ctypes.c_int
+    chunks = mlp_row_chunks(rows, C, hidden)
+    cap = chunks[0][1] if chunks else 0
+    ln_rows = -(-cap // MLP_ROW_TILE) * MLP_ROW_TILE   # ln_kernel's blocks
+    scratch = torch.empty(ln_rows * C + cap * hidden, dtype=bf16, device=dev)
+    ln = scratch.data_ptr()
+    h = ln + 2 * ln_rows * C
+
+    def at(t, r0, width):   # row r0 of a contiguous bf16 [rows, width]
+        return ctypes.c_void_p(t.data_ptr() + 2 * r0 * width)
+
+    def layernorm(r0, n):
+        _build.check(lib, ln_fn(at(x, r0, C), _ptr(ln_scale), _ptr(ln_bias),
+                                ln, n, C, float(ln_eps), _stream(dev)),
+                     "fused_mlp_residual (LayerNorm)")
+
     with torch.cuda.device(dev):
-        status = fn(_ptr(x), _ptr(ln_scale), _ptr(ln_bias), _ptr(w1),
-                    _ptr(b1), _ptr(w2), _ptr(b2), _ptr(out),
-                    _ptr(z) if return_hidden else None, rows, C, hidden,
-                    float(ln_eps), int(bool(use_residual)),
-                    None if gamma is None else _ptr(gamma), int32_seed(seed),
-                    d_thr, d_scale, _stream(dev))
-    name = _reg_name("fused_mlp_residual", gamma, drop)
-    name += "_z" if return_hidden else ""
-    _build.check(lib, status, name)
+        if chunks:
+            layernorm(*chunks[0])
+        _check_tensor("w1", w1, dev, bf16, (C, hidden))
+        _check_tensor("b1", b1, dev, f32, (hidden,))
+        _check_tensor("w2", w2, dev, bf16, (hidden, C))
+        _check_tensor("b2", b2, dev, f32, (C,))
+        if gamma is not None:
+            _check_tensor("gamma", gamma, dev, f32, (C,))
+        d_thr, d_scale = drop_args(drop)
+        out = torch.empty_like(x)
+        z = (torch.empty(rows, hidden, dtype=bf16, device=dev)
+             if return_hidden else None)
+        if rows == 0:
+            return (out, z) if return_hidden else out
+        name = _reg_name("fused_mlp_residual", gamma, drop)
+        name += "_z" if return_hidden else ""
+        for i, (r0, n) in enumerate(chunks):
+            if i:
+                layernorm(r0, n)
+            status = fn(at(x, r0, C), _ptr(w1), _ptr(b1), _ptr(w2),
+                        _ptr(b2), at(out, r0, C),
+                        at(z, r0, hidden) if return_hidden else None,
+                        ln, h, n, r0, C, hidden, int(bool(use_residual)),
+                        None if gamma is None else _ptr(gamma),
+                        int32_seed(seed), d_thr, d_scale, _stream(dev))
+            _build.check(lib, status, name)
     count_launch(name, C)
     return (out, z) if return_hidden else out
 

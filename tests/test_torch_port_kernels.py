@@ -8,6 +8,8 @@ both sides unchanged. Bars: 3e-5 for the fused entries and the regroup
 (the bar of test_pallas_attention.py:90), 1e-5 for single ops.
 """
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -79,6 +81,30 @@ def test_fused_mlp_residual_matches_pallas():
     ref = pa.fused_mlp_residual(*_j(*arrays), 1e-6)
     out = fa.fused_mlp_residual(*_t(*arrays), 1e-6)
     _close(out, ref)
+
+
+@pytest.mark.parametrize("rows, C, hidden", [
+    (1, 256, 1024), (222, 768, 3072), (3200, 384, 1536),
+    (18816, 768, 3072), (26113, 768, 3072), (37632, 768, 3072),
+    (269696, 768, 3072), (539392, 768, 3072)])
+def test_mlp_row_chunks_tile_the_rows_within_the_scratch(rows, C, hidden):
+    """The card's MLP wrapper runs its kernels over these chunks: they tile
+    [0, rows) in order from global first rows (the dropout masks count from
+    them), each chunk's LN scratch (rows rounded up to the row tile) and
+    hidden scratch fit in MLP_SCRATCH_BYTES, and there are no more chunks
+    than that bound forces."""
+    chunks = fa.mlp_row_chunks(rows, C, hidden)
+    starts = [r0 for r0, _ in chunks]
+    assert starts == list(itertools.accumulate(
+        [0] + [n for _, n in chunks[:-1]]))
+    assert sum(n for _, n in chunks) == rows and all(n > 0 for _, n in chunks)
+    tile = fa.MLP_ROW_TILE
+    for _, n in chunks:
+        ln_rows = -(-n // tile) * tile
+        assert 2 * (ln_rows * C + n * hidden) <= fa.MLP_SCRATCH_BYTES
+    assert all(n % tile == 0 for _, n in chunks[:-1])
+    most = fa.MLP_SCRATCH_BYTES // (2 * (C + hidden)) // tile * tile
+    assert len(chunks) == -(-rows // most)
 
 
 def test_plain_versions_keep_bf16_rounding_points():
