@@ -48,7 +48,8 @@ EW = f"{PKG}/csrc/drop_ew.cu"
 MLPB = f"{PKG}/csrc/fused_mlp_bwd.cu"
 LN = f"{PKG}/csrc/layernorm.cu"
 BDA = f"{PKG}/csrc/block_diag_attention.cu"
-ATTN86 = f"{PKG}/csrc/fused_attention_residual_s86.cu"
+GEMM = f"{PKG}/csrc/gemm_sm90.cuh"
+A90 = f"{PKG}/csrc/attention_sm90.cu"
 ATTN886 = f"{PKG}/csrc/fused_attention_residual_int8_s86.cu"
 BWD86 = f"{PKG}/csrc/fused_attention_residual_bwd_s86.cu"
 CHAIN = f"{PKG}/csrc/attention_chain.cuh"
@@ -61,11 +62,7 @@ ATTN32 = f"{PKG}/csrc/fused_attention_residual_f32.cu"
 # trunk_trains_case) where a fault of train.py shows
 TRUNK = "hybrid_trunk_trains"
 CHUNK_LOOP = "for (int ci = 0; ci < nchunks; ++ci) {"
-ROW_MAX_LOOP = ("  // ---- the row max over every key tile ----\n"
-                "  for (int kt = 0; kt * 4 < n16; ++kt) {")
 STRIP_CALL = "strip_attention<RT>(sQKV, QKV_LD, warp, S, scale, lane);"
-STRIP_CALL86 = ("strip_attention<RT>(sQKV, QKV_LD, warp, S, scale, lane, "
-                "hdrop, tok0);")
 PARALLEL = 8
 
 # name: (file, text, replacement, the kernel form whose cases must fail
@@ -86,22 +83,22 @@ FAULTS = {
         "    } else if (h != Sh::H - 1) {\n      // ---- 6.",
         "fused_attention_residual"),
     "relu for gelu (mlp)": (
-        MLP, "float a0 = gelu(acc[c8 * 4 + 2 * hr] + bb.x);",
+        GEMM, "float a0 = gelu(acc[c8 * 4 + 2 * hr] + bb.x);",
         "float a0 = fmaxf(acc[c8 * 4 + 2 * hr] + bb.x, 0.f);",
         "fused_mlp_residual"),
     "last hidden chunk skipped (mlp)": (
-        MLP, "st_shared(tile_addr + out_offset(r, col), pack_bf16(a0, a1));",
+        GEMM, "st_shared(tile_addr + out_offset(r, col), pack_bf16(a0, a1));",
         "st_shared(tile_addr + out_offset(r, col),\n"
         "                      n0 + BN == g.N ? 0u : pack_bf16(a0, a1));",
         "fused_mlp_residual"),
     "z written after gelu (mlp)": (
-        MLP, "pack_bf16(acc[c8 * 4 + 2 * hr] + bb.x,\n"
-             "                                  acc[c8 * 4 + 2 * hr + 1] + bb.y)",
+        GEMM, "pack_bf16(acc[c8 * 4 + 2 * hr] + bb.x,\n"
+              "                          acc[c8 * 4 + 2 * hr + 1] + bb.y)",
         "pack_bf16(gelu(acc[c8 * 4 + 2 * hr] + bb.x),\n"
-        "                                  gelu(acc[c8 * 4 + 2 * hr + 1] + "
-        "bb.y))", "fused_mlp_residual_z"),
+        "                          gelu(acc[c8 * 4 + 2 * hr + 1] + bb.y))",
+        "fused_mlp_residual_z"),
     "last k-tile of the TMA ring skipped (mlp)": (
-        MLP, "  const int ktiles = g.K / BK;",
+        GEMM, "  const int ktiles = g.K / BK;",
         "  const int ktiles = g.K / BK - 1;", "fused_mlp_residual"),
     "second row chunk's masks from chunk-local rows (mlp)": (
         MLP, "make_drop(seed, SITE_MLP_HID, drop_thr, drop_scale),\n"
@@ -205,20 +202,6 @@ FAULTS = {
         BDA, "in[u] = live && c >= c0 && c < c0 + S;",
         "in[u] = live && c >= c0 - S && c < c0 + S;",
         "block_diag_attention"),
-    "score mask sees the padding rows 86..95 (s86)": (
-        ATTN86, STRIP_CALL86, STRIP_CALL86.replace(", S,", ", RT,"),
-        "fused_attention_residual_s86"),
-    "head 1's o over head 0's columns (s86)": (
-        ATTN86, "store_strip(sQKV, QKV_LD, warp, S, o, row0, C, h * D, lane);",
-        "store_strip(sQKV, QKV_LD, warp, S, o, row0, C, (h == 1 ? 0 : h) * "
-        "D, lane);", "fused_attention_residual_s86"),
-    "last query strip skipped (s86)": (
-        ATTN86, "if (warp < MT && warp * 16 < S) {",
-        "if (warp < MT - 1 && warp * 16 < S) {",
-        "fused_attention_residual_s86"),
-    "residual left out (s86 proj)": (
-        ATTN86, "        if (use_residual) {", "        if (false) {",
-        "fused_attention_residual_s86_proj"),
     "score mask sees the padding rows 86..95 (int8 s86)": (
         ATTN886, STRIP_CALL, STRIP_CALL.replace(", S,", ", RT,"),
         "fused_attention_residual_int8_s86"),
@@ -246,13 +229,10 @@ FAULTS = {
         CHAIN, CHUNK_LOOP,
         "for (int ci = 0; ci < nchunks - (dw ? 1 : 0); ++ci) {",
         "fused_attention_residual_bwd_s86_dw"),
-    "keys at or past S not masked (long core)": (
+    "keys at or past S not masked (long backward)": (
         LONG, "bool live_key(int key, int S) { return key < S; }",
         "bool live_key(int key, int S) { return key < RTL; }",
-        "block_diag_attention_long"),
-    "row max over the first key tile only (long core)": (
-        LONG, ROW_MAX_LOOP, ROW_MAX_LOOP.replace("kt * 4 < n16", "kt < 1"),
-        "block_diag_attention_long"),
+        "fused_attention_residual_bwd_long"),
     "key strips skip the last query strip (long backward)": (
         LONG, "const int nq = n16;  // query strips the key pass reads",
         "const int nq = n16 - 1;  // query strips the key pass reads",
@@ -268,8 +248,9 @@ FAULTS = {
         "          ldsm_b2(b, slab + kk * Sh::WP_LD + warp * (C / 8) + "
         "n * 8,", "fused_attention_residual_c384"),
     "last 128 input columns skipped at C=384 (mlp fc1)": (
-        MLP, "  const int ktiles = g.K / BK;",
-        "  const int ktiles = g.K / BK - (FC1 && g.K == 384 ? 2 : 0);",
+        GEMM, "  const int ktiles = g.K / BK;",
+        "  const int ktiles = g.K / BK - (EPI == EPI_GELU && g.K == 384 ? 2 "
+        ": 0);",
         "fused_mlp_residual_c384"),
     "last head's dwqkv dropped at C=384 (dw form)": (
         BWD, "    if (dw)\n      for (int mt = warp; mt < C / 16; "
@@ -277,13 +258,6 @@ FAULTS = {
         "    if (dw && !(C == 384 && h == Sh::H - 1))\n"
         "      for (int mt = warp; mt < C / 16; mt += WARPS) {",
         "fused_attention_residual_bwd_dw_c384"),
-    "attention mask counters from the padded block row (s86 reg core)": (
-        ATTN86, "const uint32_t tok0 = (uint32_t)blockIdx.x * (uint32_t)S;",
-        "const uint32_t tok0 = (uint32_t)blockIdx.x * (uint32_t)RT;",
-        "fused_attention_residual_s86_reg"),
-    "gamma left out (s86 reg proj)": (
-        ATTN86, "        if (gamma != nullptr) {", "        if (false) {",
-        "fused_attention_residual_s86_proj_reg"),
     "p dropped for o and dv but dp not (s86 reg backward)": (
         BWD86, "    drop_bits(dp, km, hdrop);   // dp dropped and rescaled "
                "(reg form)\n", "",
@@ -292,6 +266,46 @@ FAULTS = {
         CHAIN, "const WgradProblem p1{attnc, gacc, dwA, C, C};",
         "const WgradProblem p1{attnc, gsrc, dwA, C, C};",
         "fused_attention_residual_bwd_s86_reg_dw"),
+    "key mask dropped (attn)": (
+        A90, "sc[j] = key < S ? __fmul_rn(sc[j], scale) : -CUDART_INF_F;",
+        "sc[j] = __fmul_rn(sc[j], scale);", "fused_attention_residual_s86"),
+    "masks from chunk-local tokens (attn reg core)": (
+        A90, "(uint32_t)seg0 * (uint32_t)S, (long)cap_rows,",
+        "0u, (long)cap_rows,",
+        "fused_attention_residual_s86_reg"),
+    "mask counters from the unit's padded rows (attn reg core)": (
+        A90, "tok_base + (uint32_t)seg * (uint32_t)S;",
+        "tok_base + (uint32_t)seg * (uint32_t)NK;",
+        "fused_attention_residual_s86_reg"),
+    "last k-step of P.V skipped (attn)": (
+        A90, "for (int kb = 0; kb < NK / 16; ++kb)\n    wgmma_pv(",
+        "for (int kb = 0; kb < NK / 16 - 1; ++kb)\n    wgmma_pv(",
+        "block_diag_attention_long"),
+    "qkv bias left out of the epilogue (attn)": (
+        GEMM, "    const float2 bb = *reinterpret_cast<const float2*>(bias + n0 "
+              "+ col);",
+        "    const float2 bb = make_float2(0.f, 0.f);",
+        "fused_attention_residual_s86"),
+    "core's tensor map over its buffer's capacity (attn)": (
+        A90, "tensor_map(&tm, qkv, 3 * H * HD, n_seg * S, NK)",
+        "tensor_map(&tm, qkv, 3 * H * HD, (int)cap_rows, NK)",
+        "block_diag_attention_long"),
+    "head 1's o over head 0's columns (attn)": (
+        A90, "(row0 + 64 * m + r) * C + h * HD +",
+        "(row0 + 64 * m + r) * C + (h == 1 ? 0 : h) * HD +",
+        "fused_attention_residual_s86"),
+    "last query strip skipped (attn)": (
+        A90, "for (int m = cw; m < strips; m += 2)",
+        "for (int m = cw; m < strips - 1; m += 2)",
+        "fused_attention_residual_long"),
+    "residual left out (attn proj)": (
+        GEMM, "if (g.use_residual && row < g.M) {", "if (false) {",
+        "fused_attention_residual_s86_proj"),
+    "gamma left out (attn reg proj)": (
+        GEMM, "            if (g.gamma != nullptr) {\n"
+              "              y0 = __fmul_rn",
+        "            if (false) {\n              y0 = __fmul_rn",
+        "fused_attention_residual_s86_proj_reg"),
     "single-pass TF32 in the scores product (f32)": (
         F32, "      a = fmaf(sq[r * ATT_LD + d], sk[j * ATT_LD + d], a);",
         "      a = fmaf(__uint_as_float(__float_as_uint(sq[r * ATT_LD + d]) "

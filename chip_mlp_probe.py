@@ -8,9 +8,10 @@ and spills; "already built" when its library is there). For
 fused_mlp_residual at the shapes of PERF.md §6's #2 and #3 rows: the
 call's time as chip_smoke.py times it (CUDA events around one call,
 median of 20: the wrapper's host time before its first launch
-included), its launches' device times
-(torch.profiler over 10 calls), the wrapper's host time a call (200
-calls at 128 rows, which the card finishes first), and, as yardsticks the
+included), its launches' device times a call (torch.profiler over 10
+calls: each kernel's mean launch times its launches a call, since the
+profiler may keep fewer), the wrapper's host time a call (200 calls at
+128 rows, which the card finishes first), and, as yardsticks the
 port never calls, torch.matmul of the two products alone. Prints the
 card's name and power limit first and one JSON object last. Needs one
 CUDA device and nvcc; imports nothing of JAX.
@@ -37,7 +38,7 @@ def launch_name(key):
     """A profiler kernel name -> ln, fc1 or fc2."""
     if "ln_kernel" in key:
         return "ln"
-    return "fc1" if "mlp_gemm<true>" in key else "fc2"
+    return "fc1" if "gemm_sm90<0>" in key else "fc2"
 
 
 def main() -> int:
@@ -81,17 +82,20 @@ def main() -> int:
             for _ in range(10):
                 call()
             torch.cuda.synchronize()
-        split = {}
+        # the profiler may keep fewer than the 10 calls' launches: a
+        # kernel's time a call is its mean launch times its launches a call
+        chunks = len(fa.mlp_row_chunks(rows, c, hidden))
+        total, counts = {}, {}
         for e in prof.key_averages():
             if e.device_type == torch.autograd.DeviceType.CUDA and (
-                    "mlp_gemm" in e.key or "ln_kernel" in e.key):
+                    "gemm_sm90" in e.key or "ln_kernel" in e.key):
                 name = launch_name(e.key)
-                split[name] = split.get(name, 0.0) + (
-                    e.device_time_total / 10 / 1e3)
+                total[name] = total.get(name, 0.0) + e.device_time_total
+                counts[name] = counts.get(name, 0) + e.count
+        split = {k: v / counts[k] / 1e3 * chunks for k, v in total.items()}
         h = x.new_empty(rows, hidden)
         res = dict(rows=rows, C=c, hidden=hidden, z_form=z_form,
-                   reg=reg, ms=ms, launch_ms=split,
-                   chunks=len(fa.mlp_row_chunks(rows, c, hidden)),
+                   reg=reg, ms=ms, launch_ms=split, chunks=chunks,
                    matmul_fc1_ms=cs.median_ms(lambda: x @ w1, torch),
                    matmul_fc2_ms=cs.median_ms(lambda: h @ w2, torch))
         results.append(res)

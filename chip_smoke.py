@@ -22,7 +22,8 @@
    of the 3- and 4-scale serving paths (B=64: each of the two launches of
    the bf16 and of the int8 branch alone at 3136 segments of S=86, both
    launches through the wrappers there, at 7 segments, bare at 5 and at
-   S=65; a second launch of each launch alone bit-identical), the S<=64
+   S=65 (also at C=512 with one segment); a second launch of each launch
+   alone bit-identical), the S<=64
    kernels at S=22 (3136 segments), the attention backward of the 3- and
    4-scale training steps (both forms, full and bare, at S=86 over 6272
    segments (B=128), 3136 and a ragged 7 or 5, at S=65, and at S=22 over
@@ -36,7 +37,8 @@
    chunk, untimed), the MLP forward at a ragged 18,817 rows and, with
    dropout, at rows its wrapper takes in two chunks (mlp_chunks_case), the ViT-B/16 baseline's long-segment forms (S=197:
    the forward chain alone at 128 segments, full and bare, both launches
-   at 64 and 128 and a ragged 7, and at S=87; the backward in both forms,
+   at 64 and 128 and a ragged 7, at S=87, and at C=512 with one segment;
+   the backward in both forms,
    full and bare, at 128 segments (timed), 1024 and a ragged 7, and at
    S=87, held as attention_bwd_big_case holds them, below 1e8 elements
    also at every bar against the float32-input plain version, the dw
@@ -49,12 +51,17 @@
    dw at 6272 segments, held as attention_bwd_big_case holds them, the
    dw form's scratch, geff and gm at most DW_EXTRA_BYTES; small ragged,
    bare and S=65 shapes; the masks exactly at S=86, forward and
-   backward; the bf16 bars scaled by max gamma / (1 - rate)); the
+   backward; the core with the attention dropout over 1001 segments,
+   which its wrapper must take in chunks of segments with a ragged last
+   one (a spy on attention_seg_chunks reads the chunks it used); the bf16
+   bars scaled by max gamma / (1 - rate)); the
    block-diagonal attention op's long core at S=197 over 128 segments
-   and 7, at S=86 over 3136 (from 1e8 elements held as the backward at
-   that size), at S=65, and with scores spread ~150 units (the softmax
-   must subtract its row max) and ~0.25 units (the mask must drop every
-   padding key)), and each at one small odd shape:
+   and 7, at S=86 and S=65 over 3136 (from 1e8 elements held as the
+   backward at that size), at S=65 over 3, with scores spread ~150 units
+   (the softmax must subtract its row max) and ~0.25 units (the mask must
+   drop every padding key), and on the first 7 segments of a tensor whose
+   next two are NaN (its output must be finite: no read past its rows)),
+   and each at one small odd shape:
    kernel in bf16,
    plain version on the same inputs upcast to float32 (the int8 forms'
    plain versions take the same bf16 x and int8 weights, so both round at
@@ -376,9 +383,8 @@ SOURCES = {
         CSRC + "fused_attention_residual_bwd.cu",
     "fused_layernorm": CSRC + "layernorm.cu",
     "block_diag_attention": CSRC + "block_diag_attention.cu",
-    "fused_attention_residual_s86": CSRC + "fused_attention_residual_s86.cu",
-    "fused_attention_residual_s86_proj":
-        CSRC + "fused_attention_residual_s86.cu",
+    "fused_attention_residual_s86": CSRC + "attention_sm90.cu",
+    "fused_attention_residual_s86_proj": CSRC + "attention_sm90.cu",
     "fused_attention_residual_int8_s86":
         CSRC + "fused_attention_residual_int8_s86.cu",
     "fused_attention_residual_int8_s86_proj":
@@ -391,17 +397,15 @@ SOURCES = {
         CSRC + "fused_attention_residual_bwd_s86.cu",
     "fused_attention_residual_bwd_s86_dw_bare":
         CSRC + "fused_attention_residual_bwd_s86.cu",
-    "fused_attention_residual_long": CSRC + "attention_long.cu",
-    "fused_attention_residual_long_bare": CSRC + "attention_long.cu",
+    "fused_attention_residual_long": CSRC + "attention_sm90.cu",
+    "fused_attention_residual_long_bare": CSRC + "attention_sm90.cu",
     "fused_attention_residual_bwd_long": CSRC + "attention_long.cu",
     "fused_attention_residual_bwd_long_bare": CSRC + "attention_long.cu",
     "fused_attention_residual_bwd_long_dw": CSRC + "attention_long.cu",
     "fused_attention_residual_bwd_long_dw_bare": CSRC + "attention_long.cu",
-    "block_diag_attention_long": CSRC + "attention_long.cu",
-    "fused_attention_residual_s86_reg":
-        CSRC + "fused_attention_residual_s86.cu",
-    "fused_attention_residual_s86_proj_reg":
-        CSRC + "fused_attention_residual_s86.cu",
+    "block_diag_attention_long": CSRC + "attention_sm90.cu",
+    "fused_attention_residual_s86_reg": CSRC + "attention_sm90.cu",
+    "fused_attention_residual_s86_proj_reg": CSRC + "attention_sm90.cu",
     "fused_attention_residual_bwd_s86_reg":
         CSRC + "fused_attention_residual_bwd_s86.cu",
     "fused_attention_residual_bwd_s86_reg_dw":
@@ -1554,16 +1558,24 @@ def layernorm_case(torch, F, fa, gen, rows, c, timed):
 
 
 def block_attention_case(torch, F, fa, gen, n_seg, S, c, heads, timed,
-                         qkv_std=1.5):
+                         qkv_std=1.5, nan_tail=False):
     """The block-diagonal attention kernel against its plain version; q, k,
     v drawn with qkv_std, so that the scores spread about qkv_std^2
     units. From UPCAST_BARS_MAX output elements, every bar against the
     plain version on the same bf16 inputs (which rounds where the kernel
     rounds) and the relative L2 bar against the float32-input one, as
-    attention_bwd_big_case holds the backward at that size."""
+    attention_bwd_big_case holds the backward at that size. nan_tail: qkv
+    is the first n_seg segments of a tensor whose next two are NaN (a
+    kernel reading past its rows, even as masked keys, turns NaN); the
+    output must be finite."""
     dev, bf16 = "cuda", torch.bfloat16
     qkv = (torch.randn(n_seg, S, 3 * c, generator=gen) * qkv_std).to(dev,
                                                                       bf16)
+    if nan_tail:
+        t = torch.full((n_seg + 2, S, 3 * c), float("nan"), dtype=bf16,
+                       device=dev)
+        t[:n_seg] = qkv
+        qkv = t[:n_seg]
     scale = (c // heads) ** -0.5
 
     def kernel():
@@ -1585,6 +1597,9 @@ def block_attention_case(torch, F, fa, gen, n_seg, S, c, heads, timed,
                    f32_max_abs_err=f32["max_abs_err"], f32_close=f32["close"],
                    ok=res["ok"] and f32["rel_err"] <= BRANCH_REL_TOL)
         del out
+    if nan_tail:
+        finite = bool(torch.isfinite(kernel()).all())
+        res.update(finite=finite, ok=res["ok"] and finite)
     if not timed:
         return res
     D = c // heads
@@ -1881,6 +1896,29 @@ def attention_s86_case(torch, F, fa, gen, n_seg, S, c, heads, bare, timed,
     return res
 
 
+def chunked_core_case(torch, F, fa, gen, n_seg, S, c, heads, bare, timed,
+                      case):
+    """`case` (a 65..197-token core case) at a shape whose core call the
+    wrapper must take in at least two chunks of segments, the last one
+    ragged: fails when the wrapper's call took one chunk or equal ones
+    (the chunks it used are read by a spy on attention_seg_chunks)."""
+    plan, used = fa.attention_seg_chunks, []
+
+    def spy(*a, **kw):
+        used.append(plan(*a, **kw))
+        return used[-1]
+
+    fa.attention_seg_chunks = spy
+    try:
+        res = case(torch, F, fa, gen, n_seg, S, c, heads, bare, timed)
+    finally:
+        fa.attention_seg_chunks = plan
+    chunks = used[0] if used else []
+    ragged = len(chunks) >= 2 and chunks[-1][1] < chunks[0][1]
+    res.update(chunks=len(chunks), ok=res["ok"] and ragged)
+    return res
+
+
 def _case_specs(torch, F, fa, timed):
     """[(label, kernel form, run(generator))]: each form at its main path's
     shape (label = the form), then the other shapes."""
@@ -1915,6 +1953,7 @@ def _case_specs(torch, F, fa, timed):
     # the reg forms at 65..86 tokens (R4r: attention dropout 0.1 and
     # LayerScale in training, gamma alone in serving)
     s86_core_r = part(s86_core, reg=dict(gamma=False, attn_drop=DROP))
+    s86_core_r_chunks = part(chunked_core_case, case=s86_core_r)
     s86_proj_g = part(s86_proj, reg={})
     s86_proj_pg = part(s86_proj, reg=dict(proj_drop=DROP))
     att_ag = part(att, reg=dict(attn_drop=DROP))
@@ -2078,6 +2117,8 @@ def _case_specs(torch, F, fa, timed):
          HEADS, False, att, False),
         ("fused_attention_residual_s86 both launches bare n_seg=5 S=86 C=256 "
          "H=4", 5, 86, 256, 4, True, att, False),
+        ("fused_attention_residual_s86 both launches n_seg=1 S=65 C=512 H=8",
+         1, 65, 512, 8, False, att, False),
         ("fused_attention_residual_s86 both launches n_seg=3 S=65 C=512 H=8",
          3, 65, 512, 8, False, att, False),
         ("fused_attention_residual_s86 core bare n_seg=5 S=86 C=256 H=4", 5,
@@ -2125,6 +2166,9 @@ def _case_specs(torch, F, fa, timed):
          HEADS, False, s86_core_r, False),
         ("fused_attention_residual_s86_reg core bare n_seg=5 S=86 C=256 H=4",
          5, 86, 256, 4, True, s86_core_r, False),
+        ("fused_attention_residual_s86_reg core over chunks of segments, the "
+         "last ragged, n_seg=1001 S=86", 1001, 86, C, HEADS, False,
+         s86_core_r_chunks, False),
         ("fused_attention_residual_s86_reg both launches all three n_seg=7 "
          "S=86", 7, 86, C, HEADS, False, att_r, False),
         ("fused_attention_residual_s86_reg both launches bare attention "
@@ -2227,6 +2271,7 @@ def _case_specs(torch, F, fa, timed):
     # backward at the training step's shapes only in the timed run
     bda_wide = part(bda, qkv_std=12.0)
     bda_narrow = part(bda, qkv_std=0.5)
+    bda_nan = part(bda, nan_tail=True)
     longb = part(attention_bwd_big_case, upcast_bars=True)
     longb_twin = part(attention_bwd_big_case, twin=True, upcast_bars=True)
     longdw = part(attention_bwd_big_case, dw=True, upcast_bars=True)
@@ -2243,10 +2288,14 @@ def _case_specs(torch, F, fa, timed):
         ("block_diag_attention_long", B_TRAIN, S_V, C, HEADS, bda, timed),
         ("block_diag_attention_long n_seg=3136 S=86", B * 49, 86, C, HEADS,
          bda, timed),
+        ("block_diag_attention_long n_seg=3136 S=65", B * 49, 65, C, HEADS,
+         bda, timed),
         ("fused_attention_residual_long both launches n_seg=7 S=197", 7, S_V,
          C, HEADS, False, att, False),
         ("fused_attention_residual_long both launches n_seg=7 S=87 C=512 H=8",
          7, 87, 512, 8, False, att, False),
+        ("fused_attention_residual_long both launches n_seg=1 S=197 C=512 "
+         "H=8", 1, S_V, 512, 8, False, att, False),
         ("fused_attention_residual_long_bare both launches n_seg=5 S=87 C=256 "
          "H=4", 5, 87, 256, 4, True, att, False),
         ("block_diag_attention_long n_seg=7 S=197", 7, S_V, C, HEADS, bda,
@@ -2257,6 +2306,8 @@ def _case_specs(torch, F, fa, timed):
          7, S_V, C, HEADS, bda_wide, False),
         ("block_diag_attention_long n_seg=7 S=197 scores spread ~0.25",
          7, S_V, C, HEADS, bda_narrow, False),
+        ("block_diag_attention_long n_seg=7 S=197 on the first rows of a "
+         "tensor whose later rows are NaN", 7, S_V, C, HEADS, bda_nan, False),
         ("block_diag_attention_long n_seg=5 S=65 scores spread ~0.25", 5, 65,
          C, HEADS, bda_narrow, False),
         ("fused_attention_residual_bwd_long n_seg=7 S=197 (rounding points)",

@@ -1,6 +1,5 @@
-// The attention branch for segments of 87 to 197 tokens, forward and
-// backward, and the block-diagonal attention op from 65 tokens, for Hopper
-// (sm_90a).
+// The attention branch's backward for segments of 87 to 197 tokens, for
+// Hopper (sm_90a).
 //
 // The branch is
 //     y = [x +] proj( block-diagonal softmax attention( qkv( [LN](x) ) ) )
@@ -9,66 +8,49 @@
 // head h at h*64), wproj [C, C]; LayerNorm scale/bias and biases float32.
 //
 // Replaces: duoformer_tcga_tpu/ops/pallas_attention.py
-//   * _kernel (#10, driven by _block_attention_impl): the block-diagonal
-//     attention op, o = softmax(q k^T * scale) v within each segment, at
-//     65 <= S <= 197 (S <= 64 stays in csrc/block_diag_attention.cu);
-//   * _fused_block_kernel (#1, inert, driven by _fused_block_impl) at 87 <=
-//     S <= 197: every block of the ViT-B/16 baseline (models/vit.py,
-//     S = 197 = 196 patches + CLS, one segment a 128-row tile in
-//     _segments_per_tile), full form (LN + residual) and bare form;
-//   * _fused_block_bwd_kernel (#4, inert, dw=False and dw=True, driven by
-//     _fused_block_bwd_impl) at the same lengths.
-// The proj of the forward is csrc/fused_attention_residual_s86.cu's
-// attention_proj launch, which takes any row count.
+// _fused_block_bwd_kernel (#4, inert, dw=False and dw=True, driven by
+// _fused_block_bwd_impl) at 87 <= S <= 197: every block of the ViT-B/16
+// baseline (models/vit.py, S = 197 = 196 patches + CLS, one segment a
+// 128-row tile in _segments_per_tile), full form (LN + residual) and bare
+// form. The forward at 65..197 tokens, and the block-diagonal attention op
+// there, are csrc/attention_sm90.cu.
 //
 // Rounding points are the TPU kernel's: ln in bf16; qkv in bf16 after its
 // bias; scores in float32 times scale; the softmax exp(s - rowmax) /
 // rowsum in float32; the normalised p cast to bf16 for P.V (and for dv),
 // p in float32 in the softmax Jacobian; P.V accumulated in float32 and
-// each head's output cast once; in the backward each head's slice of
-// dattn = g wproj^T in bf16, ds * scale, dq, dk, dv in bf16, dln in
-// float32 and dx rounded once. (FlashAttention's online softmax casts the
-// unnormalised exp and divides afterwards: another rounding point, not
-// used here.)
+// each head's output cast once; each head's slice of dattn = g wproj^T in
+// bf16, ds * scale, dq, dk, dv in bf16, dln in float32 and dx rounded
+// once. (FlashAttention's online softmax casts the unnormalised exp and
+// divides afterwards: another rounding point, not used here.)
 //
 // Design. A segment's keys span all its rows, so one segment's attention
 // sits in one block: RTL = 208 rows (197 rounded up to m16 strips, 13 of
 // them). A strip's scores over 208 keys would take 104 float32 registers a
 // thread, and the backward needs dp beside them: over the 255-register
-// limit with the accumulators. So the cores walk the keys in tiles of KT =
-// 64, and recompute the scores where a later pass needs them:
-//   forward core: one block of 8 warps per (segment, head), its q | k | v
-//     [208, 192] in shared memory (83 KB, two blocks an SM); each warp takes
-//     query strips w, w + 8: a pass for the row max, a pass for the row
-//     sum of exp(s - max), and a pass forming the normalised p, cast to
-//     bf16, times v;
-//   backward core: one block of 8 warps per (segment, head), q | k | v and
-//     do in shared memory (122 KB). Query strips: the row max and sum as
-//     in the forward; a pass for o (to attn), dp = do v^T and rowsum(dp p);
-//     a pass for ds = p (dp - rowsum) * scale and dq = ds k. Then key
-//     strips: p^T and dp^T again from the saved row statistics, dv = p^T do
-//     and dk = ds^T q.
+// limit with the accumulators. So the core walks the keys in tiles of KT =
+// 64, and recomputes the scores where a later pass needs them: one block
+// of 8 warps per (segment, head), q | k | v and do in shared memory (122
+// KB). Query strips: a pass for the row max, a pass for the row sum of
+// exp(s - max); a pass for o (to attn), dp = do v^T and rowsum(dp p); a
+// pass for ds = p (dp - rowsum) * scale and dq = ds k. Then key strips:
+// p^T and dp^T again from the saved row statistics, dv = p^T do and dk =
+// ds^T q.
 // Padding rows S..207 of a block are zeros in q | k | v and in do. Keys at
 // or past S are masked out of the scores; a padding query row has do = 0,
 // so its dp, its row sum and its ds are 0 and it adds nothing to dk or dv;
 // no row past S is stored or summed.
 // A segment of 197 rows cannot keep its LN tile in a block (208 x 776 bf16
-// is 323 KB against 227 KB), so ln and qkv pass through device memory:
-// the forward runs over chunks of segments (at most CHUNK_ROWS rows) as
-// ln_kernel, the tiled qkv product and the core; the backward is
-// csrc/attention_chain.cuh's chain around the backward core. Writing ln
-// and qkv moves no rounding point. Chunks bound the scratch: the dw form's
-// at S = 197 is about 380 MB at C = 768, whatever the batch.
+// is 323 KB against 227 KB), so ln and qkv pass through device memory: the
+// backward is csrc/attention_chain.cuh's chain around the core, over
+// chunks of segments (at most CHUNK_ROWS rows). Writing ln and qkv moves
+// no rounding point. Chunks bound the scratch: the dw form's at S = 197 is
+// about 380 MB at C = 768, whatever the batch.
 //
-// What bounds it on this card. The forward branch does 8 R C^2 + 4 R S C
-// flops (at n_seg 128, S = 197: 0.134 TFLOP, 0.136 ms at the bf16 peak)
-// against 4 R C bytes of x and y: compute bound; the core alone moves 8 R
-// C bytes for 4 R S C flops, bound by its bytes. The backward: 14 R C^2 +
-// 12 R S C flops, 8 R C^2 more in the dw form. These kernels are far from
-// that roof: mma.sync from cp.async slabs, ln and qkv through device
-// memory, the scores computed three times in the forward and four in the
-// backward's query pass, and 13 strips over 8 warps. wgmma and a cluster
-// sharing a segment's LN tile are the next steps.
+// What bounds it on this card: 14 R C^2 + 12 R S C flops (R = n_seg S
+// rows), 8 R C^2 more in the dw form: compute bound. The kernels are far
+// from that roof: mma.sync from cp.async slabs, the scores computed four
+// times in the query pass, and 13 strips over 8 warps.
 
 #include "attention_chain.cuh"
 #include "strip_attention.cuh"
@@ -82,7 +64,6 @@ constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 constexpr int QKV_LD = 3 * D + 8;      // the head's q | k | v
 constexpr int DO_LD = D + 8;           // its do
-constexpr size_t FWD_SMEM = sizeof(bf16) * RTL * QKV_LD;
 constexpr size_t BWD_SMEM =
     sizeof(bf16) * (RTL * QKV_LD + RTL * DO_LD) +
     sizeof(float) * (3 * RTL + 3 * WARPS * D);
@@ -96,8 +77,8 @@ int chunk_segs(int n_seg, int S) {
   return nchunks > 0 ? (n_seg + nchunks - 1) / nchunks : 1;
 }
 
-// The head's q | k | v [S16, 192] of one segment into sQKV (rows at or past
-// S zeros); with do, also its do [S16, 64] into sDO.
+// The head's q | k | v [S16, 192] of one segment into sQKV and its do [S16,
+// 64] into sDO (rows at or past S zeros).
 __device__ __forceinline__ void load_head(bf16* sQKV, bf16* sDO,
                                           const bf16* __restrict__ qkv,
                                           const bf16* __restrict__ dattn,
@@ -112,7 +93,6 @@ __device__ __forceinline__ void load_head(bf16* sQKV, bf16* sDO,
     else
       *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
   }
-  if (sDO == nullptr) return;
   for (int i = threadIdx.x; i < S16 * (D / 8); i += THREADS) {
     const int r = i / (D / 8), c8 = i % (D / 8);
     bf16* d = sDO + r * DO_LD + c8 * 8;
@@ -252,117 +232,6 @@ __device__ __forceinline__ void softmax_tile(float (&s)[8][4], int kt, int S,
                     ? expf(__fsub_rn(s[j][q], mx[q >> 1])) / sum[q >> 1]
                     : 0.f;
     }
-}
-
-// ---------------------------------------------------------------------------
-// The forward core: o = softmax(q k^T * scale) v of one (segment, head).
-// ---------------------------------------------------------------------------
-
-// blockIdx.x = segment * H + head; qkv [n_seg * S, 3C] in, o [n_seg * S,
-// C] out (the head's 64 columns).
-__global__ void __launch_bounds__(THREADS, 2)
-attention_long_fwd_kernel(const bf16* __restrict__ qkv,
-                          bf16* __restrict__ o, int H, int S, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQKV = reinterpret_cast<bf16*>(smem);
-  const int C = H * D;
-  const int seg = blockIdx.x / H, h = blockIdx.x % H;
-  const long row0 = (long)seg * S;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int n16 = (S + 15) / 16;
-
-  load_head(sQKV, nullptr, qkv, nullptr, row0, S, n16 * 16, C, h);
-  cp_async_commit();
-  cp_async_wait_all();
-  __syncthreads();
-
-  for (int m = warp; m < n16; m += WARPS) {
-    float mx[2], sum[2];
-    strip_stats(sQKV, m, S, n16, scale, lane, mx, sum);
-    float acc[8][4];
-    zero_acc(acc);
-    for (int kt = 0; kt * 4 < n16; ++kt) {
-      const int nsub = min(4, n16 - kt * 4);
-      float p[8][4];
-      strip_scores(p, sQKV, m, kt, nsub, scale, lane);
-      softmax_tile(p, kt, S, mx, sum, lane);
-      tile_accumulate(acc, p, sQKV + kt * KT * QKV_LD + 2 * D, QKV_LD, nsub,
-                      lane);
-    }
-    // the head's output, cast once, over the strip's q (which only this
-    // warp reads), then to o with 16-byte stores
-    __syncwarp();
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr)
-        *reinterpret_cast<__nv_bfloat162*>(
-            sQKV + (m * 16 + g + 8 * hr) * QKV_LD + n * 8 + 2 * t) =
-            __floats2bfloat162_rn(acc[n][2 * hr], acc[n][2 * hr + 1]);
-    __syncwarp();
-    store_strip(sQKV, QKV_LD, m, S, o, row0, C, h * D, lane);
-  }
-}
-
-cudaError_t fwd_core(const bf16* qkv, bf16* o, int ns, int H, int S,
-                     float scale, cudaStream_t stream) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      attention_long_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)FWD_SMEM);
-  if (err != cudaSuccess) return err;
-  attention_long_fwd_kernel<<<ns * H, THREADS, FWD_SMEM, stream>>>(
-      qkv, o, H, S, scale);
-  return cudaGetLastError();
-}
-
-// The forward's per-chunk scratch: ln (full form), the row statistics
-// ln_kernel writes, and qkv. With base null only the size is computed.
-struct FwdScratch {
-  bf16 *ln, *qkv;
-  float* stats;
-  size_t bytes;
-
-  FwdScratch(char* base, int n_seg, int S, int C, bool use_ln) {
-    const long rows = (long)chunk_segs(n_seg, S) * S;
-    size_t off = 0;
-    auto take = [&](size_t n) -> char* {
-      char* p = base == nullptr ? nullptr : base + off;
-      off += (n + 255) / 256 * 256;
-      return p;
-    };
-    qkv = reinterpret_cast<bf16*>(take(2 * rows * 3 * C));
-    ln = use_ln ? reinterpret_cast<bf16*>(take(2 * rows * C)) : nullptr;
-    stats = reinterpret_cast<float*>(take(4 * 2 * rows));
-    bytes = off;
-  }
-};
-
-// o [n_seg * S, C] = attention(qkv([LN] x)) over chunks of segments.
-template <int C>
-cudaError_t launch_fwd(const bf16* x, const float* lns, const float* lnb,
-                       const bf16* wqkv, const float* bqkv, bf16* o,
-                       char* scratch, int n_seg, int S, float scale,
-                       float eps, int use_ln, cudaStream_t stream) {
-  const FwdScratch sc(scratch, n_seg, S, C, use_ln);
-  const int segs = chunk_segs(n_seg, S);
-  for (int s0 = 0; s0 < n_seg; s0 += segs) {
-    const int ns = n_seg - s0 < segs ? n_seg - s0 : segs;
-    const int rows = ns * S;
-    const long r0 = (long)s0 * S;
-    const bf16* ain = x + r0 * C;  // the bare form's ln is x
-    if (use_ln) {
-      ln_kernel<C><<<(rows + 7) / 8, 256, 0, stream>>>(ain, lns, lnb, eps,
-                                                        sc.ln, sc.stats,
-                                                        rows);
-      CHAIN_CHECK(cudaGetLastError());
-      ain = sc.ln;
-    }
-    CHAIN_CHECK((gemm<false, false>(ain, wqkv, bqkv, sc.qkv, rows, C, 3 * C,
-                                    stream)));
-    CHAIN_CHECK(fwd_core(sc.qkv, o + r0 * C, ns, C / D, S, scale, stream));
-  }
-  return cudaSuccess;
 }
 
 // ---------------------------------------------------------------------------
@@ -544,51 +413,6 @@ cudaError_t launch_bwd(const bf16* x, const bf16* g, const float* lns,
 }  // namespace
 
 extern "C" {
-
-// The bytes of scratch launch_attention_long_fwd needs.
-long long attention_long_fwd_scratch_bytes(int n_seg, int S, int C,
-                                           int use_ln) {
-  return (long long)FwdScratch(nullptr, n_seg, S, C, use_ln != 0).bytes;
-}
-
-// The forward chain: o [n_seg * S, C] = attention(qkv([LN] x)) from x
-// [n_seg, S, C]. Returns the first cudaGetLastError() (0 on success).
-// Arguments are checked by the Python wrapper: S in 87..197 (the kernels
-// take 1..208), C = 64 * num_heads with C in {256, 512, 768}, n_seg >= 1,
-// every pointer 32-byte aligned; scratch: a device buffer of
-// attention_long_fwd_scratch_bytes(n_seg, S, C, use_ln), 256-byte aligned.
-int launch_attention_long_fwd(const void* x, const void* lns,
-                              const void* lnb, const void* wqkv,
-                              const void* bqkv, void* o, void* scratch,
-                              int n_seg, int S, int C, int num_heads,
-                              float scale, float eps, int use_ln,
-                              void* stream) {
-  if (S < 1 || S > RTL || C != num_heads * D || n_seg < 1)
-    return (int)cudaErrorInvalidValue;
-#define ARGS                                                                 \
-  (const bf16*)x, (const float*)lns, (const float*)lnb, (const bf16*)wqkv,  \
-      (const float*)bqkv, (bf16*)o, (char*)scratch, n_seg, S, scale, eps,   \
-      use_ln, (cudaStream_t)stream
-  switch (C) {
-    case 256: return (int)launch_fwd<256>(ARGS);
-    case 512: return (int)launch_fwd<512>(ARGS);
-    case 768: return (int)launch_fwd<768>(ARGS);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef ARGS
-}
-
-// The block-diagonal attention op: o [n_seg * S, C] from qkv [n_seg * S,
-// 3C] (q | k | v, head h at h * 64). S in 65..197 (the kernel takes
-// 1..208), C a multiple of 64.
-int launch_block_diag_attention_long(const void* qkv, void* o, int n_seg,
-                                     int S, int C, float scale,
-                                     void* stream) {
-  if (S < 1 || S > RTL || C % D != 0 || C < D || n_seg < 1)
-    return (int)cudaErrorInvalidValue;
-  return (int)fwd_core((const bf16*)qkv, (bf16*)o, n_seg, C / D, S, scale,
-                       (cudaStream_t)stream);
-}
 
 // The bytes of scratch launch_attention_bwd_long needs.
 long long attention_bwd_long_scratch_bytes(int n_seg, int S, int C, int dw,

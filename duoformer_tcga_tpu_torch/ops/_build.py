@@ -31,7 +31,7 @@ BUILD_DIR = PKG_DIR / "_build"
 KERNELS = ("fused_attention_residual", "fused_attention_residual_bwd",
            "fused_mlp_residual", "mlp_dz", "fused_attention_residual_int8",
            "fused_mlp_residual_int8", "drop_ew", "fused_mlp_bwd",
-           "layernorm", "block_diag_attention", "fused_attention_residual_s86",
+           "layernorm", "block_diag_attention", "attention_sm90",
            "fused_attention_residual_int8_s86",
            "fused_attention_residual_bwd_s86", "attention_long",
            "fused_attention_residual_f32", "fused_mlp_residual_f32",

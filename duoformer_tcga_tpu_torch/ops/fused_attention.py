@@ -5,14 +5,14 @@ flags are keyword arguments of the same wrappers, whose autograd functions
 and the drop_ew kernel are in ops/fused_reg.py).
 
   fused_attention_residual: y = [x +] proj(block-diag attn(qkv([LN] x)))
-    kernel: csrc/fused_attention_residual.cu (seg_len <= 64); for 65 to 86
-    tokens (the 4-scale model's 86) two launches, attention_core_s86 (o =
-    block-diag attn(qkv([LN] x)), with the attention dropout) and
-    attention_proj (y = [x +] gamma * drop(proj(o))), kernels:
-    csrc/fused_attention_residual_s86.cu; for 87 to 197 (the ViT's
-    197) attention_core_long (a chain over chunks of segments: LN, the qkv
-    product, the attention core; csrc/attention_long.cu) and
-    attention_proj
+    kernel: csrc/fused_attention_residual.cu (seg_len <= 64); for 65 to
+    197 tokens (the 4-scale model's 86, the ViT's 197) two wrapper calls,
+    attention_core_s86 or attention_core_long (o = block-diag attn(qkv(
+    [LN] x)), with the attention dropout up to 86: a chain over chunks of
+    segments, attention_seg_chunks, of a LayerNorm pass, the TMA/wgmma qkv
+    product and the wgmma attention core) and attention_proj (y = [x +]
+    gamma * drop(proj(o)), the same product), kernels:
+    csrc/attention_sm90.cu (on csrc/gemm_sm90.cuh)
   fused_attention_residual_bwd: its backward (dx, ln, attn, dqkv and the
     column sums dlns, dlnb, dbqkv, dbproj), recomputing the forward
     kernel: csrc/fused_attention_residual_bwd.cu (seg_len <= 64); for 65
@@ -20,13 +20,13 @@ and the drop_ew kernel are in ops/fused_reg.py).
     and dattn products, the attention core, the dln product, the LN
     backward; in the dw form the weight-gradient products),
     csrc/fused_attention_residual_bwd_s86.cu; for 87 to 197 the same chain
-    around csrc/attention_long.cu's core (both chains'
+    around csrc/attention_long.cu's backward core (both chains'
     launches in csrc/attention_chain.cuh)
   fused_mlp_residual:       y = [x +] fc2(gelu_erf(fc1(LN x))), and with
     return_hidden=True also the pre-GELU hidden z
     kernel: csrc/fused_mlp_residual.cu (per chunk of rows, mlp_row_chunks:
-    a LayerNorm pass, then fc1 with GELU and fc2 with the residual, each a
-    TMA-fed wgmma product through a bf16 scratch)
+    a LayerNorm pass, then fc1 with GELU and fc2 with the residual, each
+    csrc/gemm_sm90.cuh's TMA-fed wgmma product, through a bf16 scratch)
   mlp_dz:                   dz = (g w2^T) * gelu'(z), db1 = colsum(dz)
     kernel: csrc/mlp_dz.cu
   fused_mlp_bwd:            the MLP backward from x (no saved hidden): dx,
@@ -34,7 +34,7 @@ and the drop_ew kernel are in ops/fused_reg.py).
     kernel: csrc/fused_mlp_bwd.cu
   block_diag_attention_fwd: softmax(q k^T * scale) v within each segment
     kernel: csrc/block_diag_attention.cu (seg_len <= 64);
-    csrc/attention_long.cu's core for 65 to 197
+    csrc/attention_sm90.cu's wgmma core for 65 to 197
 
 `attention_residual`, `mlp_residual` and `block_diag_attention` are the
 differentiable entries (the JAX package's custom_vjp entries). The
@@ -94,12 +94,14 @@ from .nn import layernorm
 
 ATTN_MAX_SEG_LEN = 64         # a block holds at most 64 rows (csrc note)
 # the forward, bf16 and int8, and the backward in both forms also take
-# 65..86 tokens (one 96-row block a segment, csrc/*_s86.cu); so do the reg
-# flags, which stop there
+# 65..86 tokens (the bf16 forward csrc/attention_sm90.cu, the others one
+# 96-row block a segment, csrc/*_s86.cu); so do the reg flags, which stop
+# there
 ATTN_SERVE_MAX_SEG_LEN = 86
 # the bf16 forward, the backward in both forms and block_diag_attention
 # take up to 197 tokens (ViT-B/16 at 224^2: 196 patches + CLS;
-# csrc/attention_long.cu); int8 stops at ATTN_SERVE_MAX_SEG_LEN
+# csrc/attention_sm90.cu, csrc/attention_long.cu); int8 stops at
+# ATTN_SERVE_MAX_SEG_LEN
 ATTN_LONG_MAX_SEG_LEN = 197
 HEAD_DIM = 64                 # the attention kernel's head width
 SUPPORTED_C = (256, 512, 768)   # widths every kernel is instantiated for
@@ -113,6 +115,12 @@ SHORT_C = (256, 384, 512, 768)
 # together at most this many bytes (csrc/fused_mlp_residual.cu)
 MLP_SCRATCH_BYTES = 192 << 20
 MLP_ROW_TILE = 128            # the kernel's output tile rows
+# the 65..197-token attention core's chain holds two scratches for a chunk
+# of whole segments, the LayerNorm [rows rounded up to MLP_ROW_TILE, C]
+# (full form) and qkv [rows, 3C] in bf16, together at most this many bytes
+# (csrc/attention_sm90.cu). Chunks small enough to keep qkv in the 50 MB L2
+# were slower on the card (more launches and tails; PERF.md §6)
+ATTN_SCRATCH_BYTES = 192 << 20
 
 
 def reset_launch_counts():
@@ -582,11 +590,12 @@ def _fused_attention_residual_f32(x, ln_scale, ln_bias, wqkv, bqkv, wproj,
 def attention_core_s86(x, ln_scale, ln_bias, wqkv, bqkv, num_heads, seg_len,
                        scale, ln_eps=1e-6, use_ln=True, seed=0,
                        attn_drop=0.0):
-    """The first launch of the 65..86-token attention branch: o =
+    """The first wrapper call of the 65..86-token attention branch: o =
     block_diag_attn(qkv([LN](x))), x [n_seg, seg_len, C] -> o [n_seg,
-    seg_len, C], every head's output in its columns. On the card: bf16 x
-    and wqkv, float32 vectors, head width 64, 65 <= seg_len <= 86. seed,
-    attn_drop: the reg form's dropout of the probabilities (counted as
+    seg_len, C], every head's output in its columns. On the card one call
+    of _attention_core_chain, counted once: bf16 x and wqkv, float32
+    vectors, head width 64, 65 <= seg_len <= 86. seed, attn_drop: the reg
+    form's dropout of the probabilities (counted as
     "fused_attention_residual_s86_reg")."""
     if x.device.type == "cpu":
         return attention_core_plain(x, ln_scale, ln_bias, wqkv, bqkv,
@@ -596,11 +605,79 @@ def attention_core_s86(x, ln_scale, ln_bias, wqkv, bqkv, num_heads, seg_len,
         raise ValueError(f"no kernel for device {x.device}")
     if x.dtype == torch.float32:
         f32_form("attention_core_s86", seg_len, x.shape[-1])
-    n_seg, S, C = _check_attention_x(x, seg_len, num_heads,
-                                     "attention_core_s86",
-                                     ATTN_SERVE_MAX_SEG_LEN)
-    _require(S > ATTN_MAX_SEG_LEN, f"seg_len {S}: the 86-token kernel takes "
-             f"{ATTN_MAX_SEG_LEN + 1}..{ATTN_SERVE_MAX_SEG_LEN}")
+    _check_attention_x(x, seg_len, num_heads, "attention_core_s86",
+                       ATTN_SERVE_MAX_SEG_LEN)
+    _require(seg_len > ATTN_MAX_SEG_LEN, f"seg_len {seg_len}: the 86-token "
+             f"kernel takes {ATTN_MAX_SEG_LEN + 1}..{ATTN_SERVE_MAX_SEG_LEN}")
+    o = _attention_core_chain(x, ln_scale, ln_bias, wqkv, bqkv, num_heads,
+                              scale, ln_eps, use_ln, seed, attn_drop,
+                              "attention_core_s86")
+    name = _reg_name("fused_attention_residual_s86", None, attn_drop)
+    launch_counts[name if use_ln else name + "_bare"] += 1
+    return o
+
+
+def attention_core_long(x, ln_scale, ln_bias, wqkv, bqkv, num_heads,
+                        seg_len, scale, ln_eps=1e-6, use_ln=True):
+    """The first wrapper call of the 87..197-token attention branch, as
+    attention_core_s86: one call of _attention_core_chain, counted once:
+    bf16 x and wqkv, float32 vectors, head width 64, 87 <= seg_len <=
+    197."""
+    if x.device.type == "cpu":
+        return attention_core_plain(x, ln_scale, ln_bias, wqkv, bqkv,
+                                    num_heads, seg_len, scale, ln_eps, use_ln)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    if x.dtype == torch.float32:
+        f32_form("attention_core_long", seg_len, x.shape[-1])
+    _check_attention_x(x, seg_len, num_heads, "attention_core_long",
+                       ATTN_LONG_MAX_SEG_LEN)
+    _require(seg_len > ATTN_SERVE_MAX_SEG_LEN,
+             f"seg_len {seg_len}: the long-segment chain takes "
+             f"{ATTN_SERVE_MAX_SEG_LEN + 1}..{ATTN_LONG_MAX_SEG_LEN}")
+    o = _attention_core_chain(x, ln_scale, ln_bias, wqkv, bqkv, num_heads,
+                              scale, ln_eps, use_ln, 0, 0.0,
+                              "attention_core_long")
+    launch_counts["fused_attention_residual_long" if use_ln
+                  else "fused_attention_residual_long_bare"] += 1
+    return o
+
+
+def attention_scratch_bytes(rows, C, use_ln=True):
+    """The bytes of the 65..197-token core chain's scratch for a chunk of
+    `rows` rows: qkv [rows, 3C] and, in the full form, the LayerNorm
+    [rows rounded up to MLP_ROW_TILE, C], in bf16."""
+    ln_rows = -(-rows // MLP_ROW_TILE) * MLP_ROW_TILE if use_ln else 0
+    return 2 * (ln_rows * C + rows * 3 * C)
+
+
+def attention_seg_chunks(n_seg, S, C, use_ln=True):
+    """The segment chunks of one 65..197-token core call on the card:
+    [(first segment, segments)], whole segments tiling [0, n_seg) in
+    order, as few as keep each chunk's scratch (attention_scratch_bytes)
+    within ATTN_SCRATCH_BYTES, of equal size but the last. A chunk's first
+    token, first segment * S, is global: the attention dropout's masks
+    count from it."""
+    if n_seg <= 0:
+        return []
+    row = 2 * (4 if use_ln else 3) * C       # scratch bytes a row, unrounded
+    most = max(1, ATTN_SCRATCH_BYTES // (row * S))
+    while most > 1 and attention_scratch_bytes(most * S, C,
+                                               use_ln) > ATTN_SCRATCH_BYTES:
+        most -= 1
+    n = -(-n_seg // most)
+    size = -(-n_seg // n)
+    return [(s0, min(size, n_seg - s0)) for s0 in range(0, n_seg, size)]
+
+
+def _attention_core_chain(x, ln_scale, ln_bias, wqkv, bqkv, num_heads,
+                          scale, ln_eps, use_ln, seed, attn_drop, what):
+    """o = block_diag_attn(qkv([LN](x))) on the card for x [n_seg, S, C]
+    at 65..197 tokens (checked by the caller): for each chunk of
+    attention_seg_chunks, one call of csrc/attention_sm90.cu's chain (the
+    LayerNorm pass, the qkv product, the attention core with the reg
+    form's attention dropout), through one bf16 scratch."""
+    n_seg, S, C = x.shape
     dev, f32, bf16 = x.device, torch.float32, torch.bfloat16
     _check_tensor("x", x, dev, bf16, (n_seg, S, C))
     _check_tensor("ln_scale", ln_scale, dev, f32, (C,))
@@ -611,76 +688,35 @@ def attention_core_s86(x, ln_scale, ln_bias, wqkv, bqkv, num_heads, seg_len,
     o = torch.empty_like(x)
     if n_seg == 0:
         return o
-    lib = _build.load_library("fused_attention_residual_s86")
-    fn = lib.launch_attention_core_s86
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + \
-        [ctypes.c_float] * 2 + [ctypes.c_int] * 3 + \
-        [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib = _build.load_library("attention_sm90")
+    fn = lib.launch_attention_chain
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] + \
+            [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + \
+            [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    chunks = attention_seg_chunks(n_seg, S, C, use_ln)
+    cap = chunks[0][1] * S
+    ln_rows = -(-cap // MLP_ROW_TILE) * MLP_ROW_TILE if use_ln else 0
+    scratch = torch.empty(ln_rows * C + cap * 3 * C, dtype=bf16, device=dev)
+    ln = ctypes.c_void_p(scratch.data_ptr()) if use_ln else None
+    qkv = ctypes.c_void_p(scratch.data_ptr() + 2 * ln_rows * C)
     with torch.cuda.device(dev):
-        status = fn(_ptr(x), _ptr(ln_scale), _ptr(ln_bias), _ptr(wqkv),
-                    _ptr(bqkv), _ptr(o), n_seg, S, C, num_heads,
-                    float(scale), float(ln_eps), int(bool(use_ln)),
-                    int32_seed(seed), a_thr, a_scale, _stream(dev))
-    _build.check(lib, status, "attention_core_s86")
-    name = _reg_name("fused_attention_residual_s86", None, attn_drop)
-    launch_counts[name if use_ln else name + "_bare"] += 1
-    return o
-
-
-def attention_core_long(x, ln_scale, ln_bias, wqkv, bqkv, num_heads,
-                        seg_len, scale, ln_eps=1e-6, use_ln=True):
-    """The first half of the 87..197-token attention branch: o =
-    block_diag_attn(qkv([LN](x))), x [n_seg, seg_len, C] -> o [n_seg,
-    seg_len, C], as attention_core_s86. On the card one wrapper call, a
-    chain over chunks of segments (LN, the qkv product, the attention
-    core; its scratch bounded by the chunk), counted once: bf16 x and
-    wqkv, float32 vectors, head width 64, 87 <= seg_len <= 197."""
-    if x.device.type == "cpu":
-        return attention_core_plain(x, ln_scale, ln_bias, wqkv, bqkv,
-                                    num_heads, seg_len, scale, ln_eps, use_ln)
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
-    if x.dtype == torch.float32:
-        f32_form("attention_core_long", seg_len, x.shape[-1])
-    n_seg, S, C = _check_attention_x(x, seg_len, num_heads,
-                                     "attention_core_long",
-                                     ATTN_LONG_MAX_SEG_LEN)
-    _require(S > ATTN_SERVE_MAX_SEG_LEN,
-             f"seg_len {S}: the long-segment chain takes "
-             f"{ATTN_SERVE_MAX_SEG_LEN + 1}..{ATTN_LONG_MAX_SEG_LEN}")
-    dev, f32, bf16 = x.device, torch.float32, torch.bfloat16
-    _check_tensor("x", x, dev, bf16, (n_seg, S, C))
-    _check_tensor("ln_scale", ln_scale, dev, f32, (C,))
-    _check_tensor("ln_bias", ln_bias, dev, f32, (C,))
-    _check_tensor("wqkv", wqkv, dev, bf16, (C, 3 * C))
-    _check_tensor("bqkv", bqkv, dev, f32, (3 * C,))
-    o = torch.empty_like(x)
-    if n_seg == 0:
-        return o
-    lib = _build.load_library("attention_long")
-    lib.attention_long_fwd_scratch_bytes.argtypes = [ctypes.c_int] * 4
-    lib.attention_long_fwd_scratch_bytes.restype = ctypes.c_longlong
-    scratch = torch.empty(lib.attention_long_fwd_scratch_bytes(
-        n_seg, S, C, int(bool(use_ln))), dtype=torch.uint8, device=dev)
-    fn = lib.launch_attention_long_fwd
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + \
-        [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        status = fn(_ptr(x), _ptr(ln_scale), _ptr(ln_bias), _ptr(wqkv),
-                    _ptr(bqkv), _ptr(o), _ptr(scratch), n_seg, S, C,
-                    num_heads, float(scale), float(ln_eps),
-                    int(bool(use_ln)), _stream(dev))
-    _build.check(lib, status, "attention_core_long")
-    launch_counts["fused_attention_residual_long" if use_ln
-                  else "fused_attention_residual_long_bare"] += 1
+        for s0, ns in chunks:
+            off = 2 * s0 * S * C
+            status = fn(ctypes.c_void_p(x.data_ptr() + off), _ptr(ln_scale),
+                        _ptr(ln_bias), _ptr(wqkv), _ptr(bqkv),
+                        ctypes.c_void_p(o.data_ptr() + off), ln, qkv, cap,
+                        ns, S, C, num_heads, s0, float(scale), float(ln_eps),
+                        int(bool(use_ln)), int32_seed(seed), a_thr, a_scale,
+                        _stream(dev))
+            _build.check(lib, status, what)
     return o
 
 
 def attention_proj(o, x, wproj, bproj, use_residual=True, gamma=None, seed=0,
                    proj_drop=0.0):
-    """The second launch of the 65..86-token attention branch: y = [x +]
+    """The second launch of the 65..197-token attention branch: y = [x +]
     gamma * drop(o wproj + bproj), accumulated in float32 and cast once;
     o, x [..., C] (x is read only with use_residual). On the card: bf16 o,
     x and wproj, float32 bproj (and gamma), C in SUPPORTED_C. gamma, seed,
@@ -707,7 +743,7 @@ def attention_proj(o, x, wproj, bproj, use_residual=True, gamma=None, seed=0,
     out = torch.empty_like(x)
     if rows == 0:
         return out
-    lib = _build.load_library("fused_attention_residual_s86")
+    lib = _build.load_library("attention_sm90")
     fn = lib.launch_attention_proj
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + \
         [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
@@ -1242,7 +1278,7 @@ def block_diag_attention_fwd(qkv, num_heads, seg_len, scale):
     """softmax(q k^T * scale) v within each segment (_block_attention_impl,
     pallas_attention.py:230-263): qkv [n_seg, seg_len, 3C] -> [n_seg,
     seg_len, C]. On the card: bf16 qkv, head width 64, seg_len <= 197 (on
-    either device; 65..197 through csrc/attention_long.cu's core, counted
+    either device; 65..197 through csrc/attention_sm90.cu's core, counted
     as block_diag_attention_long)."""
     refuse_long_segments("block_diag_attention", seg_len,
                          ATTN_LONG_MAX_SEG_LEN)
@@ -1271,14 +1307,18 @@ def block_diag_attention_fwd(qkv, num_heads, seg_len, scale):
     long_seg = S > ATTN_MAX_SEG_LEN
     name = ("block_diag_attention_long" if long_seg
             else "block_diag_attention")
-    lib = _build.load_library("attention_long" if long_seg
+    lib = _build.load_library("attention_sm90" if long_seg
                               else "block_diag_attention")
     fn = getattr(lib, "launch_" + name)
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + \
-        [ctypes.c_float, ctypes.c_void_p]
+    # the long core also takes the rows qkv's buffer holds from its start
+    # (it reads none past n_seg * S)
+    cap = ([(qkv.untyped_storage().nbytes() // 2 - qkv.storage_offset())
+            // C3] if long_seg else [])
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * len(cap) + \
+        [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
-        status = fn(_ptr(qkv), _ptr(out), n_seg, S, C, float(scale),
+        status = fn(_ptr(qkv), _ptr(out), *cap, n_seg, S, C, float(scale),
                     _stream(dev))
     _build.check(lib, status, name)
     launch_counts[name] += 1

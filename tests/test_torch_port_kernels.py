@@ -107,6 +107,56 @@ def test_mlp_row_chunks_tile_the_rows_within_the_scratch(rows, C, hidden):
     assert len(chunks) == -(-rows // most)
 
 
+@pytest.mark.parametrize("n_seg, S, C, use_ln", [
+    (1, 65, 512, True), (7, 86, 768, True), (1001, 86, 768, True),
+    (3136, 86, 768, True), (3136, 86, 768, False), (6272, 86, 256, True),
+    (1, 197, 512, True), (64, 197, 768, True), (128, 197, 768, False),
+    (1024, 197, 768, True), (5, 87, 256, False)])
+def test_attention_seg_chunks_tile_the_segments_within_the_scratch(
+        n_seg, S, C, use_ln):
+    """The card's 65..197-token attention core runs its chain over these
+    chunks: whole segments tiling [0, n_seg) in order, each chunk's first
+    global token its first segment times S (the attention dropout's masks
+    count from it), each chunk's LN and qkv scratch within
+    ATTN_SCRATCH_BYTES, equal chunks but the last, and no more chunks than
+    that bound forces."""
+    chunks = fa.attention_seg_chunks(n_seg, S, C, use_ln)
+    starts = [s0 for s0, _ in chunks]
+    assert starts == list(itertools.accumulate(
+        [0] + [n for _, n in chunks[:-1]]))
+    assert sum(n for _, n in chunks) == n_seg and all(n > 0 for _, n in chunks)
+    assert [s0 * S for s0 in starts] == [
+        sum(n * S for _, n in chunks[:i]) for i in range(len(chunks))]
+    for _, n in chunks:
+        ln_rows = -(-n * S // fa.MLP_ROW_TILE) * fa.MLP_ROW_TILE
+        want = 2 * ((ln_rows if use_ln else 0) * C + n * S * 3 * C)
+        assert fa.attention_scratch_bytes(n * S, C, use_ln) == want
+        assert want <= fa.ATTN_SCRATCH_BYTES
+    assert len({n for _, n in chunks[:-1]}) <= 1
+    assert chunks[-1][1] <= chunks[0][1]
+    most = max(m for m in range(1, n_seg + 1) if fa.attention_scratch_bytes(
+        m * S, C, use_ln) <= fa.ATTN_SCRATCH_BYTES)
+    assert len(chunks) == -(-n_seg // most)
+
+
+def test_every_loaded_kernel_library_is_built_from_its_source():
+    """Every library name a wrapper under ops/ loads is one that
+    _build.KERNELS builds (chip_smoke.py builds those), and each has its
+    source csrc/<name>.cu."""
+    import re
+    from pathlib import Path
+
+    from duoformer_tcga_tpu_torch.ops import _build
+    names = set()
+    for path in sorted(Path(fa.__file__).parent.glob("*.py")):
+        for call in re.findall(r"load_library\((.*?)\)", path.read_text(),
+                               re.S):
+            names.update(re.findall(r'"([a-z0-9_]+)"', call))
+    assert names and names <= set(_build.KERNELS), names - set(_build.KERNELS)
+    for name in _build.KERNELS:
+        assert (_build.CSRC_DIR / f"{name}.cu").is_file(), name
+
+
 def test_plain_versions_keep_bf16_rounding_points():
     """In bf16 the plain attention rounds where the TPU kernel does: its
     result matches the JAX XLA twin run in bf16 to bf16 resolution."""
