@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where the 65..197-token attention branch's time goes on the card.
+"""Where the attention branch's time goes on the card.
 
     python3 chip_attention_probe.py
 
@@ -7,17 +7,23 @@ Builds csrc/attention_sm90.cu alone (nvcc's time, ptxas's registers and
 spills; "already built" when its library is there). For the core's
 wrapper (attention_core_s86 / attention_core_long: per chunk of segments
 a LayerNorm pass, the qkv product and the attention core), the proj
-(attention_proj) and the block-diagonal op (block_diag_attention_fwd) at
-the shapes of PERF.md §6's #1 and #10 rows: the call's time as
+(attention_proj), the whole branch up to 64 tokens (fused_attention_residual:
+the core's chain and the proj in one wrapper call, the core's units
+packing 64 // S segments) and the block-diagonal op
+(block_diag_attention_fwd) at the shapes of PERF.md §6's #1 and #10 rows
+(S=6, 22, 50, 86, 197): the call's time as
 chip_smoke.py times it (CUDA events around one call, median of 20: the
 wrapper's host time included), its steady time (events around 10 calls
 back to back, median of 5, over 10) and its launches' device times by
 kernel a call (torch.profiler over 10 calls: each kernel's mean launch
-times its launches a call, since the profiler may keep fewer). Then the core's call at S=86 (3136
-segments) and S=197 (128) with ATTN_SCRATCH_BYTES from 16 to 256 MiB, in
-two rounds of opposite order (the chunk that keeps qkv in L2 against the
-launches and tails of more chunks), and the wrapper's host time a call
-(200 calls at 7 segments, which the card finishes first). Prints the
+times its launches a call, since the profiler may keep fewer). Then the
+core's call at S=86 (3136 segments) and S=197 (128), and the branch at
+S=22 (3136) and S=6 (6272), with ATTN_SCRATCH_BYTES from 16 to 256 MiB,
+in two rounds of opposite order (the chunk that keeps qkv in L2 against
+the launches and tails of more chunks), and the wrappers' host time a
+call (200 calls of the core at 7 segments of 86 tokens, and of the bare
+branch at 3 of 50 and its two internal calls, the chain and the proj's
+launch, which the card finishes first). Prints the
 card's name and power limit first and one JSON object last. Needs one
 CUDA device and nvcc; imports nothing of JAX.
 """
@@ -32,7 +38,11 @@ import chip_smoke as cs
 
 C, HEADS = 768, 12
 # (call, n_seg, S, bare, attention dropout)
-SHAPES = (("core", 3136, 86, False, 0.0), ("core", 3136, 86, True, 0.0),
+SHAPES = (("branch", 3136, 6, False, 0.0), ("branch", 6272, 6, False, cs.DROP),
+          ("branch", 3136, 22, False, 0.0), ("branch", 64, 50, True, 0.0),
+          ("branch", 128, 50, True, cs.DROP), ("op", 3136, 6, False, 0.0),
+          ("op", 64, 50, False, 0.0),
+          ("core", 3136, 86, False, 0.0), ("core", 3136, 86, True, 0.0),
           ("core", 3136, 86, False, cs.DROP), ("core", 128, 197, False, 0.0),
           ("core", 128, 197, True, 0.0), ("core", 64, 197, False, 0.0),
           ("proj", 3136, 86, False, 0.0), ("proj", 64, 197, False, 0.0),
@@ -40,6 +50,9 @@ SHAPES = (("core", 3136, 86, False, 0.0), ("core", 3136, 86, True, 0.0),
           ("op", 128, 197, False, 0.0), ("op", 1024, 197, False, 0.0),
           ("op", 3136, 65, False, 0.0))
 SCRATCH_MIB = (16, 32, 64, 128, 192, 256)
+# (call, n_seg, S) of the scratch sweep
+SWEEP = (("core", 3136, 86), ("core", 128, 197), ("branch", 3136, 22),
+         ("branch", 6272, 6))
 
 
 def launch_name(key):
@@ -77,6 +90,19 @@ def make_call(fa, kind, t, n_seg, S, bare, drop):
     if kind == "proj":
         return lambda: fa.attention_proj(t["x"], t["x"], t["wproj"],
                                          t["bproj"], use_residual=not bare)
+    if kind == "chain":      # the branch's first internal call, uncounted
+        return lambda: fa._attention_core_chain(
+            t["x"], t["lns"], t["lnb"], t["wqkv"], t["bqkv"], HEADS, scale,
+            1e-6, not bare, 0, 0.0, "chain")
+    if kind == "proj_launch":   # its second, on x as o, uncounted
+        return lambda: fa._attention_proj_launch(
+            t["x"], t["x"], t["wproj"], t["bproj"], not bare, None, 0, 0.0)
+    if kind == "branch":
+        kw = dict(seed=cs.DROP_SEED, attn_drop=drop) if drop else {}
+        return lambda: fa.fused_attention_residual(
+            t["x"], t["lns"], t["lnb"], t["wqkv"], t["bqkv"], t["wproj"],
+            t["bproj"], HEADS, S, scale, use_ln=not bare,
+            use_residual=not bare, **kw)
     core = (fa.attention_core_s86 if S <= fa.ATTN_SERVE_MAX_SEG_LEN
             else fa.attention_core_long)
     kw = dict(seed=cs.DROP_SEED, attn_drop=drop) if drop else {}
@@ -115,8 +141,9 @@ def main() -> int:
             torch.cuda.synchronize()
         # the profiler may keep fewer than the 10 calls' launches: a
         # kernel's time a call is its mean launch times its launches a call
+        # (a core or branch call: ln, qkv and core once a chunk; proj once)
         chunks = (len(fa.attention_seg_chunks(n_seg, S, C, not bare))
-                  if kind == "core" else 1)
+                  if kind in ("core", "branch") else 1)
         total, counts = {}, {}
         for e in prof.key_averages():
             if e.device_type == torch.autograd.DeviceType.CUDA and any(
@@ -125,7 +152,8 @@ def main() -> int:
                 name = launch_name(e.key)
                 total[name] = total.get(name, 0.0) + e.device_time_total
                 counts[name] = counts.get(name, 0) + e.count
-        split = {k: v / counts[k] / 1e3 * chunks for k, v in total.items()}
+        split = {k: v / counts[k] / 1e3 * (1 if k == "proj" else chunks)
+                 for k, v in total.items()}
         res = dict(kind=kind, n_seg=n_seg, S=S, bare=bare, attn_drop=drop,
                    ms=ms, steady_ms=steady, launch_ms=split,
                    launches_profiled=counts, chunks=chunks)
@@ -136,10 +164,10 @@ def main() -> int:
 
     sweep = {}
     saved = fa.ATTN_SCRATCH_BYTES
-    for i, (n_seg, S) in enumerate(((3136, 86), (128, 197))):
+    for i, (kind, n_seg, S) in enumerate(SWEEP):
         t = inputs(torch, torch.Generator().manual_seed(cs.SEED + 100 + i),
                    n_seg, S, False)
-        call = make_call(fa, "core", t, n_seg, S, False, 0.0)
+        call = make_call(fa, kind, t, n_seg, S, False, 0.0)
         times = {m: [] for m in SCRATCH_MIB}
         try:
             for order in (SCRATCH_MIB, SCRATCH_MIB[::-1]):
@@ -148,7 +176,7 @@ def main() -> int:
                     times[mib].append(cs.median_ms(call, torch))
         finally:
             fa.ATTN_SCRATCH_BYTES = saved
-        key = f"S={S} n_seg={n_seg}"
+        key = f"{kind} S={S} n_seg={n_seg}"
         sweep[key] = {}
         for mib, v in times.items():
             fa.ATTN_SCRATCH_BYTES = mib << 20
@@ -159,18 +187,24 @@ def main() -> int:
         del t
         torch.cuda.empty_cache()
 
-    t = inputs(torch, torch.Generator().manual_seed(cs.SEED), 7, 86, False)
-    call = make_call(fa, "core", t, 7, 86, False, 0.0)
-    for _ in range(10):
-        call()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(200):
-        call()
-    host_us = (time.perf_counter() - t0) / 200 * 1e6
-    torch.cuda.synchronize()
-    print(json.dumps({"host_us_per_core_call_at_7_segments": host_us,
-                      "shapes": len(results),
+    host_us = {}
+    for kind, n_seg, S, bare in (("core", 7, 86, False),
+                                 ("branch", 3, 50, True),
+                                 ("chain", 3, 50, True),
+                                 ("proj_launch", 3, 50, True)):
+        t = inputs(torch, torch.Generator().manual_seed(cs.SEED), n_seg, S,
+                   bare)
+        call = make_call(fa, kind, t, n_seg, S, bare, 0.0)
+        for _ in range(10):
+            call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            call()
+        host_us[f"{kind} S={S} n_seg={n_seg}"] = (
+            (time.perf_counter() - t0) / 200 * 1e6)
+        torch.cuda.synchronize()
+    print(json.dumps({"host_us_a_call": host_us, "shapes": len(results),
                       "scratch_mib_default": saved >> 20}))
     return 0
 

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-1. Builds the eighteen CUDA kernel sources from the checkout (one nvcc
+1. Builds the sixteen CUDA kernel sources from the checkout (one nvcc
    each, started together) and prints each kernel's register and spill
    report.
 2. Holds every kernel form against its plain PyTorch version on the card:
@@ -61,6 +61,13 @@
    (the softmax must subtract its row max) and ~0.25 units (the mask must
    drop every padding key), and on the first 7 segments of a tensor whose
    next two are NaN (its output must be finite: no read past its rows)),
+   the S<=64 forms' packed units (csrc/attention_sm90.cu: 64 // S whole
+   segments a unit) at S=1, 6, 21, 22 and 64 with short last units, #10 at
+   S=6 and 22 with scores spread ~0.25 and ~150, on the first 13 segments
+   of a NaN-tailed tensor and into the first segments of a guarded output
+   (the rows past it must keep their sentinel), and #1 with the attention
+   dropout and gamma over two chunks of segments at S=6 (6273 segments,
+   the last chunk ragged; fails in one chunk),
    and each at one small odd shape:
    kernel in bf16,
    plain version on the same inputs upcast to float32 (the int8 forms'
@@ -349,8 +356,8 @@ CSRC = "duoformer_tcga_tpu_torch/csrc/"
 PALLAS = "duoformer_tcga_tpu/ops/pallas_attention.py:"
 # kernel form -> its CUDA source; REPLACES: -> the TPU kernel it replaces
 SOURCES = {
-    "fused_attention_residual": CSRC + "fused_attention_residual.cu",
-    "fused_attention_residual_bare": CSRC + "fused_attention_residual.cu",
+    "fused_attention_residual": CSRC + "attention_sm90.cu",
+    "fused_attention_residual_bare": CSRC + "attention_sm90.cu",
     "fused_mlp_residual": CSRC + "fused_mlp_residual.cu",
     "fused_mlp_residual_z": CSRC + "fused_mlp_residual.cu",
     "fused_attention_residual_bwd": CSRC + "fused_attention_residual_bwd.cu",
@@ -361,8 +368,8 @@ SOURCES = {
     "fused_attention_residual_int8_bare":
         CSRC + "fused_attention_residual_int8.cu",
     "fused_mlp_residual_int8": CSRC + "fused_mlp_residual_int8.cu",
-    "fused_attention_residual_reg": CSRC + "fused_attention_residual.cu",
-    "fused_attention_residual_reg_bare": CSRC + "fused_attention_residual.cu",
+    "fused_attention_residual_reg": CSRC + "attention_sm90.cu",
+    "fused_attention_residual_reg_bare": CSRC + "attention_sm90.cu",
     "fused_mlp_residual_reg": CSRC + "fused_mlp_residual.cu",
     "fused_mlp_residual_reg_z": CSRC + "fused_mlp_residual.cu",
     "fused_attention_residual_bwd_reg":
@@ -382,7 +389,7 @@ SOURCES = {
     "fused_attention_residual_bwd_reg_dw_bare":
         CSRC + "fused_attention_residual_bwd.cu",
     "fused_layernorm": CSRC + "layernorm.cu",
-    "block_diag_attention": CSRC + "block_diag_attention.cu",
+    "block_diag_attention": CSRC + "attention_sm90.cu",
     "fused_attention_residual_s86": CSRC + "attention_sm90.cu",
     "fused_attention_residual_s86_proj": CSRC + "attention_sm90.cu",
     "fused_attention_residual_int8_s86":
@@ -1567,7 +1574,10 @@ def block_attention_case(torch, F, fa, gen, n_seg, S, c, heads, timed,
     attention_bwd_big_case holds the backward at that size. nan_tail: qkv
     is the first n_seg segments of a tensor whose next two are NaN (a
     kernel reading past its rows, even as masked keys, turns NaN); the
-    output must be finite."""
+    output must be finite, and the core, launched into the first n_seg
+    segments of a buffer whose next two hold a sentinel, must leave
+    those two as they were (a kernel storing a short last unit's missing
+    rows writes past its output) and write the wrapper's output."""
     dev, bf16 = "cuda", torch.bfloat16
     qkv = (torch.randn(n_seg, S, 3 * c, generator=gen) * qkv_std).to(dev,
                                                                       bf16)
@@ -1598,8 +1608,18 @@ def block_attention_case(torch, F, fa, gen, n_seg, S, c, heads, timed,
                    ok=res["ok"] and f32["rel_err"] <= BRANCH_REL_TOL)
         del out
     if nan_tail:
-        finite = bool(torch.isfinite(kernel()).all())
-        res.update(finite=finite, ok=res["ok"] and finite)
+        out = kernel()
+        finite = bool(torch.isfinite(out).all())
+        guarded = torch.full((n_seg + 2, S, c), 7.0, dtype=torch.bfloat16,
+                             device=dev)
+        fa._block_diag_launch(qkv, guarded[:n_seg], scale)
+        torch.cuda.synchronize()
+        untouched = bool((guarded[n_seg:] == 7.0).all())
+        same = bool(torch.equal(guarded[:n_seg], out))
+        res.update(finite=finite, guard_untouched=untouched,
+                   guarded_equal=same,
+                   ok=res["ok"] and finite and untouched and same)
+        del out, guarded
     if not timed:
         return res
     D = c // heads
@@ -1898,7 +1918,7 @@ def attention_s86_case(torch, F, fa, gen, n_seg, S, c, heads, bare, timed,
 
 def chunked_core_case(torch, F, fa, gen, n_seg, S, c, heads, bare, timed,
                       case):
-    """`case` (a 65..197-token core case) at a shape whose core call the
+    """`case` (an attention core case) at a shape whose core call the
     wrapper must take in at least two chunks of segments, the last one
     ragged: fails when the wrapper's call took one chunk or equal ones
     (the chunks it used are read by a spy on attention_seg_chunks)."""
@@ -1964,6 +1984,13 @@ def _case_specs(torch, F, fa, timed):
     s86dw_pg = part(s86dw, reg=dict(proj_drop=DROP))
     s86dw_all = part(s86dw, reg=both)
     rows_4s = B_TRAIN * 49 * 86
+    bda_wide = part(bda, qkv_std=12.0)
+    bda_narrow = part(bda, qkv_std=0.5)
+    bda_nan = part(bda, nan_tail=True)
+    # up to 64 tokens the core packs 64 // S whole segments a unit: the
+    # attention dropout and gamma over two chunks of segments (3140 and
+    # 3133 at S=6), the last chunk's last unit short (3 of 10 segments)
+    att_ag_chunks = part(chunked_core_case, case=att_ag)
     # past one chunk of the MLP wrapper's rows at C=768 (ragged)
     rows_2c = (fa.MLP_SCRATCH_BYTES // (2 * (C + HIDDEN)) // fa.MLP_ROW_TILE
                * fa.MLP_ROW_TILE + 1001)
@@ -2094,6 +2121,34 @@ def _case_specs(torch, F, fa, timed):
          False),
         ("block_diag_attention n_seg=3 S=50 C=256 H=4", 3, 50, 256, 4, bda,
          False),
+        # packed units: 10, 3, 2, 64 and 1 segments a unit, short last
+        # units; near-uniform scores (a key leaking from the next packed
+        # segment moves them); a NaN tail and a guarded output
+        ("block_diag_attention n_seg=13 S=6 on the first rows of a tensor "
+         "whose later rows are NaN", 13, 6, C, HEADS, bda_nan, False),
+        ("block_diag_attention n_seg=13 S=6 scores spread ~0.25", 13, 6, C,
+         HEADS, bda_narrow, False),
+        ("block_diag_attention n_seg=13 S=6 scores spread ~150", 13, 6, C,
+         HEADS, bda_wide, False),
+        ("block_diag_attention n_seg=7 S=22 scores spread ~0.25", 7, 22, C,
+         HEADS, bda_narrow, False),
+        ("block_diag_attention n_seg=5 S=21 C=512 H=8", 5, 21, 512, 8, bda,
+         False),
+        ("block_diag_attention n_seg=130 S=1 C=256 H=4", 130, 1, 256, 4, bda,
+         False),
+        ("block_diag_attention n_seg=3 S=64 C=512 H=8", 3, 64, 512, 8, bda,
+         False),
+        ("fused_attention_residual n_seg=7 S=22", 7, 22, C, HEADS, False,
+         att, False),
+        ("fused_attention_residual n_seg=1 S=64 C=512 H=8", 1, 64, 512, 8,
+         False, att, False),
+        ("fused_attention_residual_bare n_seg=5 S=21 C=512 H=8", 5, 21, 512,
+         8, True, att, False),
+        ("fused_attention_residual_reg all three n_seg=7 S=22", 7, 22, C,
+         HEADS, False, att_r, False),
+        ("fused_attention_residual_reg attention dropout + gamma over two "
+         "chunks of segments, the last ragged, n_seg=6273 S=6", 6273, 6, C,
+         HEADS, False, att_ag_chunks, False),
         # the 3- and 4-scale serving paths' forms (B=64): each launch of the
         # 86-token branch alone, bf16 and int8; both launches through the
         # wrappers; the S<=64 kernels at S=22; then other shapes
@@ -2269,9 +2324,6 @@ def _case_specs(torch, F, fa, timed):
     # the ViT-B/16 baseline's forms (S=197; serving B=64, training B=128)
     # and the block-diagonal op's long core, then other shapes; the
     # backward at the training step's shapes only in the timed run
-    bda_wide = part(bda, qkv_std=12.0)
-    bda_narrow = part(bda, qkv_std=0.5)
-    bda_nan = part(bda, nan_tail=True)
     longb = part(attention_bwd_big_case, upcast_bars=True)
     longb_twin = part(attention_bwd_big_case, twin=True, upcast_bars=True)
     longdw = part(attention_bwd_big_case, dw=True, upcast_bars=True)
@@ -4089,6 +4141,11 @@ def main() -> int:
                if "mismatch" in res else "")
             + (f"; second launch bit-identical {res['repeat_identical']}"
                if "repeat_identical" in res else "")
+            + (f"; finite {res['finite']}, rows past a guarded output "
+               f"untouched {res['guard_untouched']}, its rows the "
+               f"wrapper's {res['guarded_equal']}"
+               if "guard_untouched" in res else "")
+            + (f"; chunks {res['chunks']}" if "chunks" in res else "")
             + (f"; vs the float32-input plain version: rel L2 err "
                f"{res['f32_rel_err']:.4g} (<= {BRANCH_REL_TOL}), max_abs_err "
                f"{res['f32_max_abs_err']:.6g}, elementwise bar alone "

@@ -28,10 +28,9 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-KERNELS = ("fused_attention_residual", "fused_attention_residual_bwd",
-           "fused_mlp_residual", "mlp_dz", "fused_attention_residual_int8",
-           "fused_mlp_residual_int8", "drop_ew", "fused_mlp_bwd",
-           "layernorm", "block_diag_attention", "attention_sm90",
+KERNELS = ("fused_attention_residual_bwd", "fused_mlp_residual", "mlp_dz",
+           "fused_attention_residual_int8", "fused_mlp_residual_int8",
+           "drop_ew", "fused_mlp_bwd", "layernorm", "attention_sm90",
            "fused_attention_residual_int8_s86",
            "fused_attention_residual_bwd_s86", "attention_long",
            "fused_attention_residual_f32", "fused_mlp_residual_f32",

@@ -5,14 +5,15 @@ flags are keyword arguments of the same wrappers, whose autograd functions
 and the drop_ew kernel are in ops/fused_reg.py).
 
   fused_attention_residual: y = [x +] proj(block-diag attn(qkv([LN] x)))
-    kernel: csrc/fused_attention_residual.cu (seg_len <= 64); for 65 to
-    197 tokens (the 4-scale model's 86, the ViT's 197) two wrapper calls,
-    attention_core_s86 or attention_core_long (o = block-diag attn(qkv(
-    [LN] x)), with the attention dropout up to 86: a chain over chunks of
-    segments, attention_seg_chunks, of a LayerNorm pass, the TMA/wgmma qkv
-    product and the wgmma attention core) and attention_proj (y = [x +]
-    gamma * drop(proj(o)), the same product), kernels:
-    csrc/attention_sm90.cu (on csrc/gemm_sm90.cuh)
+    kernels: csrc/attention_sm90.cu (on csrc/gemm_sm90.cuh): the core (o =
+    block-diag attn(qkv([LN] x)), with the attention dropout up to 86
+    tokens: a chain over chunks of segments, attention_seg_chunks, of a
+    LayerNorm pass, the TMA/wgmma qkv product and the wgmma attention
+    core, whose units pack unit_segments(S) whole segments up to 64
+    tokens) and the proj (y = [x +] gamma * drop(proj(o)), the same
+    product); up to 64 tokens both inside this one wrapper call, for 65 to
+    197 (the 4-scale model's 86, the ViT's 197) two wrapper calls,
+    attention_core_s86 or attention_core_long, then attention_proj
   fused_attention_residual_bwd: its backward (dx, ln, attn, dqkv and the
     column sums dlns, dlnb, dbqkv, dbproj), recomputing the forward
     kernel: csrc/fused_attention_residual_bwd.cu (seg_len <= 64); for 65
@@ -33,8 +34,7 @@ and the drop_ew kernel are in ops/fused_reg.py).
     ln, h, dz and the column sums dlns, dlnb
     kernel: csrc/fused_mlp_bwd.cu
   block_diag_attention_fwd: softmax(q k^T * scale) v within each segment
-    kernel: csrc/block_diag_attention.cu (seg_len <= 64);
-    csrc/attention_sm90.cu's wgmma core for 65 to 197
+    kernel: csrc/attention_sm90.cu's wgmma core
 
 `attention_residual`, `mlp_residual` and `block_diag_attention` are the
 differentiable entries (the JAX package's custom_vjp entries). The
@@ -92,7 +92,10 @@ from ._build import (F32_C, _check_tensor, _ptr, _require, _stream,
                      count_launch, f32_form, launch_counts)
 from .nn import layernorm
 
-ATTN_MAX_SEG_LEN = 64         # a block holds at most 64 rows (csrc note)
+# up to this many tokens the attention core packs whole segments into its
+# 64-row units (csrc/attention_sm90.cu), the forward takes C in SHORT_C
+# and the backward is csrc/fused_attention_residual_bwd.cu's
+ATTN_MAX_SEG_LEN = 64
 # the forward, bf16 and int8, and the backward in both forms also take
 # 65..86 tokens (the bf16 forward csrc/attention_sm90.cu, the others one
 # 96-row block a segment, csrc/*_s86.cu); so do the reg flags, which stop
@@ -115,11 +118,12 @@ SHORT_C = (256, 384, 512, 768)
 # together at most this many bytes (csrc/fused_mlp_residual.cu)
 MLP_SCRATCH_BYTES = 192 << 20
 MLP_ROW_TILE = 128            # the kernel's output tile rows
-# the 65..197-token attention core's chain holds two scratches for a chunk
-# of whole segments, the LayerNorm [rows rounded up to MLP_ROW_TILE, C]
-# (full form) and qkv [rows, 3C] in bf16, together at most this many bytes
+# the attention core's chain holds two scratches for a chunk of whole
+# segments, the LayerNorm [rows rounded up to MLP_ROW_TILE, C] (full form)
+# and qkv [rows, 3C] in bf16, together at most this many bytes
 # (csrc/attention_sm90.cu). Chunks small enough to keep qkv in the 50 MB L2
-# were slower on the card (more launches and tails; PERF.md §6)
+# were slower on the card at 86 and 197 tokens (more launches and tails;
+# PERF.md §6)
 ATTN_SCRATCH_BYTES = 192 << 20
 
 
@@ -470,13 +474,13 @@ def fused_attention_residual(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
     The JAX signature (pallas_attention.py:1053). use_ln=use_residual=False
     is the bare form the patch blocks run. On the card: bf16 x and
     weights, float32 vectors, head width 64, C in attention_widths(seg_len)
-    (384 only up to 64 tokens), seg_len <= 197 (65..86 in two
-    launches, attention_core_s86 and attention_proj; 87..197
-    attention_core_long and attention_proj); or float32 x, weights and
-    vectors, the float32 form (inert, seg_len <= 64, C in F32_C). gamma,
-    seed, attn_drop, proj_drop: the reg form's LayerScale and dropout
-    (fused_attention_residual_reg, pallas_attention.py:1202), seg_len <=
-    86 only."""
+    (384 only up to 64 tokens), seg_len <= 197 (up to 64 the core's chain
+    and the proj, counted once; 65..86 in two wrapper calls,
+    attention_core_s86 and attention_proj; 87..197 attention_core_long and
+    attention_proj); or float32 x, weights and vectors, the float32 form
+    (inert, seg_len <= 64, C in F32_C). gamma, seed, attn_drop, proj_drop:
+    the reg form's LayerScale and dropout (fused_attention_residual_reg,
+    pallas_attention.py:1202), seg_len <= 86 only."""
     reg = dict(gamma=gamma, seed=seed, attn_drop=attn_drop,
                proj_drop=proj_drop)
     if gamma is not None or attn_drop > 0.0 or proj_drop > 0.0:
@@ -507,36 +511,12 @@ def fused_attention_residual(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
                                S, scale, ln_eps, use_ln, seed, attn_drop)
         return attention_proj(o, x, wproj, bproj, use_residual, gamma, seed,
                               proj_drop)
-    dev, f32, bf16 = x.device, torch.float32, torch.bfloat16
-    _check_tensor("x", x, dev, bf16, (n_seg, S, C))
-    _check_tensor("ln_scale", ln_scale, dev, f32, (C,))
-    _check_tensor("ln_bias", ln_bias, dev, f32, (C,))
-    _check_tensor("wqkv", wqkv, dev, bf16, (C, 3 * C))
-    _check_tensor("bqkv", bqkv, dev, f32, (3 * C,))
-    _check_tensor("wproj", wproj, dev, bf16, (C, C))
-    _check_tensor("bproj", bproj, dev, f32, (C,))
-    if gamma is not None:
-        _check_tensor("gamma", gamma, dev, f32, (C,))
-    a_thr, a_scale = drop_args(attn_drop)
-    p_thr, p_scale = drop_args(proj_drop)
-    out = torch.empty_like(x)
-    if n_seg == 0:
-        return out
-    lib = _build.load_library("fused_attention_residual")
-    fn = lib.launch_fused_attention_residual
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + \
-        [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] + \
-        [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
-                              ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        status = fn(_ptr(x), _ptr(ln_scale), _ptr(ln_bias), _ptr(wqkv),
-                    _ptr(bqkv), _ptr(wproj), _ptr(bproj), _ptr(out),
-                    n_seg, S, C, num_heads, float(scale), float(ln_eps),
-                    int(bool(use_ln)), int(bool(use_residual)),
-                    None if gamma is None else _ptr(gamma), int32_seed(seed),
-                    a_thr, a_scale, p_thr, p_scale, _stream(dev))
-    _build.check(lib, status, "fused_attention_residual")
+    _check_proj_args(x, wproj, bproj, gamma)
+    o = _attention_core_chain(x, ln_scale, ln_bias, wqkv, bqkv, num_heads,
+                              scale, ln_eps, use_ln, seed, attn_drop,
+                              "fused_attention_residual")
+    out = _attention_proj_launch(o, x, wproj, bproj, use_residual, gamma,
+                                 seed, proj_drop)
     name = _reg_name("fused_attention_residual", gamma, attn_drop, proj_drop)
     count_launch(name if use_ln else name + "_bare", C)
     return out
@@ -644,7 +624,7 @@ def attention_core_long(x, ln_scale, ln_bias, wqkv, bqkv, num_heads,
 
 
 def attention_scratch_bytes(rows, C, use_ln=True):
-    """The bytes of the 65..197-token core chain's scratch for a chunk of
+    """The bytes of the attention core chain's scratch for a chunk of
     `rows` rows: qkv [rows, 3C] and, in the full form, the LayerNorm
     [rows rounded up to MLP_ROW_TILE, C], in bf16."""
     ln_rows = -(-rows // MLP_ROW_TILE) * MLP_ROW_TILE if use_ln else 0
@@ -652,12 +632,13 @@ def attention_scratch_bytes(rows, C, use_ln=True):
 
 
 def attention_seg_chunks(n_seg, S, C, use_ln=True):
-    """The segment chunks of one 65..197-token core call on the card:
+    """The segment chunks of one attention core call on the card:
     [(first segment, segments)], whole segments tiling [0, n_seg) in
     order, as few as keep each chunk's scratch (attention_scratch_bytes)
-    within ATTN_SCRATCH_BYTES, of equal size but the last. A chunk's first
-    token, first segment * S, is global: the attention dropout's masks
-    count from it."""
+    within ATTN_SCRATCH_BYTES, of equal size but the last, that size a
+    multiple of unit_segments(S) where the bound allows (so only the last
+    chunk's last unit is short). A chunk's first token, first segment * S,
+    is global: the attention dropout's masks count from it."""
     if n_seg <= 0:
         return []
     row = 2 * (4 if use_ln else 3) * C       # scratch bytes a row, unrounded
@@ -667,16 +648,39 @@ def attention_seg_chunks(n_seg, S, C, use_ln=True):
         most -= 1
     n = -(-n_seg // most)
     size = -(-n_seg // n)
+    G = unit_segments(S)
+    if -(-size // G) * G <= most:
+        size = -(-size // G) * G
     return [(s0, min(size, n_seg - s0)) for s0 in range(0, n_seg, size)]
+
+
+def unit_segments(S):
+    """The whole segments one unit of the attention core takes: up to
+    ATTN_MAX_SEG_LEN tokens as many as its 64-row strip holds (10 at S=6,
+    2 at 22, 1 at 50), past that one."""
+    return ATTN_MAX_SEG_LEN // S if S <= ATTN_MAX_SEG_LEN else 1
+
+
+def attention_seg_plan(n_seg, S, C, use_ln=True):
+    """The core chain's plan on the card: [(first segment, segments, G)]
+    for each chunk of attention_seg_chunks, G = unit_segments(S).
+    csrc/attention_sm90.cu packs a chunk's segments into units from its
+    first: unit group k holds the chunk's segments [k G, min(k G + G, n)),
+    so only a chunk's last group may be short and none spans two
+    chunks."""
+    G = unit_segments(S)
+    return [(s0, n, G)
+            for s0, n in attention_seg_chunks(n_seg, S, C, use_ln)]
 
 
 def _attention_core_chain(x, ln_scale, ln_bias, wqkv, bqkv, num_heads,
                           scale, ln_eps, use_ln, seed, attn_drop, what):
     """o = block_diag_attn(qkv([LN](x))) on the card for x [n_seg, S, C]
-    at 65..197 tokens (checked by the caller): for each chunk of
-    attention_seg_chunks, one call of csrc/attention_sm90.cu's chain (the
-    LayerNorm pass, the qkv product, the attention core with the reg
-    form's attention dropout), through one bf16 scratch."""
+    at 1..197 tokens (checked by the caller): for each chunk of
+    attention_seg_plan, one call of csrc/attention_sm90.cu's chain (the
+    LayerNorm pass, the qkv product, the attention core on units of G
+    segments with the reg form's attention dropout), through one bf16
+    scratch."""
     n_seg, S, C = x.shape
     dev, f32, bf16 = x.device, torch.float32, torch.bfloat16
     _check_tensor("x", x, dev, bf16, (n_seg, S, C))
@@ -692,24 +696,24 @@ def _attention_core_chain(x, ln_scale, ln_bias, wqkv, bqkv, num_heads,
     fn = lib.launch_attention_chain
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] + \
-            [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + \
+            [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + \
             [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    chunks = attention_seg_chunks(n_seg, S, C, use_ln)
-    cap = chunks[0][1] * S
+    plan = attention_seg_plan(n_seg, S, C, use_ln)
+    cap = plan[0][1] * S
     ln_rows = -(-cap // MLP_ROW_TILE) * MLP_ROW_TILE if use_ln else 0
     scratch = torch.empty(ln_rows * C + cap * 3 * C, dtype=bf16, device=dev)
     ln = ctypes.c_void_p(scratch.data_ptr()) if use_ln else None
     qkv = ctypes.c_void_p(scratch.data_ptr() + 2 * ln_rows * C)
     with torch.cuda.device(dev):
-        for s0, ns in chunks:
+        for s0, ns, G in plan:
             off = 2 * s0 * S * C
             status = fn(ctypes.c_void_p(x.data_ptr() + off), _ptr(ln_scale),
                         _ptr(ln_bias), _ptr(wqkv), _ptr(bqkv),
                         ctypes.c_void_p(o.data_ptr() + off), ln, qkv, cap,
-                        ns, S, C, num_heads, s0, float(scale), float(ln_eps),
-                        int(bool(use_ln)), int32_seed(seed), a_thr, a_scale,
-                        _stream(dev))
+                        ns, S, G, C, num_heads, s0, float(scale),
+                        float(ln_eps), int(bool(use_ln)), int32_seed(seed),
+                        a_thr, a_scale, _stream(dev))
             _build.check(lib, status, what)
     return o
 
@@ -729,34 +733,52 @@ def attention_proj(o, x, wproj, bproj, use_residual=True, gamma=None, seed=0,
         raise ValueError(f"no kernel for device {o.device}")
     if o.dtype == torch.float32:
         f32_form("attention_proj", C=o.shape[-1])
-    C = o.shape[-1]
-    rows = o.numel() // C if C else 0
-    _check_width(C, "attention_proj")
-    dev, bf16 = o.device, torch.bfloat16
-    _check_tensor("o", o, dev, bf16, o.shape)
-    _check_tensor("x", x, dev, bf16, o.shape)
-    _check_tensor("wproj", wproj, dev, bf16, (C, C))
+    _check_width(o.shape[-1], "attention_proj")
+    _check_tensor("o", o, o.device, torch.bfloat16, o.shape)
+    _check_proj_args(x, wproj, bproj, gamma)
+    out = _attention_proj_launch(o, x, wproj, bproj, use_residual, gamma,
+                                 seed, proj_drop)
+    name = _reg_name("fused_attention_residual_s86_proj", gamma, proj_drop)
+    launch_counts[name if use_residual else name + "_bare"] += 1
+    return out
+
+
+def _check_proj_args(x, wproj, bproj, gamma):
+    """The proj's operands on x's device: bf16 x [..., C] and wproj [C, C],
+    float32 bproj [C] (and gamma)."""
+    C, dev = x.shape[-1], x.device
+    _check_tensor("x", x, dev, torch.bfloat16, x.shape)
+    _check_tensor("wproj", wproj, dev, torch.bfloat16, (C, C))
     _check_tensor("bproj", bproj, dev, torch.float32, (C,))
     if gamma is not None:
         _check_tensor("gamma", gamma, dev, torch.float32, (C,))
+
+
+def _attention_proj_launch(o, x, wproj, bproj, use_residual, gamma, seed,
+                           proj_drop):
+    """The proj's launch (csrc/attention_sm90.cu's product with EPI_OUT)
+    on operands its caller checked (_check_proj_args; o like x); counts
+    nothing."""
+    C = o.shape[-1]
+    rows = o.numel() // C if C else 0
     p_thr, p_scale = drop_args(proj_drop)
     out = torch.empty_like(x)
     if rows == 0:
         return out
     lib = _build.load_library("attention_sm90")
     fn = lib.launch_attention_proj
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + \
-        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-         ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + \
+            [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+             ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    dev = o.device
     with torch.cuda.device(dev):
         status = fn(_ptr(o), _ptr(x), _ptr(wproj), _ptr(bproj), _ptr(out),
                     rows, C, int(bool(use_residual)),
                     None if gamma is None else _ptr(gamma), int32_seed(seed),
                     p_thr, p_scale, _stream(dev))
     _build.check(lib, status, "attention_proj")
-    name = _reg_name("fused_attention_residual_s86_proj", gamma, proj_drop)
-    launch_counts[name if use_residual else name + "_bare"] += 1
     return out
 
 
@@ -1278,8 +1300,8 @@ def block_diag_attention_fwd(qkv, num_heads, seg_len, scale):
     """softmax(q k^T * scale) v within each segment (_block_attention_impl,
     pallas_attention.py:230-263): qkv [n_seg, seg_len, 3C] -> [n_seg,
     seg_len, C]. On the card: bf16 qkv, head width 64, seg_len <= 197 (on
-    either device; 65..197 through csrc/attention_sm90.cu's core, counted
-    as block_diag_attention_long)."""
+    either device), through csrc/attention_sm90.cu's core (counted as
+    block_diag_attention, 65..197 as block_diag_attention_long)."""
     refuse_long_segments("block_diag_attention", seg_len,
                          ATTN_LONG_MAX_SEG_LEN)
     if qkv.device.type == "cpu":
@@ -1299,30 +1321,35 @@ def block_diag_attention_fwd(qkv, num_heads, seg_len, scale):
     _require(C3 == 3 * C and num_heads * HEAD_DIM == C,
              f"the kernel needs head width {HEAD_DIM}: 3C={C3}, "
              f"num_heads={num_heads}")
-    dev = qkv.device
-    _check_tensor("qkv", qkv, dev, torch.bfloat16, (n_seg, S, C3))
-    out = torch.empty(n_seg, S, C, dtype=torch.bfloat16, device=dev)
+    _check_tensor("qkv", qkv, qkv.device, torch.bfloat16, (n_seg, S, C3))
+    out = torch.empty(n_seg, S, C, dtype=torch.bfloat16, device=qkv.device)
     if n_seg == 0:
         return out
-    long_seg = S > ATTN_MAX_SEG_LEN
-    name = ("block_diag_attention_long" if long_seg
-            else "block_diag_attention")
-    lib = _build.load_library("attention_sm90" if long_seg
-                              else "block_diag_attention")
-    fn = getattr(lib, "launch_" + name)
-    # the long core also takes the rows qkv's buffer holds from its start
-    # (it reads none past n_seg * S)
-    cap = ([(qkv.untyped_storage().nbytes() // 2 - qkv.storage_offset())
-            // C3] if long_seg else [])
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * len(cap) + \
-        [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        status = fn(_ptr(qkv), _ptr(out), *cap, n_seg, S, C, float(scale),
-                    _stream(dev))
-    _build.check(lib, status, name)
-    launch_counts[name] += 1
+    _block_diag_launch(qkv, out, scale)
+    launch_counts["block_diag_attention_long" if S > ATTN_MAX_SEG_LEN
+                  else "block_diag_attention"] += 1
     return out
+
+
+def _block_diag_launch(qkv, out, scale):
+    """The core's launch on checked operands: out [n_seg, S, C] (or the
+    first n_seg segments of a larger buffer, whose rows past them it never
+    writes) from qkv [n_seg, S, 3C]; counts nothing. The core also takes
+    the rows qkv's buffer holds from its start, and reads none past n_seg
+    * S."""
+    n_seg, S, C3 = qkv.shape
+    cap = (qkv.untyped_storage().nbytes() // 2 - qkv.storage_offset()) // C3
+    lib = _build.load_library("attention_sm90")
+    fn = lib.launch_block_diag_attention
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_longlong] + \
+            [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    dev = qkv.device
+    with torch.cuda.device(dev):
+        status = fn(_ptr(qkv), _ptr(out), cap, n_seg, S, unit_segments(S),
+                    C3 // 3, float(scale), _stream(dev))
+    _build.check(lib, status, "block_diag_attention")
 
 
 # ---------------------------------------------------------------------------

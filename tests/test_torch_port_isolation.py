@@ -54,7 +54,7 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_libs", {})
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(_build.KernelBuildError, match="nvcc"):
-        _build.load_library("fused_attention_residual")
+        _build.load_library("attention_sm90")
     with pytest.raises(_build.KernelBuildError):
         _build.build_all()
 

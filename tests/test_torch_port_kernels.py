@@ -111,11 +111,14 @@ def test_mlp_row_chunks_tile_the_rows_within_the_scratch(rows, C, hidden):
     (1, 65, 512, True), (7, 86, 768, True), (1001, 86, 768, True),
     (3136, 86, 768, True), (3136, 86, 768, False), (6272, 86, 256, True),
     (1, 197, 512, True), (64, 197, 768, True), (128, 197, 768, False),
-    (1024, 197, 768, True), (5, 87, 256, False)])
+    (1024, 197, 768, True), (5, 87, 256, False),
+    (3136, 6, 768, True), (6272, 6, 768, True), (6273, 6, 768, True),
+    (3136, 22, 768, True), (6272, 22, 768, False), (64, 50, 768, False),
+    (128, 50, 384, True)])
 def test_attention_seg_chunks_tile_the_segments_within_the_scratch(
         n_seg, S, C, use_ln):
-    """The card's 65..197-token attention core runs its chain over these
-    chunks: whole segments tiling [0, n_seg) in order, each chunk's first
+    """The card's attention core runs its chain over these chunks: whole
+    segments tiling [0, n_seg) in order, each chunk's first
     global token its first segment times S (the attention dropout's masks
     count from it), each chunk's LN and qkv scratch within
     ATTN_SCRATCH_BYTES, equal chunks but the last, and no more chunks than
@@ -137,6 +140,38 @@ def test_attention_seg_chunks_tile_the_segments_within_the_scratch(
     most = max(m for m in range(1, n_seg + 1) if fa.attention_scratch_bytes(
         m * S, C, use_ln) <= fa.ATTN_SCRATCH_BYTES)
     assert len(chunks) == -(-n_seg // most)
+
+
+@pytest.mark.parametrize("n_seg, S, C, use_ln", [
+    (13, 6, 768, True), (6272, 6, 768, True), (6273, 6, 768, True),
+    (3136, 22, 768, True), (6272, 22, 768, False), (64, 50, 768, False),
+    (130, 1, 256, True), (5, 21, 512, True), (3, 64, 512, True),
+    (7, 86, 768, True)])
+def test_attention_seg_plan_packs_whole_segments_within_each_chunk(
+        n_seg, S, C, use_ln):
+    """The core's units up to 64 tokens take G = 64 // S whole segments in
+    one 64-row strip (one segment past 64 tokens), grouped from each
+    chunk's first segment as csrc/attention_sm90.cu walks them (group k:
+    the chunk's segments [k G, min(k G + G, n))): the groups tile the
+    chunk's segments in order, hold G segments but the chunk's last
+    (1..G), never span two chunks, and only the last chunk ends short
+    (the chunks but the last hold whole groups)."""
+    plan = fa.attention_seg_plan(n_seg, S, C, use_ln)
+    assert [(s0, n) for s0, n, _ in plan] == fa.attention_seg_chunks(
+        n_seg, S, C, use_ln)
+    for i, (s0, n, G) in enumerate(plan):
+        assert G == fa.unit_segments(S) == (64 // S if S <= 64 else 1)
+        assert G * S <= 64 or G == 1
+        groups = [(s0 + g0, min(G, n - g0)) for g0 in range(0, n, G)]
+        firsts = [g0 for g0, _ in groups]
+        assert firsts == list(itertools.accumulate(
+            [s0] + [k for _, k in groups[:-1]]))
+        assert sum(k for _, k in groups) == n
+        assert all(k == G for _, k in groups[:-1])
+        assert 1 <= groups[-1][1] <= G
+        assert groups[-1][0] + groups[-1][1] == s0 + n
+        if i < len(plan) - 1:
+            assert n % G == 0
 
 
 def test_every_loaded_kernel_library_is_built_from_its_source():
