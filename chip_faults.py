@@ -38,7 +38,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PKG = "duoformer_tcga_tpu_torch"
 WORK = os.path.join(HERE, PKG, "_build", "faults")
 MLP = f"{PKG}/csrc/fused_mlp_residual.cu"
-BWD = f"{PKG}/csrc/fused_attention_residual_bwd.cu"
+BWD = f"{PKG}/csrc/attention_bwd_sm90.cu"
+ROWS = f"{PKG}/csrc/chain_rows.cuh"
 DZ = f"{PKG}/csrc/mlp_dz.cu"
 ATTN8 = f"{PKG}/csrc/fused_attention_residual_int8.cu"
 MLP8 = f"{PKG}/csrc/fused_mlp_residual_int8.cu"
@@ -66,6 +67,10 @@ CHUNK_LOOP = "for (int ci = 0; ci < nchunks; ++ci) {"
 KEY_MASK = ("sc[j] = key >= k0 && key < k0 + S ? __fmul_rn(sc[j], scale)\n"
             "                                        : -CUDART_INF_F;")
 GROUP_TOK = "const uint32_t tok0 = tok_base + (uint32_t)seg * (uint32_t)S;"
+# the backward core's ds, cast once (csrc/attention_bwd_sm90.cu)
+DS_PACK = ("pack_bf16(sc[j] * (dp[j] - r) * scale,\n"
+           "                                          sc[j + 1] * (dp[j + 1] "
+           "- r) * scale);")
 STRIP_CALL = "strip_attention<RT>(sQKV, QKV_LD, warp, S, scale, lane);"
 PARALLEL = 4
 
@@ -104,29 +109,30 @@ FAULTS = {
         "                          gelu(acc[c8 * 4 + 2 * hr + 1] + bb.y))",
         "fused_mlp_residual_z"),
     "last k-tile of the TMA ring skipped (mlp)": (
-        GEMM, "  const int ktiles = g.K / BK;",
-        "  const int ktiles = g.K / BK - 1;", "fused_mlp_residual"),
+        GEMM, "  const int ktiles = (g.K + BK - 1) / BK;",
+        "  const int ktiles = (g.K + BK - 1) / BK - 1;", "fused_mlp_residual"),
     "second row chunk's masks from chunk-local rows (mlp)": (
         MLP, "make_drop(seed, SITE_MLP_HID, drop_thr, drop_scale),\n"
              "                    (uint32_t)row0};",
         "make_drop(seed, SITE_MLP_HID, drop_thr, drop_scale),\n"
         "                    (uint32_t)0};", "fused_mlp_residual_reg"),
     "rowsum(dp p) dropped": (
-        BWD, "pv[u] * (dpv[u] - rs) * scale", "pv[u] * dpv[u] * scale",
+        BWD, "const float r = rs[(j >> 1) & 1];", "const float r = 0.f;",
         "fused_attention_residual_bwd"),
     "ds not scaled": (
-        BWD, "pv[u] * (dpv[u] - rs) * scale", "pv[u] * (dpv[u] - rs)",
+        BWD, DS_PACK, DS_PACK.replace(" * scale", ""),
         "fused_attention_residual_bwd"),
     "dq and dk swapped": (
-        BWD, "QKV_LD + which * D +", "QKV_LD + (1 - which) * D +",
-        "fused_attention_residual_bwd"),
+        BWD, "  stage_frags(dq, qa, warp, lane);\n"
+             "  stage_frags(dk, ka, warp, lane);",
+        "  stage_frags(dk, qa, warp, lane);\n"
+        "  stage_frags(dq, ka, warp, lane);", "fused_attention_residual_bwd"),
     "LN backward mean terms dropped": (
-        BWD, "istd[m][hr] * (dxh - m1[m][hr] - xh * m2[m][hr])",
-        "istd[m][hr] * dxh", "fused_attention_residual_bwd"),
+        ROWS, "out[e] = istd * (dxh - m1 - xs[e] * m2);",
+        "out[e] = istd * dxh;", "fused_attention_residual_bwd"),
     "last head's dqkv skipped": (
-        BWD, "h * D + seg * 8) =\n          *reinterpret_cast<const uint4*>(",
-        "h * D + seg * 8) = h == Sh::H - 1 ? make_uint4(0, 0, 0, 0) :\n"
-        "          *reinterpret_cast<const uint4*>(",
+        BWD, "  for (int w = 0; w < 3; ++w)\n    store_tile(",
+        "  for (int w = 0; w < 3 * (h != C / HD - 1); ++w)\n    store_tile(",
         "fused_attention_residual_bwd"),
     "gelu for gelu'": (
         DZ, "const float d0 = p0 + zf.x * (INV_SQRT_2PI * expf(-0.5f * zf.x "
@@ -159,8 +165,10 @@ FAULTS = {
         "tests/test_torch_port_int8.py::test_rowquant_matches_jax_bit_for_bit"
         " guards the rounding on built ties"),
     "block-local row counter of the dp mask (reg backward)": (
-        BWD, "dpv[u] = keep_mask(hseed, (uint32_t)(row0 + r),",
-        "dpv[u] = keep_mask(hseed, (uint32_t)r,",
+        BWD, "dp[j] = (keep >> j) & 1u ? dp[j] * drop.scale : 0.f;",
+        "dp[j] = keep_mask(drop.seed_plus, 16 * warp + g + 8 * ((j >> 1) & "
+        "1),\n                         tok0 + 8 * (j >> 2) + 2 * t + (j & 1),"
+        "\n                         drop.thr) ? dp[j] * drop.scale : 0.f;",
         "fused_attention_residual_bwd_reg"),
     "arithmetic shift in the hash": (
         HASH, "return (x >> 8) < thr;",
@@ -170,8 +178,10 @@ FAULTS = {
         "make_drop(seed, SITE_MLP_HID, drop_thr, drop_scale)",
         "fused_mlp_residual_reg"),
     "softmax Jacobian on the dropped p (reg backward)": (
-        BWD, "pv[u] = c < RT ? sS[r * Sh::S_LD + c] : 0.f;",
-        "pv[u] = c < RT ? __bfloat162float(sP[r * Sh::P_LD + c]) : 0.f;",
+        BWD, "  // ---- o = p v and dp = do v^T ----",
+        "  for (int j = 0; j < 32; ++j)\n"
+        "    sc[j] = __bfloat162float(__float2bfloat16(\n"
+        "        (keep >> j) & 1u ? sc[j] * drop.scale : 0.f));",
         "fused_attention_residual_bwd_reg"),
     "gamma left out of geff (reg backward)": (
         REG_GRAD, "      v.x = __fmul_rn(v.x, gamma[col]);\n"
@@ -192,14 +202,11 @@ FAULTS = {
         MLPB, "(phi + z * (INV_SQRT_2PI * expf(-0.5f * z * z)))", "phi",
         "fused_mlp_bwd"),
     "dwA against g where gm is due (dw form)": (
-        BWD, "        if (pdrop.on) {                    "
-             "// gacc = bf16(g * mask / keep)",
-        "        if (false) {", "fused_attention_residual_bwd_reg_dw"),
-    "ragged last row tile left out of dwqkv (dw form)": (
-        BWD, "    if (dw)\n      for (int mt = warp; mt < C / 16; "
-             "mt += WARPS) {",
-        "    if (dw && !(R < RT && blockIdx.x + 1 == gridDim.x))\n"
-        "      for (int mt = warp; mt < C / 16; mt += WARPS) {",
+        BWD, "const bf16* gacc = gmc != nullptr ? gmc : gc;",
+        "const bf16* gacc = gc;", "fused_attention_residual_bwd_reg_dw"),
+    "ragged last rows of a chunk left out of dwqkv (dw form)": (
+        BWD, "GemmArgs w{C, 3 * C, rows, nullptr};",
+        "GemmArgs w{C, 3 * C, rows / 64 * 64, nullptr};",
         "fused_attention_residual_bwd_dw"),
     "bias left out (LayerNorm)": (
         LN, "(v[2 * i] - mean) * inv * lns[c + 2 * i] + lnb[c + 2 * i],",
@@ -251,16 +258,31 @@ FAULTS = {
         "float y0 = (g.N == 384 && n0 == 256 ? 0.f : acc[c8 * 4 + 2 * hr])"
         " + bb.x;", "fused_attention_residual_c384"),
     "last 128 input columns skipped at C=384 (mlp fc1)": (
-        GEMM, "  const int ktiles = g.K / BK;",
-        "  const int ktiles = g.K / BK - (EPI == EPI_GELU && g.K == 384 ? 2 "
-        ": 0);",
+        GEMM, "  const int ktiles = (g.K + BK - 1) / BK;",
+        "  const int ktiles = (g.K + BK - 1) / BK - (EPI == EPI_GELU && "
+        "g.K == 384 ? 2 : 0);",
         "fused_mlp_residual_c384"),
     "last head's dwqkv dropped at C=384 (dw form)": (
-        BWD, "    if (dw)\n      for (int mt = warp; mt < C / 16; "
-             "mt += WARPS) {",
-        "    if (dw && !(C == 384 && h == Sh::H - 1))\n"
-        "      for (int mt = warp; mt < C / 16; mt += WARPS) {",
-        "fused_attention_residual_bwd_dw_c384"),
+        GEMM, "            if (row >= M) continue;",
+        "            if (row >= M || (EPI == EPI_ACC && N == 3 * 384 &&\n"
+        "                             col % 384 >= 320))\n"
+        "              continue;", "fused_attention_residual_bwd_dw_c384"),
+    "segment mask dropped: queries attend across packed segments (bwd)": (
+        BWD, KEY_MASK, KEY_MASK.replace("key >= k0 && key < k0 + S",
+                                        "key < live"),
+        "fused_attention_residual_bwd"),
+    "ds^T q read with ds K-major, the wrong major-ness (bwd)": (
+        BWD, "wgmma_ss<1, 1>(dk, desc128(dst + kk * 2048, 8192, 1024),",
+        "wgmma_ss<0, 1>(dk, desc128(dst + kk * 32, 16, 1024),",
+        "fused_attention_residual_bwd"),
+    "dropout tokens counted from the strip, not globally (bwd)": (
+        BWD, "scale, hdrop, tok_base + (uint32_t)row0, attn + row0 * C,",
+        "scale, hdrop, 0u, attn + row0 * C,",
+        "fused_attention_residual_bwd_reg"),
+    "dw accumulation skips the last chunk (bwd dw form)": (
+        BWD, "    if (dw) {\n      GemmArgs w{",
+        "    if (dw && ci + 1 < nchunks) {\n      GemmArgs w{",
+        "fused_attention_residual_bwd_dw"),
     "p dropped for o and dv but dp not (s86 reg backward)": (
         BWD86, "    drop_bits(dp, km, hdrop);   // dp dropped and rescaled "
                "(reg form)\n", "",
@@ -294,8 +316,8 @@ FAULTS = {
         "for (int kb = 0; kb < NK / 16 - 1; ++kb)\n    wgmma_pv(",
         "block_diag_attention_long"),
     "qkv bias left out of the epilogue (attn)": (
-        GEMM, "    const float2 bb = *reinterpret_cast<const float2*>(bias + n0 "
-              "+ col);",
+        GEMM, "    const float2 bb = bias == nullptr ? make_float2(0.f, 0.f)\n"
+              "        : *reinterpret_cast<const float2*>(bias + n0 + col);",
         "    const float2 bb = make_float2(0.f, 0.f);",
         "fused_attention_residual_s86"),
     "core's tensor map over its buffer's capacity (attn)": (

@@ -67,7 +67,12 @@
    of a NaN-tailed tensor and into the first segments of a guarded output
    (the rows past it must keep their sentinel), and #1 with the attention
    dropout and gamma over two chunks of segments at S=6 (6273 segments,
-   the last chunk ragged; fails in one chunk),
+   the last chunk ragged; fails in one chunk), the backward up to 64
+   tokens (csrc/attention_bwd_sm90.cu, one chain a call) at S=1, 21 and
+   64 with short last units, with dq, dk and dv each held alone at S=6
+   (6272 segments) and S=22 (3136) as attention_bwd_big_case holds them,
+   and in its reg dw form with every flag over chunks of segments at S=6
+   (6273 segments, the last chunk ragged; fails in one chunk),
    and each at one small odd shape:
    kernel in bf16,
    plain version on the same inputs upcast to float32 (the int8 forms'
@@ -98,9 +103,8 @@
    sides), and gm on a tensor of ones to none at all: the kernel's masks
    are the plain version's bit for bit. The dw form's dwqkv and dwA are
    also held within 1e-2 relative L2 of the dw=False kernel's row-space
-   outputs multiplied by torch.matmul, and, summed with atomics in an
-   order that varies, a second launch's within the bars of the first
-   (every other output bit for bit). Yardsticks of the new forms:
+   outputs multiplied by torch.matmul, and a second launch's bit for bit
+   (every output). Yardsticks of the new forms:
    autograd through F.layer_norm, F.linear, F.gelu, F.linear (the MLP
    backward); the dw=False kernel plus its two torch.matmul products (the
    dw form); F.layer_norm; SDPA with the segments as the batch.
@@ -360,9 +364,9 @@ SOURCES = {
     "fused_attention_residual_bare": CSRC + "attention_sm90.cu",
     "fused_mlp_residual": CSRC + "fused_mlp_residual.cu",
     "fused_mlp_residual_z": CSRC + "fused_mlp_residual.cu",
-    "fused_attention_residual_bwd": CSRC + "fused_attention_residual_bwd.cu",
+    "fused_attention_residual_bwd": CSRC + "attention_bwd_sm90.cu",
     "fused_attention_residual_bwd_bare":
-        CSRC + "fused_attention_residual_bwd.cu",
+        CSRC + "attention_bwd_sm90.cu",
     "mlp_dz": CSRC + "mlp_dz.cu",
     "fused_attention_residual_int8": CSRC + "fused_attention_residual_int8.cu",
     "fused_attention_residual_int8_bare":
@@ -373,21 +377,21 @@ SOURCES = {
     "fused_mlp_residual_reg": CSRC + "fused_mlp_residual.cu",
     "fused_mlp_residual_reg_z": CSRC + "fused_mlp_residual.cu",
     "fused_attention_residual_bwd_reg":
-        CSRC + "fused_attention_residual_bwd.cu",
+        CSRC + "attention_bwd_sm90.cu",
     "fused_attention_residual_bwd_reg_bare":
-        CSRC + "fused_attention_residual_bwd.cu",
+        CSRC + "attention_bwd_sm90.cu",
     "drop_ew_hd": CSRC + "drop_ew.cu",
     "drop_ew_dz": CSRC + "drop_ew.cu",
     "drop_ew_gm": CSRC + "drop_ew.cu",
     "fused_mlp_bwd": CSRC + "fused_mlp_bwd.cu",
     "fused_attention_residual_bwd_dw":
-        CSRC + "fused_attention_residual_bwd.cu",
+        CSRC + "attention_bwd_sm90.cu",
     "fused_attention_residual_bwd_dw_bare":
-        CSRC + "fused_attention_residual_bwd.cu",
+        CSRC + "attention_bwd_sm90.cu",
     "fused_attention_residual_bwd_reg_dw":
-        CSRC + "fused_attention_residual_bwd.cu",
+        CSRC + "attention_bwd_sm90.cu",
     "fused_attention_residual_bwd_reg_dw_bare":
-        CSRC + "fused_attention_residual_bwd.cu",
+        CSRC + "attention_bwd_sm90.cu",
     "fused_layernorm": CSRC + "layernorm.cu",
     "block_diag_attention": CSRC + "attention_sm90.cu",
     "fused_attention_residual_s86": CSRC + "attention_sm90.cu",
@@ -1183,9 +1187,8 @@ def attention_bwd_dw_case(torch, F, fa, gen, n_seg, S, c, heads, bare,
     the column sums, dwqkv and dwA against the plain version; dwqkv and
     dwA also against the dw=False kernel's row-space outputs multiplied
     with torch.matmul (relative L2 <= BRANCH_REL_TOL); and a second launch
-    on the same inputs: dwqkv and dwA (float32 atomic sums in another
-    order) within the bars of the first, every other output bit for
-    bit."""
+    on the same inputs bit for bit, dwqkv and dwA included (summed over
+    chunks in a fixed order, no atomics)."""
     dev, bf16 = "cuda", torch.bfloat16
 
     def rnd(*shape, std=1.0, mean=0.0):
@@ -1230,14 +1233,9 @@ def attention_bwd_dw_case(torch, F, fa, gen, n_seg, S, c, heads, bare,
     route = (fa._mm_f32(rs[1].t(), rs[3]), fa._mm_f32(rs[2].t(), gacc))
     vs = [rel_err(a, b) for a, b in zip(out[5:], route)]
     again = kernel()
-    same = all(torch.equal(a, b) for a, b in zip(again[:5], out[:5]))
-    rerun = compare_all(torch, {k: (a, b.float(), None, rows) for k, a, b in
-                                zip(("dwqkv", "dwA"), again[5:], out[5:])})
-    res.update(vs_dw_false=max(vs), rerun_rel_err=rerun["rel_err"],
-               rerun_bit_identical=all(torch.equal(a, b) for a, b in
-                                       zip(again, out)),
-               ok=res["ok"] and max(vs) <= BRANCH_REL_TOL and same
-               and rerun["ok"])
+    same = all(torch.equal(a, b) for a, b in zip(again, out))
+    res.update(vs_dw_false=max(vs), repeat_identical=same,
+               ok=res["ok"] and max(vs) <= BRANCH_REL_TOL and same)
     if not timed:
         return res
     p_drop = flags.get("proj_drop", 0.0)
@@ -1317,7 +1315,8 @@ def chunked_compare(torch, outs, plain_part, units, unit_rows, residuals,
 
 # the outputs chunked_compare holds row by row; every other one is summed
 # over the rows
-ROW_OUTPUTS = ("dx", "ln", "attn", "dqkv", "out", "z", "dz", "h", "gm")
+ROW_OUTPUTS = ("dx", "ln", "attn", "dqkv", "dq", "dk", "dv", "out", "z",
+               "dz", "h", "gm")
 BWD_NAMES = ("dx", "ln", "attn", "dqkv", "dlns", "dlnb", "dbqkv", "dbproj",
              "gm")
 BWD_DW_NAMES = ("dx", "dlns", "dlnb", "dbqkv", "dbproj", "dwqkv", "dwA")
@@ -1325,7 +1324,7 @@ BWD_DW_NAMES = ("dx", "dlns", "dlnb", "dbqkv", "dbproj", "dwqkv", "dwA")
 
 def attention_bwd_big_case(torch, F, fa, gen, n_seg, S, c, heads, bare,
                            timed, dw=False, twin=False, upcast_bars=False,
-                           reg=None):
+                           reg=None, split_qkv=False):
     """The attention backward, dw=False or the dw form, at a 3- or 4-scale
     training step's size (the 65..86-token chain, or the S<=64 kernel at
     S=22), each plain version run over chunks of PLAIN_CHUNK_SEGS segments:
@@ -1337,8 +1336,7 @@ def attention_bwd_big_case(torch, F, fa, gen, n_seg, S, c, heads, bare,
     elementwise bar, which that error alone passes at 1e8 elements and
     more (a CPU run of the bf16 plain version against the float32 one,
     with no kernel, reaches 0.88 of it on 6.5e6 elements of dx). A second
-    launch bit-identical (the S<=64 dw form: its dwqkv and dwA, summed
-    with atomics, within the bars of the first); the dw form's dwqkv and
+    launch bit-identical, the dw form's dwqkv and dwA included; its dwqkv and
     dwA also within 1e-2 relative L2 of the dw=False kernel's row-space
     outputs multiplied with torch.matmul. twin: dqkv (dw: dwqkv) against
     the bf16-input plain version also at ROUND_REL_TOL (a rounding point
@@ -1347,7 +1345,9 @@ def attention_bwd_big_case(torch, F, fa, gen, n_seg, S, c, heads, bare,
     every bar against the float32-input plain version too. reg (65..86
     tokens; see reg_flags): the reg form, its atol scaled by reg_scale;
     with the proj dropout dw=False also holds gm, and the dw form's dwA
-    is held against attn^T gm of the dw=False route. Records the device
+    is held against attn^T gm of the dw=False route. split_qkv (dw=False):
+    dq, dk and dv each held alone in place of dqkv (a wrong operand of one
+    product shows there even where the other two dilute it). Records the device
     memory the call held beyond dx, the column sums and the weight
     gradients (dw=False: ln, attn, dqkv, gm and any scratch; dw: the
     scratch, the reg form's geff and gm included)."""
@@ -1378,12 +1378,18 @@ def attention_bwd_big_case(torch, F, fa, gen, n_seg, S, c, heads, bare,
     def kernel():
         return fa.fused_attention_residual_bwd(*args, dw=dw, **flags)
 
+    def split(d):
+        if split_qkv:
+            dqkv = d.pop("dqkv")
+            d.update(dq=dqkv[:, :c], dk=dqkv[:, c:2 * c], dv=dqkv[:, 2 * c:])
+        return d
+
     def plain_part(lo, hi, bf=False):
         xs, gs, wq, wp = (t if bf else t.float()
                           for t in (x[lo:hi], g[lo:hi], wqkv, wproj))
-        return dict(zip(names, fa.fused_attention_residual_bwd_plain(
+        return split(dict(zip(names, fa.fused_attention_residual_bwd_plain(
             xs, gs, lns, lnb, wq, bqkv, wp, heads, S, scale, dw=dw,
-            seg0=lo, **flags)))
+            seg0=lo, **flags))))
 
     def plain():
         return [plain_part(lo, min(n_seg, lo + PLAIN_CHUNK_SEGS))
@@ -1396,21 +1402,15 @@ def attention_bwd_big_case(torch, F, fa, gen, n_seg, S, c, heads, bare,
     torch.cuda.synchronize()
     held = 2 * x.numel() + 4 * 6 * c + (4 * 4 * c * c if dw else 0)
     extra = torch.cuda.max_memory_allocated() - before - held
-    outs = {k: o for k, o in zip(names, out)
-            if not (bare and k in ("ln", "dlns", "dlnb"))}
+    outs = split({k: o for k, o in zip(names, out)
+                  if not (bare and k in ("ln", "dlns", "dlnb"))})
     residuals = {} if bare else {"dx": g}
     res = chunked_compare(torch, outs, functools.partial(plain_part, bf=True),
                           n_seg, S, residuals, PLAIN_CHUNK_SEGS, rscale)
     f32 = chunked_compare(torch, outs, plain_part, n_seg, S, residuals,
                           PLAIN_CHUNK_SEGS, rscale)
     again = kernel()
-    if dw and S <= fa.ATTN_MAX_SEG_LEN:
-        rerun = compare_all(torch, {k: (a, b.float(), None, rows) for k, a, b
-                                    in zip(names[5:], again[5:], out[5:])})
-        same = rerun["ok"] and all(torch.equal(a, b) for a, b in
-                                   zip(again[:5], out[:5]))
-    else:
-        same = all(torch.equal(a, b) for a, b in zip(again, out))
+    same = all(torch.equal(a, b) for a, b in zip(again, out))
     del again
     upcast = upcast_bars and rows * 3 * c < UPCAST_BARS_MAX
     res.update(extra_bytes=extra, repeat_identical=same,
@@ -1917,22 +1917,23 @@ def attention_s86_case(torch, F, fa, gen, n_seg, S, c, heads, bare, timed,
 
 
 def chunked_core_case(torch, F, fa, gen, n_seg, S, c, heads, bare, timed,
-                      case):
-    """`case` (an attention core case) at a shape whose core call the
-    wrapper must take in at least two chunks of segments, the last one
-    ragged: fails when the wrapper's call took one chunk or equal ones
-    (the chunks it used are read by a spy on attention_seg_chunks)."""
-    plan, used = fa.attention_seg_chunks, []
+                      case, planner="attention_seg_chunks"):
+    """`case` (an attention core case, or a backward case with planner
+    "attention_bwd_seg_chunks") at a shape whose call the wrapper must
+    take in at least two chunks of segments, the last one ragged: fails
+    when the wrapper's call took one chunk or equal ones (the chunks it
+    used are read by a spy on the wrapper's planner fa.<planner>)."""
+    plan, used = getattr(fa, planner), []
 
     def spy(*a, **kw):
         used.append(plan(*a, **kw))
         return used[-1]
 
-    fa.attention_seg_chunks = spy
+    setattr(fa, planner, spy)
     try:
         res = case(torch, F, fa, gen, n_seg, S, c, heads, bare, timed)
     finally:
-        fa.attention_seg_chunks = plan
+        setattr(fa, planner, plan)
     chunks = used[0] if used else []
     ragged = len(chunks) >= 2 and chunks[-1][1] < chunks[0][1]
     res.update(chunks=len(chunks), ok=res["ok"] and ragged)
@@ -2492,6 +2493,36 @@ def _case_specs(torch, F, fa, timed):
          8, False, bwd_f, False),
         ("mlp_dz_f32 rows=222", 222, C, HIDDEN, dz_f, False),
         ("mlp_dz_f32 C=256 rows=37", 37, 256, 1024, dz_f, False),
+    ]
+    # the backward up to 64 tokens (csrc/attention_bwd_sm90.cu): packed
+    # units with a short last one at S=1 and 21, one segment a unit at 64;
+    # dq, dk and dv each alone at S=6 and 22; the reg dw form with every
+    # flag over chunks of segments, the last ragged (fails in one chunk)
+    bwd_qkv = part(s86b, split_qkv=True)
+    dw_all_chunks = part(chunked_core_case, planner="attention_bwd_seg_chunks",
+                         case=part(s86dw, reg=both))
+    specs += [
+        ("fused_attention_residual_bwd n_seg=130 S=1 C=256 H=4", 130, 1, 256,
+         4, False, bwd, False),
+        ("fused_attention_residual_bwd_dw n_seg=130 S=1 C=256 H=4", 130, 1,
+         256, 4, False, dw, False),
+        ("fused_attention_residual_bwd_bare n_seg=5 S=21 C=512 H=8", 5, 21,
+         512, 8, True, bwd, False),
+        ("fused_attention_residual_bwd_dw_bare n_seg=5 S=21 C=512 H=8", 5, 21,
+         512, 8, True, dw, False),
+        ("fused_attention_residual_bwd_reg all three n_seg=5 S=21 C=512 H=8",
+         5, 21, 512, 8, False, bwd_r, False),
+        ("fused_attention_residual_bwd n_seg=3 S=64 C=512 H=8", 3, 64, 512, 8,
+         False, bwd, False),
+        ("fused_attention_residual_bwd_dw n_seg=3 S=64 C=512 H=8", 3, 64, 512,
+         8, False, dw, False),
+        ("fused_attention_residual_bwd dq, dk, dv alone n_seg=6272 S=6",
+         B_TRAIN * 49, 6, C, HEADS, False, bwd_qkv, False),
+        ("fused_attention_residual_bwd dq, dk, dv alone n_seg=3136 S=22",
+         B * 49, 22, C, HEADS, False, bwd_qkv, False),
+        ("fused_attention_residual_bwd_reg_dw all three over chunks of "
+         "segments, the last ragged, n_seg=6273 S=6", 6273, 6, C, HEADS,
+         False, dw_all_chunks, False),
     ]
     out = []
     for label, *args in specs:

@@ -6,13 +6,9 @@
 // tile, its qkv and a float32 row accumulator in one block (see those
 // files). This header holds the launches that do not depend on the
 // segment length:
-//   ln_kernel            ln = bf16(LN(x)) and each row's mean and 1/std;
 //   gemm_kernel          out = A B (+ bias), B as it stands or transposed,
 //                        bf16 (cast once) or float32 out;
-//   ln_bwd_rows_kernel   the LN backward by whole rows, + g, dx rounded once,
-//                        and per-block column sums;
 //   wgrad_kernel         the dw form's out += A^T B, in place;
-//   sum_rows_kernel      fixed-order sums of per-block partial rows;
 // the per-chunk scratch, and attention_bwd_chain, the backward's chain
 // around an attention-core launch that the including file supplies. The
 // rounding points are the TPU kernel's (pallas_attention.py:791-918), as
@@ -24,58 +20,13 @@
 
 #pragma once
 
+#include "chain_rows.cuh"
 #include "reg_grad.cuh"
 
 namespace {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
-// ---------------------------------------------------------------------------
-// 1. LayerNorm rows: ln = bf16(LN(x)), stats[2r] = mean, stats[2r + 1] =
-// 1/sqrt(var + eps) (float32, two-pass variance: ln_rows' arithmetic). One
-// warp a row.
-// ---------------------------------------------------------------------------
-
-template <int C>
-__global__ void __launch_bounds__(256)
-ln_kernel(const bf16* __restrict__ x, const float* __restrict__ lns,
-          const float* __restrict__ lnb, float eps, bf16* __restrict__ ln,
-          float* __restrict__ stats, int rows) {
-  constexpr int NP = C / 64;           // bf16 pairs a lane
-  const int lane = threadIdx.x & 31;
-  const long r = (long)blockIdx.x * 8 + (threadIdx.x >> 5);
-  if (r >= rows) return;
-  const __nv_bfloat162* src =
-      reinterpret_cast<const __nv_bfloat162*>(x + r * C);
-  float2 v[NP];
-  float sum = 0.f;
-#pragma unroll
-  for (int i = 0; i < NP; ++i) {
-    v[i] = __bfloat1622float2(src[lane + 32 * i]);
-    sum += v[i].x + v[i].y;
-  }
-  const float mean = warp_sum(sum) / C;
-  float sq = 0.f;
-#pragma unroll
-  for (int i = 0; i < NP; ++i) {
-    const float a = v[i].x - mean, b = v[i].y - mean;
-    sq += a * a + b * b;
-  }
-  const float inv = rsqrtf(warp_sum(sq) / C + eps);
-  if (lane == 0) {
-    stats[2 * r] = mean;
-    stats[2 * r + 1] = inv;
-  }
-  __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(ln + r * C);
-#pragma unroll
-  for (int i = 0; i < NP; ++i) {
-    const int c = 2 * (lane + 32 * i);
-    dst[lane + 32 * i] = __floats2bfloat162_rn(
-        (v[i].x - mean) * inv * lns[c] + lnb[c],
-        (v[i].y - mean) * inv * lns[c + 1] + lnb[c + 1]);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -254,97 +205,6 @@ __device__ __forceinline__ void store_strip_acc(
 }
 
 // ---------------------------------------------------------------------------
-// 6. The LN backward by rows: dx = 1/std (dxh - mean(dxh) - xhat
-// mean(dxh xhat)) [+ g], dxh = dln * lns (full form), or dln [+ g] (bare);
-// rounded once. part [blocks, 3C]: the block's column sums of dln * xhat,
-// dln (zeros in the bare form) and g, or with the proj dropout on the
-// float32 g * proj mask / keep (the residual adds raw g); the mask at the
-// global row grow0 + the chunk's row.
-// ---------------------------------------------------------------------------
-
-constexpr int RP_ROWS = 32;
-
-template <int C>
-__global__ void __launch_bounds__(256)
-ln_bwd_rows_kernel(const float* __restrict__ dln, const bf16* __restrict__ x,
-                   const bf16* __restrict__ g, const float* __restrict__ lns,
-                   const float* __restrict__ stats, bf16* __restrict__ dx,
-                   float* __restrict__ part, int rows, int use_ln,
-                   int use_residual, Drop pdrop, long grow0) {
-  __shared__ float sRow[RP_ROWS][4];     // mean, 1/std, m1, m2
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long r0 = (long)blockIdx.x * RP_ROWS;
-  const int R = (int)min((long)RP_ROWS, rows - r0);
-  if (use_ln) {
-    for (int r = warp; r < R; r += 8) {
-      const long base = (r0 + r) * C;
-      const float mean = stats[2 * (r0 + r)], istd = stats[2 * (r0 + r) + 1];
-      float s1 = 0.f, s2 = 0.f;
-      for (int c = 2 * lane; c < C; c += 64) {
-        const float2 d = *reinterpret_cast<const float2*>(dln + base + c);
-        const float2 xv = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(x + base + c));
-        const float d0 = d.x * lns[c], d1 = d.y * lns[c + 1];
-        s1 += d0 + d1;
-        s2 += d0 * ((xv.x - mean) * istd) + d1 * ((xv.y - mean) * istd);
-      }
-      s1 = warp_sum(s1);
-      s2 = warp_sum(s2);
-      if (lane == 0) {
-        sRow[r][0] = mean;
-        sRow[r][1] = istd;
-        sRow[r][2] = s1 / C;
-        sRow[r][3] = s2 / C;
-      }
-    }
-  }
-  __syncthreads();
-  float* bpart = part + (long)blockIdx.x * 3 * C;
-  for (int c = 2 * threadIdx.x; c < C; c += 2 * 256) {
-    float cs[3][2] = {};                   // dln * xhat, dln, g
-    for (int r = 0; r < R; ++r) {
-      const long off = (r0 + r) * C + c;
-      const float2 d = *reinterpret_cast<const float2*>(dln + off);
-      const float2 gv = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(g + off));
-      const float dl[2] = {d.x, d.y}, gg[2] = {gv.x, gv.y};
-      float out[2];
-      if (use_ln) {
-        const float2 xv = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(x + off));
-        const float xs[2] = {xv.x, xv.y};
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float xh = (xs[e] - sRow[r][0]) * sRow[r][1];
-          const float dxh = dl[e] * lns[c + e];
-          out[e] = sRow[r][1] * (dxh - sRow[r][2] - xh * sRow[r][3]);
-          cs[0][e] += dl[e] * xh;
-          cs[1][e] += dl[e];
-        }
-      } else {
-        out[0] = dl[0];
-        out[1] = dl[1];
-      }
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        if (use_residual) out[e] += gg[e];
-        cs[2][e] += pdrop.on ? pdrop.apply(gg[e], (uint32_t)(grow0 + r0 + r),
-                                           c + e)
-                             : gg[e];
-      }
-      *reinterpret_cast<__nv_bfloat162*>(dx + off) =
-          __floats2bfloat162_rn(out[0], out[1]);
-    }
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      bpart[c + e] = cs[0][e];
-      bpart[C + c + e] = cs[1][e];
-      bpart[2 * C + c + e] = cs[2][e];
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // 7. The dw form's products: out [M, N] += A^T B over K rows, A [K, M] and
 // B [K, N] row-major bf16, float32 sums added to out in place. Two problems
 // in one grid (dwqkv, then dwA), 128 x 128 output tiles, K in slabs of 32
@@ -460,25 +320,6 @@ wgrad_kernel(WgradProblem P0, WgradProblem P1, int K) {
 }
 
 // ---------------------------------------------------------------------------
-// 8. out[j] = sum over b < nb of part[b * width + j], in order of b; column
-// j goes to out_lo[j] below split, else to out_hi[j - split].
-// ---------------------------------------------------------------------------
-
-__global__ void sum_rows_kernel(const float* __restrict__ part, int nb,
-                                int width, float* __restrict__ out_lo,
-                                int split, float* __restrict__ out_hi) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= width) return;
-  float s = 0.f;
-  for (int b = 0; b < nb; ++b) s += part[(long)b * width + j];
-  if (j < split)
-    out_lo[j] = s;
-  else
-    out_hi[j - split] = s;
-}
-
-
-// ---------------------------------------------------------------------------
 // Scratch and the backward's chain of launches
 // ---------------------------------------------------------------------------
 
@@ -538,32 +379,6 @@ cudaError_t gemm(const bf16* A, const bf16* B, const float* bias, void* out,
   return cudaGetLastError();
 }
 
-cudaError_t sum_rows(const float* part, int nb, int width, float* out_lo,
-                     int split, float* out_hi, cudaStream_t stream) {
-  sum_rows_kernel<<<(width + 255) / 256, 256, 0, stream>>>(
-      part, nb, width, out_lo, split, out_hi);
-  return cudaGetLastError();
-}
-
-#define CHAIN_CHECK(expr)                   \
-  do {                                      \
-    const cudaError_t e_ = (expr);          \
-    if (e_ != cudaSuccess) return e_;       \
-  } while (0)
-
-// The reg form's flags of a backward chain: gamma (LayerScale, or null),
-// the attention and proj dropout sites (off in the inert form), and gm,
-// the caller's [rows, C] proj-masked g (dw=False with the proj dropout on;
-// else null).
-struct ChainReg {
-  const float* gamma;
-  Drop adrop, pdrop;
-  bf16* gm;
-};
-
-constexpr ChainReg INERT{nullptr, Drop{0u, 0u, 1.f, 0}, Drop{0u, 0u, 1.f, 0},
-                         nullptr};
-
 // The attention branch's backward over chunks of chunk_segs segments (the
 // outputs and the dw form as launch_attention_bwd_s86 documents them):
 // per chunk LN, qkv = bf16(ln wqkv + bqkv), in the reg form geff and gm,
@@ -615,8 +430,8 @@ cudaError_t attention_bwd_chain(
     }
     const bf16* gacc = gmc != nullptr ? gmc : gc;
     if (use_ln) {
-      ln_kernel<C><<<(rows + 7) / 8, 256, 0, stream>>>(xc, lns, lnb, eps, lnc,
-                                                        sc.stats, rows);
+      ln_stats_kernel<C><<<(rows + 7) / 8, 256, 0, stream>>>(
+          xc, lns, lnb, eps, lnc, sc.stats, rows);
       CHAIN_CHECK(cudaGetLastError());
     }
     CHAIN_CHECK((gemm<false, false>(ain, wqkv, bqkv, sc.qkv, rows, C, 3 * C,

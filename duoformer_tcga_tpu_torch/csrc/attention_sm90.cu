@@ -95,32 +95,7 @@
 
 namespace {
 
-constexpr int HD = 64;                  // head width
 constexpr int CORE_THREADS = 384;       // producer + 2 consumer warpgroups
-constexpr int BOX = 64 * 128;           // 64 rows of one head's columns
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// exp(d) on the special-function unit: ex2.approx of d log2(e) (relative
-// error ~2^-22, far inside p's bf16 cast; exp(-inf) = 0). The softmax's
-// arithmetic, not its bytes, is what a unit waits for: CUDA's expf and an
-// IEEE division an element took twice the core's time at 86 tokens
-// (PERF.md §6).
-__device__ __forceinline__ float exp_sfu(float d) {
-  float e;
-  asm("ex2.approx.ftz.f32 %0, %1;"
-      : "=f"(e)
-      : "f"(__fmul_rn(d, 1.4426950408889634f)));
-  return e;
-}
 
 // d[64 x NK] (+)= q[64 x 16] k[NK x 16]^T, both K-major in shared memory
 // (no transpose); one overload per NK (64: 32 floats, 96: 48, 208: 104).
@@ -171,23 +146,6 @@ __device__ __forceinline__ void wgmma_scores(float (&d)[104], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// d[64 x 64] (+)= p[64 x 16] v[16 x 64]: p from registers (the m16n8k16 A
-// fragment of each warp's 16 rows), v MN-major in shared memory
-// (transpose bit set).
-__device__ __forceinline__ void wgmma_pv(float (&d)[32],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : F8(0), F8(8), F8(16), F8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
 template <int NK>
 struct CoreShape {
   static constexpr int Q_BYTES = (NK + 63) / 64 * BOX;   // whole strips
@@ -197,11 +155,6 @@ struct CoreShape {
   static constexpr int SMEM = STAGES * STAGE + 1024 + 256;
   static constexpr int TX = 3 * KV_BYTES;   // the bytes a unit's loads bring
 };
-
-// Byte offset of (r, c) in a 64-column box of TMA's 128-byte swizzle.
-__device__ __forceinline__ unsigned swz(int r, int c) {
-  return r * 128 + ((((c >> 3) ^ (r & 7))) << 4) + (c & 7) * 2;
-}
 
 // One consumer warpgroup's query strip m of one (group, head) unit: o
 // rows 64m.. of the group (row0 its first row in o) for the head's

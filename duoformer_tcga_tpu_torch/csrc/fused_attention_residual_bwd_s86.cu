@@ -4,8 +4,8 @@
 // The forward (csrc/fused_attention_residual_s86.cu) is
 //     y = [x +] proj( block-diagonal softmax attention( qkv( [LN](x) ) ) ).
 // Given x and the upstream gradient g (both [n_seg, S, C] bf16, 65 <= S <=
-// 86), this backward gives what the S <= 64 kernel gives
-// (csrc/fused_attention_residual_bwd.cu):
+// 86), this backward gives what the S <= 64 chain gives
+// (csrc/attention_bwd_sm90.cu):
 //     dx   [n_seg, S, C] bf16   the input cotangent (LN backward, + g)
 //     ln   [rows, C]     bf16   the LN output (full form only: the bare
 //                               form's ln is x itself)
@@ -23,8 +23,7 @@
 // _fused_block_bwd_kernel with dw=False and with dw=True, driven by
 // _fused_block_bwd_impl, at S+1 = 86 tokens a segment: every ScaleBlock of
 // the 4-scale release DuoFormer in training (full form), and the bare form
-// (use_ln = use_residual = 0). S <= 64 stays in
-// csrc/fused_attention_residual_bwd.cu.
+// (use_ln = use_residual = 0). S <= 64 is csrc/attention_bwd_sm90.cu's.
 //
 // The reg instantiation (_far_reg_bwd, pallas_attention.py:809-822,
 // 848-870, 885-905), as runtime arguments of the same chain, for the

@@ -38,7 +38,7 @@
 // chunk's h and dz are written and dz is in shared memory, w1 again for
 // dln += dz w1[:, chunk]^T into a float32 [32, C] accumulator held in
 // registers across chunks (each warp 16 of every 128 columns), as the
-// attention backward holds its dln (csrc/fused_attention_residual_bwd.cu).
+// first attention backward held its dln.
 // Neither z nor dh leaves the chip. After the last chunk the block
 // finishes the LN backward (row sums across the 8 warps through shared
 // memory), writes dx and one float32 partial row [2C] of the column sums;

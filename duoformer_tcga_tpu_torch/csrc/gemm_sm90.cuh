@@ -1,18 +1,30 @@
-// The persistent TMA-fed wgmma product the port's bf16 forward kernels
-// share on Hopper (sm_90a), with its LayerNorm row pass and the PTX
-// wrappers (mbarrier, TMA, wgmma) the attention core uses too:
+// The persistent TMA-fed wgmma product the port's bf16 kernels share on
+// Hopper (sm_90a), with its LayerNorm row pass and the PTX wrappers
+// (mbarrier, TMA, wgmma) and attention helpers the attention cores use too:
 //
 //     D [M, N] = epilogue(A [M, K] B [K, N])
 //
-// A and D row-major bf16, B the weight as stored, (in, out), bf16. The
-// epilogue is a template argument:
+// A and D row-major bf16, B the weight as stored, (in, out), bf16. Two
+// template flags read an operand the other way round, as it lies in
+// device memory: AT, A given as [K, M] (M-major: the weight gradients'
+// ln^T and attn^T); BT, B given as [N, K] (K-major: a product with a
+// weight's transpose, g wproj^T and dqkv wqkv^T). The epilogue is a
+// template argument too:
 //   EPI_GELU (the MLP's fc1, csrc/fused_mlp_residual.cu): h = drop(gelu(
 //     acc + bias)), the dropout at site 2; with store_z also z = acc +
 //     bias; both cast to bf16;
 //   EPI_OUT (the MLP's fc2, and the attention proj of csrc/attention_sm90
 //     .cu): y = [x +] gamma * drop(acc + bias), in float32, cast once;
-//   EPI_BIAS (the attention branch's qkv product): qkv = acc + bias, cast
-//     to bf16.
+//   EPI_BIAS (the attention branch's qkv product, and with no bias the
+//     backward's dattn): qkv = acc [+ bias], cast to bf16;
+//   EPI_F32 (the backward's dln, csrc/attention_bwd_sm90.cu): out = acc in
+//     float32;
+//   EPI_ACC (the backward's weight gradients): out += acc in float32, in
+//     place, for two problems in one grid (g.M2 > 0: the tiles of the
+//     second, A2 B2 into out2, follow the first's), so that dwqkv's 108
+//     tiles and dwA's 36 at C = 768 share the 132 SMs. Each output tile is
+//     one block's, and successive launches run in stream order, so the
+//     sums over a caller's chunks are bit-reproducible.
 // Every mask counts from the global row (g.row0 + the chunk's row) and
 // the column (csrc/dropout_hash.cuh).
 //
@@ -27,15 +39,20 @@
 // once the wgmma that read it has retired. So one pair's epilogue (the
 // arithmetic a tile waits for) runs while the other pair's products do; an
 // "order" mbarrier lets a pair start a tile's stages only after the other
-// pair has taken the previous tile's. B is the weight as stored, N
-// contiguous: wgmma reads it through its transpose bit, so the weights are
-// never copied. The epilogue writes its bf16 tile into shared memory in
-// the TMA store layout and TMA-stores it: coalesced, and the rows of a
-// ragged last tile are clipped by the store (its loads read zeros there).
-// The residual x is read from device memory with its rows masked. Tiles
-// of 128 x 256 (the two warpgroups splitting one tile, the epilogue not
-// overlapped) and one pair taking 128-row tiles alone (ping-pong) were
-// slower on the card (PERF.md §6).
+// pair has taken the previous tile's. B as stored, N contiguous, is read
+// through wgmma's transpose bit, so the weights are never copied; a
+// K-major B (BT) comes in one box of 128 rows of N and takes no transpose
+// bit; an M-major A (AT) comes in two boxes of 64 columns of M, one per
+// warpgroup, and takes A's transpose bit. K need not be a multiple of 64
+// with AT: TMA reads zeros past the K rows of A and B. The bf16 epilogues
+// write their tile into shared memory in the TMA store layout and
+// TMA-store it: coalesced, and the rows of a ragged last tile are clipped
+// by the store (its loads read zeros there); the float32 ones store or add
+// float pairs to device memory, rows past M never. The residual x is read
+// from device memory with its rows masked. Tiles of 128 x 256 (the two
+// warpgroups splitting one tile, the epilogue not overlapped) and one pair
+// taking 128-row tiles alone (ping-pong) were slower on the card (PERF.md
+// §6).
 //
 // What bounds it on this card: 2 M N K flops against the bytes of A, B
 // and D; at the port's shapes the products are compute bound. Every row
@@ -67,7 +84,7 @@ constexpr int OUT = 64 * BN * 2;
 constexpr int STAGES = (SMEM_MAX - 4 * OUT - 2048) / STAGE;   // 5
 constexpr int SMEM = STAGES * STAGE + 4 * OUT + 2048;
 
-enum Epi { EPI_GELU, EPI_OUT, EPI_BIAS };
+enum Epi { EPI_GELU, EPI_OUT, EPI_BIAS, EPI_F32, EPI_ACC };
 
 // ---- PTX wrappers: mbarrier, TMA, wgmma, fences ----
 
@@ -178,8 +195,11 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),          \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 
-// d[64 x 128] (+)= A[64 x 16] B[16 x 128]: A K-major (row-major [M, K]), B
-// MN-major (row-major [K, N], transpose bit set); scale_d = 0 overwrites d.
+// d[64 x 128] (+)= A[64 x 16] B[16 x 128] from shared memory: A K-major
+// (row-major [M, K]; TA = 1: M-major, row-major [K, M]), B MN-major
+// (row-major [K, N], TB = 1: the transpose bit set; TB = 0: K-major,
+// row-major [N, K]); scale_d = 0 overwrites d.
+template <int TA, int TB>
 __device__ __forceinline__ void wgmma(float (&d)[64], uint64_t da,
                                       uint64_t db, int scale_d) {
   asm volatile(
@@ -190,14 +210,83 @@ __device__ __forceinline__ void wgmma(float (&d)[64], uint64_t da,
       "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
       "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
       "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
       : F8(0), F8(8), F8(16), F8(24), F8(32), F8(40), F8(48), F8(56)
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// d[64 x 64] (+)= A[64 x 16] B[16 x 64], both from shared memory, the
+// major-ness as wgmma's (the attention cores' scores q k^T and dp = do v^T
+// with TA = TB = 0; the backward's dk = ds^T q and dv = p^T do, both
+// operands MN-major, with TA = TB = 1).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      : F8(0), F8(8), F8(16), F8(24)
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// d[64 x 64] (+)= a[64 x 16] b[16 x 64]: a from registers (the m16n8k16 A
+// fragment of each warp's 16 rows), b MN-major in shared memory (the
+// transpose bit set): the attention cores' P.V and the backward's dq =
+// ds k.
+__device__ __forceinline__ void wgmma_pv(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : F8(0), F8(8), F8(16), F8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
   __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ---- attention helpers ----
+
+constexpr int HD = 64;                  // head width
+constexpr int BOX = 64 * 128;           // 64 rows of one head's columns
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// exp(d) on the special-function unit: ex2.approx of d log2(e) (relative
+// error ~2^-22, far inside p's bf16 cast; exp(-inf) = 0). The softmax's
+// arithmetic, not its bytes, is what a unit waits for: CUDA's expf and an
+// IEEE division an element took twice the core's time at 86 tokens
+// (PERF.md §6).
+__device__ __forceinline__ float exp_sfu(float d) {
+  float e;
+  asm("ex2.approx.ftz.f32 %0, %1;"
+      : "=f"(e)
+      : "f"(__fmul_rn(d, 1.4426950408889634f)));
+  return e;
+}
+
+// Byte offset of (r, c) in a 64-column box of TMA's 128-byte swizzle.
+__device__ __forceinline__ unsigned swz(int r, int c) {
+  return r * 128 + ((((c >> 3) ^ (r & 7))) << 4) + (c & 7) * 2;
 }
 
 // ---- the LayerNorm row pass ----
@@ -242,14 +331,28 @@ cudaError_t run_layernorm(const bf16* x, const float* lns, const float* lnb,
 
 struct GemmArgs {
   int M, N, K;                // the chunk's rows; output width; depth
-  const float* bias;          // [N]
+  const float* bias;          // [N] (EPI_BIAS: or null)
   const bf16* x;              // EPI_OUT: the residual [M, N]
   const float* gamma;         // EPI_OUT: LayerScale [N] or null
   int use_residual;           // EPI_OUT
   int store_z;                // EPI_GELU: also z (tmZ)
   Drop drop;                  // EPI_GELU: site 2; EPI_OUT: site 3 or 1
   uint32_t row0;              // the chunk's first global row
+  float* out;                 // EPI_F32, EPI_ACC: float32 [M, N]
+  int M2, N2;                 // EPI_ACC: the second problem (M2 = 0: none)
+  float* out2;                //   its float32 [M2, N2], same K
 };
+
+// The first global row, column and problem of output tile t (the first
+// problem's tiles0 tiles, then the second's).
+__device__ __forceinline__ void tile_at(const GemmArgs& g, int t, int tiles0,
+                                        int& second, int& m0, int& n0) {
+  second = t >= tiles0;
+  const int u = second ? t - tiles0 : t;
+  const int nt = (second ? g.N2 : g.N) / BN;
+  m0 = u / nt * BM;
+  n0 = u % nt * BN;
+}
 
 // Byte offset of (r, c) in a consumer's staged 64 x 128 output: two boxes
 // of 64 x 64 side by side, each in TMA's 128-byte swizzle.
@@ -306,7 +409,8 @@ __device__ __forceinline__ void stage_bias_cast(const float (&acc)[BN / 2],
 #pragma unroll
   for (int c8 = 0; c8 < BN / 8; ++c8) {
     const int col = c8 * 8 + 2 * (lane & 3);
-    const float2 bb = *reinterpret_cast<const float2*>(bias + n0 + col);
+    const float2 bb = bias == nullptr ? make_float2(0.f, 0.f)
+        : *reinterpret_cast<const float2*>(bias + n0 + col);
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
       const int r = warp * 16 + (lane >> 2) + 8 * hr;
@@ -317,12 +421,14 @@ __device__ __forceinline__ void stage_bias_cast(const float (&acc)[BN / 2],
   }
 }
 
-template <int EPI>
+template <int EPI, bool AT, bool BT>
 __global__ void __launch_bounds__(THREADS, 1)
 gemm_sm90(const __grid_constant__ CUtensorMap tmA,
           const __grid_constant__ CUtensorMap tmB,
           const __grid_constant__ CUtensorMap tmD,
-          const __grid_constant__ CUtensorMap tmZ, const GemmArgs g) {
+          const __grid_constant__ CUtensorMap tmZ,
+          const __grid_constant__ CUtensorMap tmA2,
+          const __grid_constant__ CUtensorMap tmB2, const GemmArgs g) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -334,9 +440,10 @@ gemm_sm90(const __grid_constant__ CUtensorMap tmA,
   // ahead of the producer (a parity wait cannot tell two phases apart)
   uint64_t* order = empty + STAGES;
 
-  const int n_tiles = g.N / BN;
-  const int total = (g.M + BM - 1) / BM * n_tiles;
-  const int ktiles = g.K / BK;
+  const int tiles0 = (g.M + BM - 1) / BM * (g.N / BN);
+  const int total =
+      tiles0 + (g.M2 > 0 ? (g.M2 + BM - 1) / BM * (g.N2 / BN) : 0);
+  const int ktiles = (g.K + BK - 1) / BK;
   const int wg = threadIdx.x / 128;
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -355,15 +462,27 @@ gemm_sm90(const __grid_constant__ CUtensorMap tmA,
     if (threadIdx.x == 0) {
       int pos = 0;
       for (int t = blockIdx.x; t < total; t += gridDim.x) {
-        const int m0 = t / n_tiles * BM, n0 = t % n_tiles * BN;
+        int second, m0, n0;
+        tile_at(g, t, tiles0, second, m0, n0);
+        const CUtensorMap* ma = second ? &tmA2 : &tmA;
+        const CUtensorMap* mb = second ? &tmB2 : &tmB;
         for (int kt = 0; kt < ktiles; ++kt, ++pos) {
           const int s = pos % STAGES;
           mbar_wait(&empty[s], ((pos / STAGES) & 1) ^ 1);
           uint8_t* st = smem + s * STAGE;
           mbar_expect_tx(&full[s], STAGE);
-          tma_load(st, &tmA, kt * BK, m0, &full[s]);
-          tma_load(st + A_BYTES, &tmB, n0, kt * BK, &full[s]);
-          tma_load(st + A_BYTES + 8192, &tmB, n0 + 64, kt * BK, &full[s]);
+          if (AT) {        // two boxes of 64 columns of M, 64 rows of K
+            tma_load(st, ma, m0, kt * BK, &full[s]);
+            tma_load(st + 8192, ma, m0 + 64, kt * BK, &full[s]);
+          } else {
+            tma_load(st, ma, kt * BK, m0, &full[s]);
+          }
+          if (BT) {        // one box of 128 rows of N, 64 columns of K
+            tma_load(st + A_BYTES, mb, kt * BK, n0, &full[s]);
+          } else {
+            tma_load(st + A_BYTES, mb, n0, kt * BK, &full[s]);
+            tma_load(st + A_BYTES + 8192, mb, n0 + 64, kt * BK, &full[s]);
+          }
         }
       }
     }
@@ -381,21 +500,28 @@ gemm_sm90(const __grid_constant__ CUtensorMap tmA,
 
     for (int i = p; blockIdx.x + (long)i * gridDim.x < total; i += 2) {
       const int t = blockIdx.x + i * gridDim.x;
-      const int m0 = t / n_tiles * BM, n0 = t % n_tiles * BN;
+      int second, m0, n0;
+      tile_at(g, t, tiles0, second, m0, n0);
       // ---- mainloop, after tile i - 1's ----
       if (i > 0) mbar_wait(&order[p], ((i - 1) >> 1) & 1);
       int prev = 0;
       for (int kt = 0; kt < ktiles; ++kt) {
         const int pos = i * ktiles + kt, s = pos % STAGES;
         mbar_wait(&full[s], (pos / STAGES) & 1);
-        const unsigned a = smem_addr(smem + s * STAGE) + q * 64 * 128;
+        // warpgroup q's A: rows 64 q.. of the K-major tile, or box q of
+        // the M-major one (both 8192 q bytes in)
+        const unsigned a = smem_addr(smem + s * STAGE) + q * 8192;
         const unsigned b = smem_addr(smem + s * STAGE + A_BYTES);
         fence_regs(acc);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk)
-          wgmma(acc, desc128(a + kk * 32, 16, 1024),
-                desc128(b + kk * 2048, 8192, 1024), kt > 0 || kk > 0);
+          wgmma<AT, !BT>(acc,
+                        AT ? desc128(a + kk * 2048, 8192, 1024)
+                           : desc128(a + kk * 32, 16, 1024),
+                        BT ? desc128(b + kk * 32, 16, 1024)
+                           : desc128(b + kk * 2048, 8192, 1024),
+                        kt > 0 || kk > 0);
         wgmma_commit();
         fence_regs(acc);
         if (kt > 0) {
@@ -412,7 +538,29 @@ gemm_sm90(const __grid_constant__ CUtensorMap tmA,
       // ---- epilogue: fragment j holds row 16 warp + lane/4 + 8 (j%4 >=
       // 2), column 8 (j/4) + 2 (lane%4) + j%2 ----
       const int mt0 = m0 + 64 * q;   // the consumer's first chunk row
-      if constexpr (EPI == EPI_BIAS) {
+      if constexpr (EPI == EPI_F32 || EPI == EPI_ACC) {
+        float* out = second ? g.out2 : g.out;
+        const int M = second ? g.M2 : g.M, N = second ? g.N2 : g.N;
+#pragma unroll
+        for (int c8 = 0; c8 < BN / 8; ++c8) {
+          const int col = n0 + c8 * 8 + 2 * (lane & 3);
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const int row = mt0 + warp * 16 + (lane >> 2) + 8 * hr;
+            if (row >= M) continue;
+            float2* o = reinterpret_cast<float2*>(out + (long)row * N + col);
+            float2 v = make_float2(acc[c8 * 4 + 2 * hr],
+                                   acc[c8 * 4 + 2 * hr + 1]);
+            if (EPI == EPI_ACC) {
+              const float2 was = *o;
+              v.x += was.x;
+              v.y += was.y;
+            }
+            *o = v;
+          }
+        }
+        continue;   // nothing staged
+      } else if constexpr (EPI == EPI_BIAS) {
         staging_free(tid, bar);
         stage_bias_cast(acc, g.bias, n0, tile_addr, warp, lane);
       } else if constexpr (EPI == EPI_GELU) {
@@ -567,30 +715,50 @@ int current_device() {
   return dev;
 }
 
-// D [M, N] = epilogue(A [M, K] B [K, N]) on tiles of 128 x 128. N a
-// multiple of 128, K of 64; Z: EPI_GELU's z (or null).
-template <int EPI>
+// D [M, N] = epilogue(A [M, K] B [K, N]) on tiles of 128 x 128 (A as
+// [K, M] with AT, B as [N, K] with BT). N a multiple of 128, K of 64 but
+// with AT; Z: EPI_GELU's z (or null). EPI_F32 and EPI_ACC write g.out
+// (D, Z null); EPI_ACC's second problem (g.M2 > 0) reads A2 and B2.
+template <int EPI, bool AT = false, bool BT = false>
 cudaError_t run_gemm(const bf16* A, const bf16* B, bf16* D, bf16* Z,
-                     const GemmArgs& g, cudaStream_t stream) {
-  if (g.M < 1 || g.N % BN != 0 || g.K % BK != 0 || g.K < BK)
+                     const GemmArgs& g, cudaStream_t stream,
+                     const bf16* A2 = nullptr, const bf16* B2 = nullptr) {
+  constexpr bool F32 = EPI == EPI_F32 || EPI == EPI_ACC;
+  if (g.M < 1 || g.N % BN != 0 || g.K < 1 || (!AT && g.K % BK != 0) ||
+      (F32 && g.out == nullptr) ||
+      (g.M2 > 0 && (EPI != EPI_ACC || g.N2 % BN != 0 || g.out2 == nullptr ||
+                    A2 == nullptr || B2 == nullptr)))
     return cudaErrorInvalidValue;
-  CUtensorMap ma, mb, md, mz;
-  if (!tensor_map(&ma, A, g.K, g.M, BM) || !tensor_map(&mb, B, g.N, g.K, BK) ||
-      !tensor_map(&md, D, g.N, g.M, 64) ||
-      !tensor_map(&mz, Z != nullptr ? Z : D, g.N, g.M, 64))
+  auto map_a = [&](CUtensorMap* m, const bf16* a, int M) {
+    return AT ? tensor_map(m, a, M, g.K, 64) : tensor_map(m, a, g.K, M, BM);
+  };
+  auto map_b = [&](CUtensorMap* m, const bf16* b, int N) {
+    return BT ? tensor_map(m, b, g.K, N, BN) : tensor_map(m, b, N, g.K, BK);
+  };
+  CUtensorMap ma, mb, md, mz, ma2, mb2;
+  if (!map_a(&ma, A, g.M) || !map_b(&mb, B, g.N))
+    return cudaErrorInvalidValue;
+  md = mz = ma2 = ma;
+  mb2 = mb;
+  if (!F32 && (!tensor_map(&md, D, g.N, g.M, 64) ||
+               !tensor_map(&mz, Z != nullptr ? Z : D, g.N, g.M, 64)))
+    return cudaErrorInvalidValue;
+  if (g.M2 > 0 && (!map_a(&ma2, A2, g.M2) || !map_b(&mb2, B2, g.N2)))
     return cudaErrorInvalidValue;
   const int dev = current_device();
   if (dev < 0) return cudaErrorInvalidDevice;
   static bool sized[MAX_DEVICES] = {};   // the shared-memory attribute set
   if (!sized[dev]) {
     const cudaError_t err = cudaFuncSetAttribute(
-        gemm_sm90<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+        gemm_sm90<EPI, AT, BT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        SMEM);
     if (err != cudaSuccess) return err;
     sized[dev] = true;
   }
-  const int tiles = (g.M + BM - 1) / BM * (g.N / BN);
-  gemm_sm90<EPI><<<std::min(tiles, sm_count(dev)), THREADS, SMEM, stream>>>(
-      ma, mb, md, mz, g);
+  const int tiles = (g.M + BM - 1) / BM * (g.N / BN) +
+                    (g.M2 > 0 ? (g.M2 + BM - 1) / BM * (g.N2 / BN) : 0);
+  gemm_sm90<EPI, AT, BT><<<std::min(tiles, sm_count(dev)), THREADS, SMEM,
+                           stream>>>(ma, mb, md, mz, ma2, mb2, g);
   return cudaGetLastError();
 }
 

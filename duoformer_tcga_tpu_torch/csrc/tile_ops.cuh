@@ -67,16 +67,6 @@ __device__ __forceinline__ void ldsm_b2(unsigned (&b)[4], const bf16* p,
       : "r"(smem_addr(q)));
 }
 
-// B fragment of one n8 tile (k16 x n8) of a row-major [K, ld] matrix at p.
-__device__ __forceinline__ void ldsm_b1(unsigned (&b)[2], const bf16* p,
-                                        int ld, int lane) {
-  const bf16* q = p + (lane & 15) * ld;
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-      : "=r"(b[0]), "=r"(b[1])
-      : "r"(smem_addr(q)));
-}
-
 // B fragments of two n8 tiles of B = M^T for a row-major [N, ld] matrix M
 // at p (n16 rows of M, k16 columns): b[0..1] for rows 0-7, b[2..3] 8-15.
 __device__ __forceinline__ void ldsm_bt2(unsigned (&b)[4], const bf16* p,
@@ -98,16 +88,6 @@ __device__ __forceinline__ void ldsm_at(unsigned (&a)[4], const bf16* p,
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
       : "r"(smem_addr(q)));
-}
-
-// B fragment of one n8 tile of B = M^T for a row-major [N, ld] matrix M at
-// p (n8 rows of M, k16 columns).
-__device__ __forceinline__ void ldsm_bt1(unsigned (&b)[2], const bf16* p,
-                                         int ld, int lane) {
-  const bf16* q = p + (lane & 7) * ld + ((lane >> 3) & 1) * 8;
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(b[0]), "=r"(b[1])
-               : "r"(smem_addr(q)));
 }
 
 __device__ __forceinline__ void mma16816(float (&d)[4], const unsigned (&a)[4],

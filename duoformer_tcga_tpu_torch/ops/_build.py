@@ -28,7 +28,7 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-KERNELS = ("fused_attention_residual_bwd", "fused_mlp_residual", "mlp_dz",
+KERNELS = ("attention_bwd_sm90", "fused_mlp_residual", "mlp_dz",
            "fused_attention_residual_int8", "fused_mlp_residual_int8",
            "drop_ew", "fused_mlp_bwd", "layernorm", "attention_sm90",
            "fused_attention_residual_int8_s86",
@@ -40,6 +40,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: dict = {}
+_entries: dict = {}
 
 # Launches of each kernel form since the last reset (ops/fused_attention.
 # reset_launch_counts); a wrapper adds one where it launches its kernel and
@@ -166,9 +167,35 @@ def load_library(name: str) -> ctypes.CDLL:
         return lib
 
 
-def check(lib: ctypes.CDLL, status: int, what: str):
-    """Raise when a launch returned a CUDA error (its cudaGetLastError)."""
+def entry(name: str, fn_name: str, argtypes, restype=ctypes.c_int):
+    """The C function fn_name of kernel library `name`, the library built
+    and loaded and the signature bound at the first call; every later call
+    is one dictionary lookup, with no lock and no rebinding, so a launch's
+    host path is the ctypes call alone."""
+    fn = _entries.get((name, fn_name))
+    if fn is None:
+        fn = getattr(load_library(name), fn_name)
+        fn.argtypes = list(argtypes)
+        fn.restype = restype
+        _entries[(name, fn_name)] = fn
+    return fn
+
+
+def call_on(device, fn, *args):
+    """fn(*args) with `device` the current CUDA device, entering
+    torch.cuda.device only where another one is current."""
+    if device.index == torch.cuda.current_device():
+        return fn(*args)
+    with torch.cuda.device(device):
+        return fn(*args)
+
+
+def check(lib, status: int, what: str):
+    """Raise when a launch returned a CUDA error (its cudaGetLastError);
+    lib: the kernel library or its name."""
     if status != 0:
+        if isinstance(lib, str):
+            lib = load_library(lib)
         msg = lib.kernel_error_string(status).decode()
         raise RuntimeError(f"{what}: CUDA error {status} ({msg})")
 

@@ -15,14 +15,16 @@ and the drop_ew kernel are in ops/fused_reg.py).
     197 (the 4-scale model's 86, the ViT's 197) two wrapper calls,
     attention_core_s86 or attention_core_long, then attention_proj
   fused_attention_residual_bwd: its backward (dx, ln, attn, dqkv and the
-    column sums dlns, dlnb, dbqkv, dbproj), recomputing the forward
-    kernel: csrc/fused_attention_residual_bwd.cu (seg_len <= 64); for 65
-    to 86 tokens a chain of launches over chunks of segments (LN, the qkv
-    and dattn products, the attention core, the dln product, the LN
-    backward; in the dw form the weight-gradient products),
+    column sums dlns, dlnb, dbqkv, dbproj), recomputing the forward; a
+    chain of launches over chunks of segments (LN, the qkv and dattn
+    products, the attention backward core, the dln product, the LN
+    backward; in the dw form the weight-gradient products): up to 64
+    tokens csrc/attention_bwd_sm90.cu (one C entry a call, the products
+    on csrc/gemm_sm90.cuh, the core on packed units of unit_segments(S)
+    whole segments, chunks from attention_bwd_seg_chunks); for 65 to 86
     csrc/fused_attention_residual_bwd_s86.cu; for 87 to 197 the same chain
-    around csrc/attention_long.cu's backward core (both chains'
-    launches in csrc/attention_chain.cuh)
+    around csrc/attention_long.cu's backward core (both chains' launches
+    in csrc/attention_chain.cuh)
   fused_mlp_residual:       y = [x +] fc2(gelu_erf(fc1(LN x))), and with
     return_hidden=True also the pre-GELU hidden z
     kernel: csrc/fused_mlp_residual.cu (per chunk of rows, mlp_row_chunks:
@@ -83,6 +85,7 @@ or a dropout rate counts its launch under the form's "_reg" name (the
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -93,8 +96,8 @@ from ._build import (F32_C, _check_tensor, _ptr, _require, _stream,
 from .nn import layernorm
 
 # up to this many tokens the attention core packs whole segments into its
-# 64-row units (csrc/attention_sm90.cu), the forward takes C in SHORT_C
-# and the backward is csrc/fused_attention_residual_bwd.cu's
+# 64-row units (csrc/attention_sm90.cu, and the backward's core in
+# csrc/attention_bwd_sm90.cu), and both take C in SHORT_C
 ATTN_MAX_SEG_LEN = 64
 # the forward, bf16 and int8, and the backward in both forms also take
 # 65..86 tokens (the bf16 forward csrc/attention_sm90.cu, the others one
@@ -673,6 +676,58 @@ def attention_seg_plan(n_seg, S, C, use_ln=True):
             for s0, n in attention_seg_chunks(n_seg, S, C, use_ln)]
 
 
+def attention_bwd_scratch_bytes(segs, S, C, dw, use_ln=True, geff=False,
+                                gm=False):
+    """The bytes of the backward chain's scratch up to 64 tokens
+    (csrc/attention_bwd_sm90.cu's BwdScratch, in its order, each piece
+    rounded up to 256 bytes) for a chunk of `segs` segments: qkv, dattn,
+    the float32 dln, the LN statistics (full form), the LN backward's and
+    the core's partial rows; the dw form's ln (full form), attn, dqkv and,
+    with gm (the proj dropout on), gm; with geff (gamma given or the proj
+    dropout on) the reg form's geff. The chunks' sums, 6C floats a chunk,
+    come on top."""
+    rows = segs * S
+    pieces = [2 * rows * 3 * C, 2 * rows * C, 4 * rows * C]
+    if use_ln:
+        pieces.append(8 * rows)
+    pieces += [4 * -(-rows // 64) * 3 * C,
+               4 * -(-segs // unit_segments(S)) * 3 * C]
+    if dw:
+        pieces += ([2 * rows * C] if use_ln else []) + [2 * rows * C,
+                                                        2 * rows * 3 * C]
+        if gm:
+            pieces.append(2 * rows * C)
+    if geff:
+        pieces.append(2 * rows * C)
+    return sum(-(-n // 256) * 256 for n in pieces)
+
+
+def attention_bwd_seg_chunks(n_seg, S, C, dw, use_ln=True, geff=False,
+                             gm=False):
+    """The segment chunks of one backward call up to 64 tokens on the
+    card: [(first segment, segments)], whole segments tiling [0, n_seg) in
+    order, as few as keep each chunk's scratch (attention_bwd_scratch_bytes
+    with dw, use_ln, geff, gm) within ATTN_SCRATCH_BYTES, of equal size but
+    the last, that size a multiple of unit_segments(S): a unit's group of
+    segments never spans two chunks, and only the last chunk's last group
+    may be short. A chunk's first segment is global: the dropout masks
+    count from it."""
+    if n_seg <= 0:
+        return []
+    G = unit_segments(S)
+    need = functools.partial(attention_bwd_scratch_bytes, S=S, C=C, dw=dw,
+                             use_ln=use_ln, geff=geff, gm=gm)
+    lo, hi = 1, -(-n_seg // G)      # the most groups a chunk can hold
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if need(mid * G) <= ATTN_SCRATCH_BYTES else (
+            lo, mid - 1)
+    most = lo * G
+    n = -(-n_seg // most)
+    size = -(-(-(-n_seg // n)) // G) * G
+    return [(s0, min(size, n_seg - s0)) for s0 in range(0, n_seg, size)]
+
+
 def _attention_core_chain(x, ln_scale, ln_bias, wqkv, bqkv, num_heads,
                           scale, ln_eps, use_ln, seed, attn_drop, what):
     """o = block_diag_attn(qkv([LN](x))) on the card for x [n_seg, S, C]
@@ -944,13 +999,14 @@ def fused_attention_residual_bwd(x, g, ln_scale, ln_bias, wqkv, bqkv, wproj,
 
     dw=True (_fused_block_bwd_impl, dw=True, :921-1049): (dx, dlns, dlnb,
     dbqkv, dbproj, dwqkv [C, 3C], dwA [C, C]), the weight gradients formed
-    by the kernels (float32; at seg_len <= 64 their sums in an order that
-    varies between launches) and no row-space tensor returned; dwA = attn^T
-    gm (g without the proj dropout: no gamma). At 65..197 tokens a chain
-    runs over chunks of segments and the dw form's row-space tensors (and
-    the reg form's geff and gm) live in per-chunk scratch (65..86:
-    csrc/fused_attention_residual_bwd_s86.cu, with the reg flags; 87..197:
-    csrc/attention_long.cu, inert forms only)."""
+    by the kernels (float32, summed over chunks of rows in a fixed order
+    without atomics: bit-reproducible) and no row-space tensor returned;
+    dwA = attn^T gm (g without the proj dropout: no gamma). A chain runs
+    over chunks of segments and the dw form's row-space tensors (and the
+    reg form's geff and gm) live in per-chunk scratch (up to 64 tokens
+    csrc/attention_bwd_sm90.cu, one C entry a call; 65..86
+    csrc/fused_attention_residual_bwd_s86.cu, both with the reg flags;
+    87..197 csrc/attention_long.cu, inert forms only)."""
     reg = dict(gamma=gamma, seed=seed, attn_drop=attn_drop,
                proj_drop=proj_drop)
     what = "fused_attention_residual_bwd" + (" (dw form)" if dw else "")
@@ -982,16 +1038,10 @@ def fused_attention_residual_bwd(x, g, ln_scale, ln_bias, wqkv, bqkv, wproj,
     _check_tensor("wproj", wproj, dev, bf16, (C, C))
     if gamma is not None:
         _check_tensor("gamma", gamma, dev, f32, (C,))
-    a_thr, a_scale = drop_args(attn_drop)
-    p_thr, p_scale = drop_args(proj_drop)
     rows = n_seg * S
     dx = torch.empty_like(x)
-    sums = torch.zeros(6 * C, dtype=f32, device=dev)
-    # the S <= 64 kernel's geff (the chain's lives in its per-chunk scratch)
-    geff = (torch.empty(rows, C, dtype=bf16, device=dev)
-            if (gamma is not None or proj_drop > 0.0)
-            and S <= ATTN_MAX_SEG_LEN else None)
-    ln = attn = dqkv = gm = dwqkv = dwA = None
+    sums = torch.empty(6 * C, dtype=f32, device=dev)
+    gm = None
     if dw:
         dwqkv = torch.zeros(C, 3 * C, dtype=f32, device=dev)
         dwA = torch.zeros(C, C, dtype=f32, device=dev)
@@ -1008,38 +1058,71 @@ def fused_attention_residual_bwd(x, g, ln_scale, ln_bias, wqkv, bqkv, wproj,
             gm = torch.empty(rows, C, dtype=bf16, device=dev)
             out = out + (gm,)
     if n_seg == 0:
+        sums.zero_()
         return out
-    if S > ATTN_MAX_SEG_LEN:
-        return _attention_bwd_chain(x, g, ln_scale, ln_bias, wqkv, bqkv,
-                                    wproj, out, sums, n_seg, S, C, num_heads,
-                                    scale, ln_eps, use_ln, use_residual, dw,
-                                    gm, **reg)
-    lib = _build.load_library("fused_attention_residual_bwd")
-    lib.blocks_for.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.blocks_for.restype = ctypes.c_int
-    part = torch.empty(lib.blocks_for(n_seg, S) * 6 * C, dtype=f32,
-                       device=dev)
-    fn = lib.launch_fused_attention_residual_bwd
-    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + \
-        [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3 + \
-        [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
-                              ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    chain = (_attention_bwd_chain if S > ATTN_MAX_SEG_LEN
+             else _attention_bwd_sm90)
+    return chain(x, g, ln_scale, ln_bias, wqkv, bqkv, wproj, out, sums, n_seg,
+                 S, C, num_heads, scale, ln_eps, use_ln, use_residual, dw, gm,
+                 **reg)
 
-    def opt(t):
-        return None if t is None else _ptr(t)
 
-    with torch.cuda.device(dev):
-        status = fn(_ptr(x), _ptr(g), _ptr(ln_scale), _ptr(ln_bias),
-                    _ptr(wqkv), _ptr(bqkv), _ptr(wproj), _ptr(dx),
-                    opt(ln) if use_ln else None, opt(attn), opt(dqkv),
-                    _ptr(sums), _ptr(part), opt(dwqkv), opt(dwA), n_seg, S,
-                    C, num_heads,
-                    float(scale), float(ln_eps), int(bool(use_ln)),
-                    int(bool(use_residual)),
-                    opt(gamma), opt(geff), opt(gm), int32_seed(seed),
-                    a_thr, a_scale, p_thr, p_scale, _stream(dev))
-    _build.check(lib, status, "fused_attention_residual_bwd")
+# launch_attention_bwd_sm90's arguments: x, g, lns, lnb, wqkv, bqkv, wproj,
+# dx, ln, attn, dqkv, sums, dwqkv, dwA, scratch; scratch_bytes; n_seg, S,
+# C, num_heads, chunk_segs; scale, eps; use_ln, use_residual; gamma, gm;
+# seed, attn_thr, attn_scale, proj_thr, proj_scale; stream
+_BWD_SM90_ARGS = ([ctypes.c_void_p] * 15 + [ctypes.c_longlong]
+                  + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
+                  + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+                  + [ctypes.c_int] * 2
+                  + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
+                     ctypes.c_void_p])
+
+
+def _attention_bwd_sm90(x, g, ln_scale, ln_bias, wqkv, bqkv, wproj, out,
+                        sums, n_seg, S, C, num_heads, scale, ln_eps, use_ln,
+                        use_residual, dw, gm=None, gamma=None, seed=0,
+                        attn_drop=0.0, proj_drop=0.0):
+    """fused_attention_residual_bwd up to 64 tokens on the card: one call
+    of csrc/attention_bwd_sm90.cu's chain over the chunks of
+    attention_bwd_seg_chunks, into the outputs `out` and the float32 [6C]
+    column sums `sums` (checked and allocated by the caller; gm: the
+    caller's proj-masked g where dw=False has the proj dropout), through
+    one scratch buffer for a chunk plus the chunks' sums; counts one
+    launch."""
+    dev = x.device
+    if dw:
+        dx, dwqkv, dwA = out[0], out[5], out[6]
+        ln = attn = dqkv = None
+    else:
+        dx, ln, attn, dqkv = out[:4]
+        dwqkv = dwA = None
+    geff = gamma is not None or proj_drop > 0.0
+    gm_rows = dw and proj_drop > 0.0
+    plan = attention_bwd_seg_chunks(n_seg, S, C, dw, use_ln, geff, gm_rows)
+    chunk = plan[0][1]
+    nbytes = (attention_bwd_scratch_bytes(chunk, S, C, dw, use_ln, geff,
+                                          gm_rows)
+              + -(-4 * len(plan) * 6 * C // 256) * 256)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    a_thr, a_scale = drop_args(attn_drop)
+    p_thr, p_scale = drop_args(proj_drop)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    fn = _build.entry("attention_bwd_sm90", "launch_attention_bwd_sm90",
+                      _BWD_SM90_ARGS)
+    status = _build.call_on(
+        dev, fn, x.data_ptr(), g.data_ptr(), ln_scale.data_ptr(),
+        ln_bias.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
+        wproj.data_ptr(), dx.data_ptr(), ptr(ln) if use_ln else None,
+        ptr(attn), ptr(dqkv), sums.data_ptr(), ptr(dwqkv), ptr(dwA),
+        scratch.data_ptr(), nbytes, n_seg, S, C, num_heads, chunk,
+        float(scale), float(ln_eps), int(bool(use_ln)),
+        int(bool(use_residual)), ptr(gamma), ptr(gm), int32_seed(seed),
+        a_thr, a_scale, p_thr, p_scale, _stream(dev))
+    _build.check("attention_bwd_sm90", status, "fused_attention_residual_bwd")
     name = _reg_name("fused_attention_residual_bwd", gamma, attn_drop,
                      proj_drop) + ("_dw" if dw else "")
     count_launch(name if use_ln else name + "_bare", C)

@@ -24,8 +24,7 @@ from torch import nn
 
 from . import _build
 from . import initializers as init
-from ._build import (_check_tensor, _ptr, _require, _stream, count_launch,
-                     f32_form)
+from ._build import _check_tensor, _require, _stream, count_launch, f32_form
 
 
 # ---------------------------------------------------------------------------
@@ -79,17 +78,18 @@ def _fused_layernorm_fwd(x, scale, bias, eps):
     rows = x.numel() // C
     if rows == 0:
         return out
-    lib = _build.load_library("layernorm")
-    fn = lib.launch_layernorm
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_long, ctypes.c_int,
-                                           ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        status = fn(_ptr(x), _ptr(scale), _ptr(bias), _ptr(out), rows, C,
-                    float(eps), _stream(dev))
-    _build.check(lib, status, "layernorm")
+    fn = _build.entry("layernorm", "launch_layernorm", _LN_ARGS)
+    status = _build.call_on(dev, fn, x.data_ptr(), scale.data_ptr(),
+                            bias.data_ptr(), out.data_ptr(), rows, C,
+                            float(eps), _stream(dev))
+    _build.check("layernorm", status, "layernorm")
     count_launch("fused_layernorm", C)
     return out
+
+
+# launch_layernorm(x, scale, bias, out, rows, C, eps, stream)
+_LN_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_long, ctypes.c_int,
+                                    ctypes.c_float, ctypes.c_void_p]
 
 
 class _FusedLayerNorm(torch.autograd.Function):
@@ -116,8 +116,14 @@ def fused_layernorm(x, scale, bias, eps=1e-6):
     """LayerNorm over the last axis through the kernel, differentiable
     (pallas_norm.fused_layernorm); x [..., C], C % 128 == 0. A strided x
     (the CLS rows of a token batch) is copied to rows first, as the JAX
-    package's reshape does."""
-    return _FusedLayerNorm.apply(x.contiguous(), scale, bias, eps)
+    package's reshape does. Where no gradient can flow (grad mode off, or
+    no operand requiring one) the kernel is called without an autograd
+    node, whose host time is most of a small call's."""
+    x = x.contiguous()
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad
+                                    or bias.requires_grad):
+        return _FusedLayerNorm.apply(x, scale, bias, eps)
+    return _fused_layernorm_fwd(x, scale, bias, eps)
 
 
 def _same_padding(size, k, s):

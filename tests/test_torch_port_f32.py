@@ -38,6 +38,8 @@ from duoformer_tcga_tpu_torch.inference import Predictor
 from duoformer_tcga_tpu_torch.ops import fused_attention as fa
 from duoformer_tcga_tpu_torch.ops._build import f32_form
 
+from torch_port_shared import shared_jax_compiles  # noqa: F401 (autouse)
+
 TOL = dict(atol=3e-5, rtol=3e-5)
 N_SEG, S, C, H = 7, 22, 128, 2
 

@@ -60,6 +60,8 @@ from test_torch_port_reg import (_arr, _attention_args, _close_in_rms_units,
 from test_torch_port_scales_train import BWD_DW_NAMES, BWD_NAMES, _j
 from torch_oracle import OracleScaleBlock, OracleTimmHybridViT
 
+from torch_port_shared import shared_jax_compiles  # noqa: F401 (autouse)
+
 TOL = dict(atol=3e-5, rtol=3e-5)
 OP_TOL = dict(atol=1e-5, rtol=1e-5)
 PARITY = dict(atol=1e-4, rtol=1e-4)

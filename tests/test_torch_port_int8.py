@@ -53,6 +53,8 @@ from duoformer_tcga_tpu_torch.ops import quantize as tq
 from duoformer_tcga_tpu_torch.utils.convert import (export_jax_params,
                                                     load_jax_params)
 
+from torch_port_shared import shared_jax_compiles  # noqa: F401 (autouse)
+
 KERNEL_REL_TOL = 1e-3
 STACK_TOL = 1e-3
 E2E_REL_TOL = 1e-2

@@ -27,6 +27,8 @@ from duoformer_tcga_tpu_torch.ops import attention as tattn
 from duoformer_tcga_tpu_torch.ops import fused_attention as fa
 from duoformer_tcga_tpu_torch.ops import nn as tnn
 
+from torch_port_shared import shared_jax_compiles  # noqa: F401 (autouse)
+
 TOL = dict(atol=3e-5, rtol=3e-5)
 
 
@@ -174,19 +176,113 @@ def test_attention_seg_plan_packs_whole_segments_within_each_chunk(
             assert n % G == 0
 
 
+@pytest.mark.parametrize("S", [1, 6, 21, 22, 50, 64])
+@pytest.mark.parametrize("C", [384, 768])
+def test_attention_bwd_seg_chunks_tile_whole_groups_within_the_scratch(S, C):
+    """The card's backward up to 64 tokens runs its chain over these
+    chunks (csrc/attention_bwd_sm90.cu): whole segments tiling [0, n_seg)
+    in order from global first segments (the dropout masks count from
+    them), every chunk but the last a multiple of G = 64 // S (a unit's
+    group never spans two chunks), equal chunks but the last, each
+    chunk's scratch within ATTN_SCRATCH_BYTES for dw False and True,
+    inert and reg, and no more chunks than that bound forces."""
+    G = fa.unit_segments(S)
+    for n_seg in (1, G + 1, 6273):
+        for dw, use_ln, reg in itertools.product((False, True), repeat=3):
+            flags = dict(dw=dw, use_ln=use_ln, geff=reg, gm=reg and dw)
+            chunks = fa.attention_bwd_seg_chunks(n_seg, S, C, **flags)
+            starts = [s0 for s0, _ in chunks]
+            assert starts == list(itertools.accumulate(
+                [0] + [n for _, n in chunks[:-1]]))
+            assert sum(n for _, n in chunks) == n_seg
+            assert all(n > 0 for _, n in chunks)
+            assert all(n % G == 0 for _, n in chunks[:-1])
+            assert len({n for _, n in chunks[:-1]}) <= 1
+            assert chunks[-1][1] <= chunks[0][1]
+            for _, n in chunks:
+                assert fa.attention_bwd_scratch_bytes(
+                    n, S, C, **flags) <= fa.ATTN_SCRATCH_BYTES
+            k = 1           # the most whole groups a chunk's scratch holds
+            while k * G < n_seg and fa.attention_bwd_scratch_bytes(
+                    (k + 1) * G, S, C, **flags) <= fa.ATTN_SCRATCH_BYTES:
+                k += 1
+            assert len(chunks) == -(-n_seg // (k * G))
+
+
+def test_attention_bwd_scratch_bytes_counts_each_piece():
+    """The scratch of a chunk of 10 segments at S=6, C=256 (60 rows, one
+    unit group): qkv, dattn, dln, the LN statistics, the partial rows; the
+    dw form's ln, attn, dqkv and gm; the reg form's geff; each rounded up
+    to 256 bytes, as csrc/attention_bwd_sm90.cu carves them."""
+    C, rows = 256, 60
+    base = [2 * rows * 3 * C, 2 * rows * C, 4 * rows * C, 8 * rows,
+            4 * 1 * 3 * C, 4 * 1 * 3 * C]
+    dw = [2 * rows * C, 2 * rows * C, 2 * rows * 3 * C, 2 * rows * C]
+    geff = [2 * rows * C]
+
+    def rounded(pieces):
+        return sum(-(-n // 256) * 256 for n in pieces)
+
+    assert fa.attention_bwd_scratch_bytes(10, 6, C, False) == rounded(base)
+    assert fa.attention_bwd_scratch_bytes(
+        10, 6, C, True, geff=True, gm=True) == rounded(base + dw + geff)
+    assert fa.attention_bwd_scratch_bytes(
+        10, 6, C, False, use_ln=False) == rounded(base[:3] + base[4:])
+
+
+def test_build_entry_binds_a_signature_once(monkeypatch):
+    """_build.entry loads a kernel library once, binds a C function's
+    argtypes and restype at the first call and hands back the same bound
+    function after, without loading or binding again (a stand-in library
+    on the CPU)."""
+    import ctypes
+
+    from duoformer_tcga_tpu_torch.ops import _build
+
+    class Fn:
+        def __init__(self):
+            self.binds = 0
+
+        def __setattr__(self, name, value):
+            if name == "argtypes":
+                object.__setattr__(self, "binds", self.binds + 1)
+            object.__setattr__(self, name, value)
+
+    class Lib:
+        loads = 0
+
+        def __init__(self):
+            self.launch_stand_in = Fn()
+
+    def load(name):
+        Lib.loads += 1
+        assert name == "stand_in"
+        return Lib()
+
+    monkeypatch.setattr(_build, "load_library", load)
+    monkeypatch.setattr(_build, "_entries", {})
+    args = [ctypes.c_void_p, ctypes.c_int]
+    first = _build.entry("stand_in", "launch_stand_in", args)
+    again = _build.entry("stand_in", "launch_stand_in", args)
+    assert again is first and Lib.loads == 1 and first.binds == 1
+    assert first.argtypes == args and first.restype is ctypes.c_int
+
+
 def test_every_loaded_kernel_library_is_built_from_its_source():
-    """Every library name a wrapper under ops/ loads is one that
-    _build.KERNELS builds (chip_smoke.py builds those), and each has its
-    source csrc/<name>.cu."""
+    """Every library name a wrapper under ops/ loads (load_library, or
+    _build.entry's first argument) is one that _build.KERNELS builds
+    (chip_smoke.py builds those), and each has its source csrc/<name>.cu."""
     import re
     from pathlib import Path
 
     from duoformer_tcga_tpu_torch.ops import _build
     names = set()
     for path in sorted(Path(fa.__file__).parent.glob("*.py")):
-        for call in re.findall(r"load_library\((.*?)\)", path.read_text(),
-                               re.S):
+        text = path.read_text()
+        for call in re.findall(r"load_library\((.*?)\)", text, re.S):
             names.update(re.findall(r'"([a-z0-9_]+)"', call))
+        names.update(re.findall(r'\bentry\(\s*"([a-z0-9_]+)"', text))
+    assert "attention_bwd_sm90" in names and "layernorm" in names
     assert names and names <= set(_build.KERNELS), names - set(_build.KERNELS)
     for name in _build.KERNELS:
         assert (_build.CSRC_DIR / f"{name}.cu").is_file(), name

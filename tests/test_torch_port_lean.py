@@ -51,6 +51,8 @@ from test_torch_port_reg import (_arr, _attention_args, _close_in_rms_units,
                                  _flat, _gamma, _rel_l2, _rms, legacy_seeds,
                                  seeded_tree)
 
+from torch_port_shared import shared_jax_compiles  # noqa: F401 (autouse)
+
 TOL = dict(atol=3e-5, rtol=3e-5)
 PARITY = dict(atol=1e-4, rtol=1e-4)
 SEED = 12345

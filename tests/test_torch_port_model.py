@@ -32,6 +32,8 @@ import duoformer_tcga_tpu_torch as port
 from duoformer_tcga_tpu_torch.inference import Predictor
 from duoformer_tcga_tpu_torch.utils.convert import load_jax_params
 
+from torch_port_shared import shared_jax_compiles  # noqa: F401 (autouse)
+
 TOL = dict(atol=1e-4, rtol=1e-4)
 CFG = dict(depth=2, embed_dim=128, num_heads=2, proj_dim=128,
            num_classes=3, num_layers=2)

@@ -59,6 +59,8 @@ from duoformer_tcga_tpu_torch.ops import quantize as tq
 from duoformer_tcga_tpu_torch.utils.convert import (export_jax_params,
                                                     load_jax_params)
 
+from torch_port_shared import shared_jax_compiles  # noqa: F401 (autouse)
+
 TOL = dict(atol=1e-4, rtol=1e-4)
 KERNEL_TOL = dict(atol=1e-5, rtol=1e-5)
 CFG = dict(depth=2, embed_dim=128, num_heads=2, proj_dim=128, num_classes=3)

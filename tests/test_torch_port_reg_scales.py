@@ -59,6 +59,8 @@ from test_torch_port_reg import (_arr, _attention_args, _close_in_rms_units,
 from test_torch_port_scales import (_assert_embed_close_in_rms_units,
                                     _JaxKernels, _np_tree, _tiles)
 
+from torch_port_shared import shared_jax_compiles  # noqa: F401 (autouse)
+
 TOL = dict(atol=3e-5, rtol=3e-5)
 MODEL_TOL = 1e-4
 STACK_TOL = dict(atol=1e-4, rtol=1e-4)

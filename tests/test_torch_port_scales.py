@@ -48,6 +48,8 @@ from duoformer_tcga_tpu_torch.ops import fused_int8 as fi
 from duoformer_tcga_tpu_torch.utils.convert import (export_jax_params,
                                                     load_jax_params)
 
+from torch_port_shared import shared_jax_compiles  # noqa: F401 (autouse)
+
 KERNEL_TOL = dict(atol=3e-5, rtol=3e-5)
 KERNEL_REL_TOL = 1e-3
 MODEL_TOL = 1e-4

@@ -42,6 +42,8 @@ from test_torch_port_lean import LEAN_ENV, pinned_numerics  # noqa: F401
 from test_torch_port_reg import (_arr, _attention_args, _close_in_rms_units,
                                  _flat, _rms)
 
+from torch_port_shared import shared_jax_compiles  # noqa: F401 (autouse)
+
 TOL = dict(atol=3e-5, rtol=3e-5)
 PARITY = dict(atol=1e-4, rtol=1e-4)
 CFG = dict(depth=2, embed_dim=128, num_heads=2, proj_dim=128, num_classes=3)

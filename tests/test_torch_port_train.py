@@ -31,6 +31,8 @@ from duoformer_tcga_tpu_torch import train as ttrain
 from duoformer_tcga_tpu_torch.utils.convert import (export_jax_params,
                                                     load_jax_params)
 
+from torch_port_shared import shared_jax_compiles  # noqa: F401 (autouse)
+
 TOL = dict(atol=1e-4, rtol=1e-4)
 CFG = dict(depth=2, embed_dim=128, num_heads=2, proj_dim=128, num_classes=3,
            num_layers=2)
