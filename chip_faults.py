@@ -191,16 +191,34 @@ FAULTS = {
         EW, "const float dd = keep ? d[e] * drop.scale : 0.f;",
         "const float dd = keep ? __bfloat162float(__float2bfloat16(d[e])) "
         "* drop.scale : 0.f;", "drop_ew_dz"),
+    # the MLP backward (csrc/fused_mlp_bwd.cu): its dln product is the
+    # shared header's float32 product with w1 read K-major (EPI_F32, BT),
+    # hidden columns 128..255 its k-tiles 2 and 3
     "one hidden chunk left out of dln (MLP backward)": (
-        MLPB, "          mma16816(acc[m][2 * k], a, b[0], b[1]);\n"
-              "          mma16816(acc[m][2 * k + 1], a, b[2], b[3]);",
-        "          if (chunk != 1) {\n"
-        "          mma16816(acc[m][2 * k], a, b[0], b[1]);\n"
-        "          mma16816(acc[m][2 * k + 1], a, b[2], b[3]);\n"
-        "          }", "fused_mlp_bwd"),
+        GEMM, "          wgmma<AT, !BT>(acc,",
+        "          if (EPI != EPI_F32 || !BT || kt / 2 != 1)\n"
+        "          wgmma<AT, !BT>(acc,", "fused_mlp_bwd"),
     "z phi(z) dropped from gelu' (MLP backward)": (
-        MLPB, "(phi + z * (INV_SQRT_2PI * expf(-0.5f * z * z)))", "phi",
+        MLPB, "slope = Phi + z * phi;", "slope = Phi;", "fused_mlp_bwd"),
+    "b1 dropped from z (MLP backward)": (
+        MLPB, "const float2 bb = *reinterpret_cast<const float2*>(b1 + n0 + "
+              "col);", "const float2 bb = make_float2(0.f, 0.f);",
         "fused_mlp_bwd"),
+    "w2 read as stored instead of K-major (MLP backward)": (
+        MLPB, "wgmma<0, 0>(dacc, desc128(a + kk * 32, 16, 1024),\n"
+              "                      desc128(b + kk * 32, 16, 1024),",
+        "wgmma<0, 1>(dacc, desc128(a + kk * 32, 16, 1024),\n"
+        "                      desc128(b + kk * 2048, 8192, 1024),",
+        "fused_mlp_bwd"),
+    "last chunk of rows left out of the column sums (MLP backward)": (
+        MLPB, "return sum_rows(sc.chunk_sums, nchunks, 3 * C,",
+        "return sum_rows(sc.chunk_sums, nchunks - 1, 3 * C,",
+        "fused_mlp_bwd"),
+    "g not added to dx (MLP backward)": (
+        MLPB, "sc.part, n, 1, 1,", "sc.part, n, 1, 0,", "fused_mlp_bwd"),
+    "LN backward's mean term dropped (MLP backward)": (
+        ROWS, "out[e] = istd * (dxh - m1 - xs[e] * m2);",
+        "out[e] = istd * (dxh - xs[e] * m2);", "fused_mlp_bwd"),
     "dwA against g where gm is due (dw form)": (
         BWD, "const bf16* gacc = gmc != nullptr ? gmc : gc;",
         "const bf16* gacc = gc;", "fused_attention_residual_bwd_reg_dw"),

@@ -1128,9 +1128,11 @@ def drop_ew_case(torch, F, fa, gen, rows, cols, mode, timed, ones=False):
     return res
 
 
-def mlp_bwd_case(torch, F, fa, gen, rows, c, hidden, timed):
+def mlp_bwd_case(torch, F, fa, gen, rows, c, hidden, timed, repeat=False):
     """The recompute-from-x MLP backward kernel: dx less the residual g,
-    ln, h, dz and the column sums dlns, dlnb."""
+    ln, h, dz and the column sums dlns, dlnb; with repeat, also a second
+    launch on the same inputs bit for bit in every output (the sums are
+    taken in a fixed order, without atomics)."""
     dev, bf16 = "cuda", torch.bfloat16
 
     def rnd(*shape, std=1.0, mean=0.0):
@@ -1158,6 +1160,10 @@ def mlp_bwd_case(torch, F, fa, gen, rows, c, hidden, timed):
              for k, o, r in zip(names, out, ref)}
     pairs["dx"] = (out[0], ref[0], g)
     res = compare_all(torch, pairs)
+    if repeat:
+        res["bit_identical"] = all(torch.equal(a, b)
+                                   for a, b in zip(out, kernel()))
+        res["ok"] = res["ok"] and res["bit_identical"]
     if not timed:
         return res
     b2 = torch.zeros(c, device=dev, dtype=bf16)
@@ -1178,6 +1184,32 @@ def mlp_bwd_case(torch, F, fa, gen, rows, c, hidden, timed):
     res.update(ms=median_ms(kernel, torch), plain_ms=median_ms(plain, torch),
                library_ms=median_ms(library, torch), bound_ms=bound_ms,
                bound_by=bound_by, flops=flops, bytes=nbytes)
+    return res
+
+
+def mlp_bwd_chunks_case(torch, F, fa, gen, rows, c, hidden, timed,
+                        chunk_rows):
+    """mlp_bwd_case with a second launch bit for bit, its wrapper's scratch
+    bound cut to the scratch of chunk_rows rows, so that its planner
+    (fa.mlp_bwd_row_chunks, read by a spy) takes the call in at least three
+    chunks, the last one ragged: fails when it took fewer or equal ones."""
+    plan, bound_was, used = (fa.mlp_bwd_row_chunks, fa.MLP_BWD_SCRATCH_BYTES,
+                             [])
+
+    def spy(*a, **kw):
+        used.append(plan(*a, **kw))
+        return used[-1]
+
+    fa.mlp_bwd_row_chunks = spy
+    fa.MLP_BWD_SCRATCH_BYTES = fa.mlp_bwd_scratch_bytes(chunk_rows, c)
+    try:
+        res = mlp_bwd_case(torch, F, fa, gen, rows, c, hidden, timed,
+                           repeat=True)
+    finally:
+        fa.mlp_bwd_row_chunks, fa.MLP_BWD_SCRATCH_BYTES = plan, bound_was
+    chunks = used[0] if used else []
+    res.update(chunks=len(chunks), ok=res["ok"] and len(chunks) >= 3
+               and chunks[-1][1] < chunks[0][1])
     return res
 
 
@@ -2523,6 +2555,30 @@ def _case_specs(torch, F, fa, timed):
         ("fused_attention_residual_bwd_reg_dw all three over chunks of "
          "segments, the last ragged, n_seg=6273 S=6", 6273, 6, C, HEADS,
          False, dw_all_chunks, False),
+    ]
+    # the recompute-from-x MLP backward (csrc/fused_mlp_bwd.cu): rows
+    # around its 128-row tiles, each width of SHORT_C, a call over three
+    # chunks of rows (the scratch bound cut to 1024 rows' worth) and a
+    # second launch at the main path's rows, each bit for bit
+    mlpb_again = part(mlpb, repeat=True)
+    mlpb_chunks = part(mlp_bwd_chunks_case, chunk_rows=1024)
+    specs += [
+        ("fused_mlp_bwd rows=1", 1, C, HIDDEN, mlpb, False),
+        ("fused_mlp_bwd rows=127", 127, C, HIDDEN, mlpb, False),
+        ("fused_mlp_bwd rows=129", 129, C, HIDDEN, mlpb, False),
+        ("fused_mlp_bwd rows=18817 (ragged)", rows_s + 1, C, HIDDEN, mlpb,
+         False),
+        ("fused_mlp_bwd rows=1000 C=256 hidden=1024", 1000, 256, 1024, mlpb,
+         False),
+        ("fused_mlp_bwd_c384 rows=1000 hidden=1536", 1000, c4, hid4, mlpb,
+         False),
+        ("fused_mlp_bwd rows=1000 C=512 hidden=2048", 1000, 512, 2048, mlpb,
+         False),
+        ("fused_mlp_bwd rows=1000 C=768", 1000, C, HIDDEN, mlpb, False),
+        ("fused_mlp_bwd over three chunks of rows, the last ragged, "
+         "rows=2817", 2817, C, HIDDEN, mlpb_chunks, False),
+        ("fused_mlp_bwd twice, bit for bit, rows=37632", rows_t, C, HIDDEN,
+         mlpb_again, False),
     ]
     out = []
     for label, *args in specs:
@@ -4227,6 +4283,7 @@ def main() -> int:
 
     log(f"at {time.perf_counter() - t_start:.0f} s")
     # ---- 3. the serving path ----
+    torch.cuda.reset_peak_memory_stats()    # its own peak, not phase 2's
     t0 = time.perf_counter()
     model = port.build_model_no_extra_params(
         num_layers=2, embed_dim=C, proj_dim=C, num_heads=HEADS, depth=12,

@@ -264,14 +264,12 @@ __device__ __forceinline__ void store_rows_dq(
 // Rows [0, RT) of the block into dst (row stride ld) as bf16: LayerNorm
 // with float32 statistics (two-pass variance) when use_ln, else a copy of
 // x. Rows at or past R (the ragged tail) are zeros. One warp per row.
-// stats, when given, receives each live row's mean and 1/sqrt(var + eps)
-// (stats[2r], stats[2r + 1]) under use_ln.
 template <int C, int RT, int WARPS>
 __device__ __forceinline__ void ln_rows(const bf16* __restrict__ x, long row0,
                                         int R, const float* __restrict__ lns,
                                         const float* __restrict__ lnb,
                                         float eps, bool use_ln, bf16* dst0,
-                                        int ld, float* stats = nullptr) {
+                                        int ld) {
   constexpr int NT = C / 64;       // bf16 pairs per lane in a row
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int r = warp; r < RT; r += WARPS) {
@@ -298,10 +296,6 @@ __device__ __forceinline__ void ln_rows(const bf16* __restrict__ x, long row0,
         sq += a * a + b * b;
       }
       const float inv = rsqrtf(warp_sum(sq) / C + eps);
-      if (stats != nullptr && lane == 0) {
-        stats[2 * r] = mean;
-        stats[2 * r + 1] = inv;
-      }
 #pragma unroll
       for (int i = 0; i < NT; ++i) {
         const int c = 2 * (lane + 32 * i);

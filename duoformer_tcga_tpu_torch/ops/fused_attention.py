@@ -34,7 +34,9 @@ and the drop_ew kernel are in ops/fused_reg.py).
     kernel: csrc/mlp_dz.cu
   fused_mlp_bwd:            the MLP backward from x (no saved hidden): dx,
     ln, h, dz and the column sums dlns, dlnb
-    kernel: csrc/fused_mlp_bwd.cu
+    kernel: csrc/fused_mlp_bwd.cu (one C entry a call, per chunk of rows,
+    mlp_bwd_row_chunks: LN with its statistics, one wgmma product for z
+    and dh writing h and dz, the dln product, the LN backward, the sums)
   block_diag_attention_fwd: softmax(q k^T * scale) v within each segment
     kernel: csrc/attention_sm90.cu's wgmma core
 
@@ -121,6 +123,10 @@ SHORT_C = (256, 384, 512, 768)
 # together at most this many bytes (csrc/fused_mlp_residual.cu)
 MLP_SCRATCH_BYTES = 192 << 20
 MLP_ROW_TILE = 128            # the kernel's output tile rows
+# fused_mlp_bwd's chain holds a float32 scratch for a chunk of rows, dln
+# [rows, C], the LN statistics and the LN backward's partial rows, at most
+# this many bytes (csrc/fused_mlp_bwd.cu; mlp_bwd_scratch_bytes)
+MLP_BWD_SCRATCH_BYTES = 192 << 20
 # the attention core's chain holds two scratches for a chunk of whole
 # segments, the LayerNorm [rows rounded up to MLP_ROW_TILE, C] (full form)
 # and qkv [rows, 3C] in bf16, together at most this many bytes
@@ -852,6 +858,32 @@ def mlp_row_chunks(rows, C, hidden):
     return [(r, min(size, rows - r)) for r in range(0, rows, size)]
 
 
+def mlp_bwd_scratch_bytes(rows, C):
+    """The bytes of fused_mlp_bwd's scratch for a chunk of `rows` rows
+    (csrc/fused_mlp_bwd.cu's MlpBwdScratch, in its order, each piece
+    rounded up to 256 bytes): the float32 dln, the LN statistics and the
+    LN backward's partial rows (3C floats a block of 64 rows). The chunks'
+    sums, 3C floats a chunk, and g's C come on top."""
+    pieces = [4 * rows * C, 8 * rows, 4 * -(-rows // 64) * 3 * C]
+    return sum(-(-n // 256) * 256 for n in pieces)
+
+
+def mlp_bwd_row_chunks(rows, C):
+    """The row chunks of one fused_mlp_bwd call on the card: [(first row,
+    rows)], tiling [0, rows) in order, as few as keep each chunk's scratch
+    (mlp_bwd_scratch_bytes) within MLP_BWD_SCRATCH_BYTES, of equal size
+    rounded up to MLP_ROW_TILE rows but the last."""
+    if rows <= 0:
+        return []
+    tile = MLP_ROW_TILE
+    # the most tiles a chunk can hold: at C % 32 == 0 a tile's pieces are
+    # whole multiples of 256 bytes, so k tiles take k times one tile's
+    most = max(1, MLP_BWD_SCRATCH_BYTES // mlp_bwd_scratch_bytes(tile, C))
+    n = -(-rows // (most * tile))
+    size = -(-(-(-rows // n)) // tile) * tile    # ceil(ceil(rows / n), tile)
+    return [(r, min(size, rows - r)) for r in range(0, rows, size)]
+
+
 def fused_mlp_residual(x, ln_scale, ln_bias, w1, b1, w2, b2, ln_eps=1e-6,
                        use_residual=True, return_hidden=False, gamma=None,
                        seed=0, drop=0.0):
@@ -1325,6 +1357,12 @@ def _mlp_dz_f32(g2, z, w2, name):
     return dz, db1
 
 
+# launch_fused_mlp_bwd's arguments: x, g, lns, lnb, w1, b1, w2, dx, ln, h,
+# dz, sums, scratch; scratch_bytes; rows, C, hidden, chunk_rows; eps; stream
+_MLP_BWD_ARGS = ([ctypes.c_void_p] * 13 + [ctypes.c_longlong]
+                 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
+
+
 def fused_mlp_bwd(x, g, ln_scale, ln_bias, w1, b1, w2, ln_eps=1e-6):
     """The MLP residual branch's backward from x, with no saved hidden
     (_fused_mlp_bwd_impl, pallas_attention.py:1634-1693): x, g [..., C] ->
@@ -1356,25 +1394,24 @@ def fused_mlp_bwd(x, g, ln_scale, ln_bias, w1, b1, w2, ln_eps=1e-6):
     ln = torch.empty(rows, C, dtype=bf16, device=dev)
     h = torch.empty(rows, hidden, dtype=bf16, device=dev)
     dz = torch.empty(rows, hidden, dtype=bf16, device=dev)
-    sums = torch.zeros(2 * C, dtype=f32, device=dev)
+    sums = torch.empty(2 * C, dtype=f32, device=dev)   # the kernel's sums
     out = (dx, ln, h, dz, sums[:C], sums[C:])
     if rows == 0:
+        sums.zero_()
         return out
-    lib = _build.load_library("fused_mlp_bwd")
-    lib.mlp_bwd_blocks.argtypes = [ctypes.c_int]
-    lib.mlp_bwd_blocks.restype = ctypes.c_int
-    part = torch.empty(lib.mlp_bwd_blocks(rows) * 2 * C, dtype=f32,
-                       device=dev)
-    fn = lib.launch_fused_mlp_bwd
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 3 + \
-        [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        status = fn(_ptr(x), _ptr(g), _ptr(ln_scale), _ptr(ln_bias),
-                    _ptr(w1), _ptr(b1), _ptr(w2), _ptr(dx), _ptr(ln),
-                    _ptr(h), _ptr(dz), _ptr(sums), _ptr(part), rows, C,
-                    hidden, float(ln_eps), _stream(dev))
-    _build.check(lib, status, "fused_mlp_bwd")
+    plan = mlp_bwd_row_chunks(rows, C)
+    # the chunk's scratch, then the chunks' sums (3C floats each) and g's
+    nbytes = mlp_bwd_scratch_bytes(plan[0][1], C) + sum(
+        -(-n // 256) * 256 for n in (4 * len(plan) * 3 * C, 4 * C))
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    fn = _build.entry("fused_mlp_bwd", "launch_fused_mlp_bwd", _MLP_BWD_ARGS)
+    status = _build.call_on(
+        dev, fn, x.data_ptr(), g.data_ptr(), ln_scale.data_ptr(),
+        ln_bias.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        dx.data_ptr(), ln.data_ptr(), h.data_ptr(), dz.data_ptr(),
+        sums.data_ptr(), scratch.data_ptr(), nbytes, rows, C, hidden,
+        plan[0][1], float(ln_eps), _stream(dev))
+    _build.check("fused_mlp_bwd", status, "fused_mlp_bwd")
     count_launch("fused_mlp_bwd", C)
     return out
 

@@ -109,6 +109,48 @@ def test_mlp_row_chunks_tile_the_rows_within_the_scratch(rows, C, hidden):
     assert len(chunks) == -(-rows // most)
 
 
+@pytest.mark.parametrize("rows, C, hidden", [
+    (1, 256, 1024), (222, 768, 3072), (3200, 384, 1536),
+    (18816, 768, 3072), (26113, 768, 3072), (37632, 768, 3072),
+    (269696, 768, 3072), (539392, 768, 3072)])
+def test_mlp_bwd_row_chunks_tile_the_rows_within_the_scratch(rows, C,
+                                                             hidden):
+    """The card's recompute-from-x MLP backward runs its chain over these
+    chunks (csrc/fused_mlp_bwd.cu): they tile [0, rows) in order, every
+    chunk but the last a multiple of the row tile and of one size, each
+    chunk's float32 scratch (dln, the LN statistics, the partial rows)
+    within MLP_BWD_SCRATCH_BYTES whatever the hidden width, and there are
+    no more chunks than that bound forces."""
+    chunks = fa.mlp_bwd_row_chunks(rows, C)
+    starts = [r0 for r0, _ in chunks]
+    assert starts == list(itertools.accumulate(
+        [0] + [n for _, n in chunks[:-1]]))
+    assert sum(n for _, n in chunks) == rows and all(n > 0 for _, n in chunks)
+    tile = fa.MLP_ROW_TILE
+    assert all(n % tile == 0 for _, n in chunks[:-1])
+    assert len({n for _, n in chunks[:-1]}) <= 1
+    assert chunks[-1][1] <= chunks[0][1]
+    for _, n in chunks:
+        assert fa.mlp_bwd_scratch_bytes(n, C) <= fa.MLP_BWD_SCRATCH_BYTES
+    most = tile                # the most rows, in whole tiles, a chunk holds
+    while most < rows and fa.mlp_bwd_scratch_bytes(
+            most + tile, C) <= fa.MLP_BWD_SCRATCH_BYTES:
+        most += tile
+    assert len(chunks) == -(-rows // most)
+    # L4's 539,392 rows never take a float32 dln of the whole call
+    assert 4 * chunks[0][1] * C <= fa.MLP_BWD_SCRATCH_BYTES
+
+
+def test_mlp_bwd_scratch_bytes_counts_each_piece():
+    """The scratch of a chunk of 130 rows at C=256: dln in float32, the LN
+    statistics, the LN backward's partial rows (3 blocks of 64 rows, 3C
+    floats each), each rounded up to 256 bytes, as csrc/fused_mlp_bwd.cu
+    carves them."""
+    pieces = [4 * 130 * 256, 8 * 130, 4 * 3 * 3 * 256]
+    assert fa.mlp_bwd_scratch_bytes(130, 256) == sum(
+        -(-n // 256) * 256 for n in pieces)
+
+
 @pytest.mark.parametrize("n_seg, S, C, use_ln", [
     (1, 65, 512, True), (7, 86, 768, True), (1001, 86, 768, True),
     (3136, 86, 768, True), (3136, 86, 768, False), (6272, 86, 256, True),
@@ -266,6 +308,49 @@ def test_build_entry_binds_a_signature_once(monkeypatch):
     again = _build.entry("stand_in", "launch_stand_in", args)
     assert again is first and Lib.loads == 1 and first.binds == 1
     assert first.argtypes == args and first.restype is ctypes.c_int
+
+
+def test_mlp_bwd_entry_binds_its_c_signature_once(monkeypatch):
+    """fused_mlp_bwd's ctypes signature is csrc/fused_mlp_bwd.cu's C entry,
+    argument by argument (a pointer c_void_p, long long c_longlong, int
+    c_int, float c_float: a pointer passed as int would be cut), and
+    _build.entry binds it once (a stand-in library on the CPU)."""
+    import ctypes
+    import re
+
+    from duoformer_tcga_tpu_torch.ops import _build
+    src = (_build.CSRC_DIR / "fused_mlp_bwd.cu").read_text()
+    params = re.search(r"int launch_fused_mlp_bwd\((.*?)\)", src,
+                       re.S).group(1)
+    kinds = {"void*": ctypes.c_void_p, "long long": ctypes.c_longlong,
+             "int": ctypes.c_int, "float": ctypes.c_float}
+    want = [kinds["void*" if "*" in p else " ".join(p.split()[:-1])]
+            for p in params.split(",")]
+    assert list(fa._MLP_BWD_ARGS) == want
+
+    class Fn:
+        binds = 0
+
+        def __setattr__(self, name, value):
+            if name == "argtypes":
+                Fn.binds += 1
+            object.__setattr__(self, name, value)
+
+    class Lib:
+        loads = 0
+
+        def __init__(self):
+            Lib.loads += 1
+            self.launch_fused_mlp_bwd = Fn()
+
+    monkeypatch.setattr(_build, "load_library", lambda name: Lib())
+    monkeypatch.setattr(_build, "_entries", {})
+    first = _build.entry("fused_mlp_bwd", "launch_fused_mlp_bwd",
+                         fa._MLP_BWD_ARGS)
+    again = _build.entry("fused_mlp_bwd", "launch_fused_mlp_bwd",
+                         fa._MLP_BWD_ARGS)
+    assert again is first and Lib.loads == 1 and Fn.binds == 1
+    assert first.argtypes == list(fa._MLP_BWD_ARGS)
 
 
 def test_every_loaded_kernel_library_is_built_from_its_source():
