@@ -2,11 +2,11 @@
 """Where the attention branch's time goes on the card, forward and
 backward, and the LayerNorm kernel's host and device time.
 
-    python3 chip_attention_probe.py
+    python3 chip_attention_probe.py [bwd] [sweep]
 
-Builds csrc/attention_sm90.cu, csrc/attention_bwd_sm90.cu and
-csrc/layernorm.cu (nvcc's time, ptxas's registers and spills; "already
-built" when a library is there). For the core's
+Without arguments: builds csrc/attention_sm90.cu,
+csrc/attention_bwd_sm90.cu and csrc/layernorm.cu (nvcc's time, ptxas's
+registers and spills; "already built" when a library is there). For the core's
 wrapper (attention_core_s86 / attention_core_long: per chunk of segments
 a LayerNorm pass, the qkv product and the attention core), the proj
 (attention_proj), the whole branch up to 64 tokens (fused_attention_residual:
@@ -36,6 +36,19 @@ launch, which the card finishes first). Last, #11 (fused_layernorm) at
 the wrapper's host time a call (200 calls back to back, host clock, no
 synchronise in between) and its launch's device time (torch.profiler).
 Prints the card's name and power limit first and one JSON object last.
+
+With `bwd`: only the attention backward at 65..197 tokens, at the 12
+forms of PERF.md §6's #4 rows there (S=86: full and bare, dw False and
+True over 6272 segments, the reg forms with the attention dropout and
+gamma or the proj dropout and gamma, dw=False over 3136 and dw over
+6272; S=197: full and bare, dw False and True, over 128): the call's time
+as chip_smoke.py times it, its host ms (one call on an idle card, median
+of 20), its launches' device ms a call (geff, LN, the qkv, dattn and dln
+products, the core, the LN backward, the dw products, the sums) and the
+products' and core's TFLOP/s (the core at its 12 R S C flops); with
+`sweep` also the call's time with ATTN_BWD_SCRATCH_BYTES from 64 to 448
+MiB (two rounds of opposite order) at S=86 (dw False and True) and
+S=197.
 Needs one CUDA device and nvcc; imports nothing of JAX.
 """
 
@@ -74,12 +87,31 @@ SWEEP = (("core", 3136, 86), ("core", 128, 197), ("branch", 3136, 22),
          ("branch", 6272, 6))
 
 
+# the backward at 65..197 tokens: (kind, n_seg, S, bare, reg flags)
+BWD_SHAPES = (("bwd", 6272, 86, False, {}), ("bwd_dw", 6272, 86, False, {}),
+              ("bwd", 6272, 86, True, {}), ("bwd_dw", 6272, 86, True, {}),
+              ("bwd", 3136, 86, False, dict(attn_drop=cs.DROP)),
+              ("bwd", 3136, 86, False, dict(proj_drop=cs.DROP)),
+              ("bwd_dw", 6272, 86, False, dict(attn_drop=cs.DROP)),
+              ("bwd_dw", 6272, 86, False, dict(proj_drop=cs.DROP)),
+              ("bwd", 128, 197, False, {}), ("bwd_dw", 128, 197, False, {}),
+              ("bwd", 128, 197, True, {}), ("bwd_dw", 128, 197, True, {}))
+BWD_SCRATCH_MIB = (64, 128, 192, 256, 384, 448)
+# (kind, n_seg, S) of the backward's scratch sweep
+BWD_SWEEP = (("bwd", 6272, 86), ("bwd_dw", 6272, 86), ("bwd_dw", 128, 197))
+
+
 # a profiler kernel name's part -> its launch, and how many a call makes
 # (chunks: the call's chunks of segments)
 LAUNCHES = (("ln_stats_kernel", "ln", lambda ch: ch),
             ("ln_kernel", "ln", lambda ch: ch),
             ("geff_kernel", "geff", lambda ch: ch),
             ("attention_bwd_core", "core", lambda ch: ch),
+            ("attention_long_bwd_core", "core", lambda ch: ch),
+            ("gemm_kernel<false, false>", "qkv", lambda ch: ch),
+            ("gemm_kernel<true, false>", "dattn", lambda ch: ch),
+            ("gemm_kernel<true, true>", "dln", lambda ch: ch),
+            ("wgrad_kernel", "dw", lambda ch: ch),
             ("attention_core", "core", lambda ch: ch),
             ("gemm_sm90<2, false, false>", "qkv", lambda ch: ch),
             ("gemm_sm90<2, false, true>", "dattn", lambda ch: ch),
@@ -99,7 +131,7 @@ def launch_name(key):
     return None, None
 
 
-def inputs(torch, gen, n_seg, S, bare, C=C):
+def inputs(torch, gen, n_seg, S, bare, C=C, qkv=True):
     def rnd(*shape, std=1.0, mean=0.0):
         return torch.randn(*shape, generator=gen) * std + mean
 
@@ -115,7 +147,8 @@ def inputs(torch, gen, n_seg, S, bare, C=C):
                 bqkv=rnd(3 * C, std=0.01).cuda(),
                 wproj=rnd(C, C, std=C ** -0.5).to("cuda", bf16),
                 bproj=rnd(C, std=0.01).cuda(),
-                qkv=(rnd(n_seg, S, 3 * C) * cs.QKV_STD).to("cuda", bf16),
+                qkv=((rnd(n_seg, S, 3 * C) * cs.QKV_STD).to("cuda", bf16)
+                     if qkv else None),
                 g=rnd(n_seg, S, C).to("cuda", bf16),
                 gamma=rnd(C, std=0.1, mean=1.0).cuda())
 
@@ -124,8 +157,12 @@ def make_call(fa, kind, t, n_seg, S, bare, drop):
     heads = t["x"].shape[-1] // 64
     scale = 64 ** -0.5
     if kind.startswith("bwd"):
-        kw = (dict(gamma=t["gamma"], seed=cs.DROP_SEED, attn_drop=drop,
-                   proj_drop=drop) if drop else {})
+        if isinstance(drop, dict):      # the reg flags given one by one
+            kw = (dict(gamma=t["gamma"], seed=cs.DROP_SEED, **drop)
+                  if drop else {})
+        else:
+            kw = (dict(gamma=t["gamma"], seed=cs.DROP_SEED, attn_drop=drop,
+                       proj_drop=drop) if drop else {})
         return lambda: fa.fused_attention_residual_bwd(
             t["x"], t["g"], t["lns"], t["lnb"], t["wqkv"], t["bqkv"],
             t["wproj"], heads, S, scale, use_ln=not bare,
@@ -155,6 +192,89 @@ def make_call(fa, kind, t, n_seg, S, bare, drop):
                         HEADS, S, scale, use_ln=not bare, **kw)
 
 
+def profile_split(torch, call, chunks):
+    """{launch: device ms a call} of `call` (torch.profiler over 10 calls:
+    the profiler may keep fewer than their launches, so a kernel's time a
+    call is its mean launch times its launches a call of `chunks`), and
+    the launches the profiler kept."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            call()
+        torch.cuda.synchronize()
+    total, counts, per = {}, {}, {}
+    for e in prof.key_averages():
+        name, per_call = launch_name(e.key)
+        if e.device_type == torch.autograd.DeviceType.CUDA and name:
+            total[name] = total.get(name, 0.0) + e.device_time_total
+            counts[name] = counts.get(name, 0) + e.count
+            per[name] = per_call(chunks)
+    return ({k: v / counts[k] / 1e3 * per[k] for k, v in total.items()},
+            counts)
+
+
+def probe_long_bwd(torch, fa, sweep):
+    """The backward at 65..197 tokens at BWD_SHAPES (see the docstring)."""
+    results = []
+    for i, (kind, n_seg, S, bare, reg) in enumerate(BWD_SHAPES):
+        t = inputs(torch, torch.Generator().manual_seed(cs.SEED + i), n_seg,
+                   S, bare, qkv=False)
+        call = make_call(fa, kind, t, n_seg, S, bare, reg)
+        ms = cs.median_ms(call, torch)
+        enqueue = []           # the wrapper's host time, the card idle
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            enqueue.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        dw = "_dw" in kind
+        chunks = len(fa.attention_bwd_seg_chunks(
+            n_seg, S, C, dw, not bare, bool(reg), dw and "proj_drop" in reg))
+        split, counts = profile_split(torch, call, chunks)
+        R = n_seg * S
+        flops = dict(qkv=2 * R * C * 3 * C, dattn=2 * R * C * C,
+                     dln=2 * R * 3 * C * C, dw=2 * R * C * 4 * C,
+                     core=12 * R * S * C)
+        tflops = {k: f / split[k] / 1e9 for k, f in flops.items()
+                  if split.get(k)}
+        res = dict(kind=kind, n_seg=n_seg, S=S, C=C, bare=bare,
+                   reg=sorted(reg), ms=ms, host_ms=sorted(enqueue)[10],
+                   launch_ms=split, device_ms=sum(split.values()),
+                   tflops=tflops, launches_profiled=counts, chunks=chunks)
+        results.append(res)
+        print(json.dumps(res), flush=True)
+        del t, call
+        torch.cuda.empty_cache()
+    swept = {}
+    if sweep:
+        saved = fa.ATTN_BWD_SCRATCH_BYTES
+        for i, (kind, n_seg, S) in enumerate(BWD_SWEEP):
+            t = inputs(torch, torch.Generator().manual_seed(cs.SEED + 200 + i),
+                       n_seg, S, False, qkv=False)
+            call = make_call(fa, kind, t, n_seg, S, False, {})
+            times = {m: [] for m in BWD_SCRATCH_MIB}
+            try:
+                for order in (BWD_SCRATCH_MIB, BWD_SCRATCH_MIB[::-1]):
+                    for mib in order:
+                        fa.ATTN_BWD_SCRATCH_BYTES = mib << 20
+                        times[mib].append(cs.median_ms(call, torch))
+                key = f"{kind} S={S} n_seg={n_seg}"
+                swept[key] = {}
+                for mib, v in times.items():
+                    fa.ATTN_BWD_SCRATCH_BYTES = mib << 20
+                    swept[key][f"{mib} MiB"] = dict(ms=v, chunks=len(
+                        fa.attention_bwd_seg_chunks(n_seg, S, C,
+                                                    "_dw" in kind)))
+            finally:
+                fa.ATTN_BWD_SCRATCH_BYTES = saved
+            print(json.dumps({key: swept[key]}), flush=True)
+            del t, call
+            torch.cuda.empty_cache()
+    return results, swept
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -167,6 +287,19 @@ def main() -> int:
 
     print(cs.card_line(), flush=True)
     t = time.perf_counter()
+    if "bwd" in sys.argv[1:]:
+        logs = _build.build_all([n for n in _build.KERNELS if n in (
+            "attention_bwd_sm90", "fused_attention_residual_bwd_s86",
+            "attention_long")])
+        print(f"nvcc: {time.perf_counter() - t:.1f} s", flush=True)
+        for name, log in logs.items():
+            for line in log.splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"  {name}: " + line.strip()[-150:], flush=True)
+        results, swept = probe_long_bwd(torch, fa, "sweep" in sys.argv[1:])
+        print(json.dumps({"bwd_shapes": len(results),
+                          "scratch_sweep": swept}))
+        return 0
     logs = _build.build_all(["attention_sm90", "attention_bwd_sm90",
                              "layernorm"])
     print(f"nvcc: {time.perf_counter() - t:.1f} s", flush=True)
@@ -182,17 +315,9 @@ def main() -> int:
         ms = cs.median_ms(call, torch)
         steady = cs.median_ms(lambda: [call() for _ in range(10)], torch,
                               5) / 10
-        torch.cuda.synchronize()
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(10):
-                call()
-            torch.cuda.synchronize()
-        # the profiler may keep fewer than the 10 calls' launches: a
-        # kernel's time a call is its mean launch times its launches a call
-        # (a core or branch call: ln, qkv and core once a chunk; proj once;
+        # a core or branch call: ln, qkv and core once a chunk; proj once;
         # a backward call: each launch once a chunk, the sums twice a
-        # chunk and once more)
+        # chunk and once more
         width = t["x"].shape[-1]
         if kind.startswith("bwd"):
             reg = drop > 0.0
@@ -203,14 +328,7 @@ def main() -> int:
             chunks = len(fa.attention_seg_chunks(n_seg, S, width, not bare))
         else:
             chunks = 1
-        total, counts, per = {}, {}, {}
-        for e in prof.key_averages():
-            name, per_call = launch_name(e.key)
-            if e.device_type == torch.autograd.DeviceType.CUDA and name:
-                total[name] = total.get(name, 0.0) + e.device_time_total
-                counts[name] = counts.get(name, 0) + e.count
-                per[name] = per_call(chunks)
-        split = {k: v / counts[k] / 1e3 * per[k] for k, v in total.items()}
+        split, counts = profile_split(torch, call, chunks)
         res = dict(kind=kind, n_seg=n_seg, S=S, C=width, bare=bare,
                    attn_drop=drop, ms=ms, steady_ms=steady, launch_ms=split,
                    device_ms=sum(split.values()),

@@ -51,10 +51,7 @@ LN = f"{PKG}/csrc/layernorm.cu"
 GEMM = f"{PKG}/csrc/gemm_sm90.cuh"
 A90 = f"{PKG}/csrc/attention_sm90.cu"
 ATTN886 = f"{PKG}/csrc/fused_attention_residual_int8_s86.cu"
-BWD86 = f"{PKG}/csrc/fused_attention_residual_bwd_s86.cu"
-CHAIN = f"{PKG}/csrc/attention_chain.cuh"
 REG_GRAD = f"{PKG}/csrc/reg_grad.cuh"
-LONG = f"{PKG}/csrc/attention_long.cu"
 TRAIN = f"{PKG}/train.py"
 F32 = f"{PKG}/csrc/f32_tile.cuh"
 ATTN32 = f"{PKG}/csrc/fused_attention_residual_f32.cu"
@@ -242,35 +239,49 @@ FAULTS = {
         "            amax = fmaxf(amax, fmaxf(fabsf(v[u][i].x), "
         "fabsf(v[u][i].y)));",
         "fused_attention_residual_int8_s86_proj"),
-    "padding rows 86..95 of do read from memory (s86 backward)": (
-        BWD86, "if (r < S)\n      cp_async16(d, dattn",
-        "if (r < RT)\n      cp_async16(d, dattn",
+    "query rows at or past S taken into dk and dv (s86 backward)": (
+        BWD, "sc[j] = rlive[(j >> 1) & 1] ? __fmul_rn(sc[j], inv[(j >> 1) "
+             "& 1]) : 0.f;", "sc[j] = __fmul_rn(sc[j], inv[(j >> 1) & 1]);",
         "fused_attention_residual_bwd_s86"),
     "softmax Jacobian on the bf16 p (s86 backward)": (
-        BWD86, "for (int q = 0; q < 4; ++q) p[j][q] = p[j][q] / sum[q >> 1];",
-        "for (int q = 0; q < 4; ++q)\n        p[j][q] = __bfloat162float("
-        "__float2bfloat16(p[j][q] / sum[q >> 1]));",
+        BWD, "  return p * (d - r) * scale;",
+        "  return __bfloat162float(__float2bfloat16(p)) * (d - r) * scale;",
         "fused_attention_residual_bwd_s86"),
     "head 1's dq over head 0's columns (s86 backward)": (
-        BWD86, "store_strip_acc(dq, dqkv, row0, m, S, 3 * C, h * D,",
-        "store_strip_acc(dq, dqkv, row0, m, S, 3 * C, (h == 1 ? 0 : h) * D,",
+        BWD, "store_tile(stg, dqkv + h * HD, 3 * C, live, tid);",
+        "store_tile(stg, dqkv + (h == 1 ? 0 : h) * HD, 3 * C, live, tid);",
         "fused_attention_residual_bwd_s86"),
     "last chunk of segments skipped (s86 dw form)": (
-        CHAIN, CHUNK_LOOP,
+        BWD, CHUNK_LOOP,
         "for (int ci = 0; ci < nchunks - (dw ? 1 : 0); ++ci) {",
         "fused_attention_residual_bwd_s86_dw"),
     "keys at or past S not masked (long backward)": (
-        LONG, "bool live_key(int key, int S) { return key < S; }",
-        "bool live_key(int key, int S) { return key < RTL; }",
+        BWD, "sc[j] = key < S ? __fmul_rn(sc[j], scale) : -CUDART_INF_F;",
+        "sc[j] = key < NK ? __fmul_rn(sc[j], scale) : -CUDART_INF_F;",
         "fused_attention_residual_bwd_long"),
     "key strips skip the last query strip (long backward)": (
-        LONG, "const int nq = n16;  // query strips the key pass reads",
-        "const int nq = n16 - 1;  // query strips the key pass reads",
+        BWD, "for (int qs = 0; qs < ql; ++qs) {",
+        "for (int qs = 0; qs < ql - 1; ++qs) {",
         "fused_attention_residual_bwd_long"),
     "last chunk of segments skipped (long dw form)": (
-        CHAIN, CHUNK_LOOP,
+        BWD, CHUNK_LOOP,
         "for (int ci = 0; ci < nchunks - (dw ? 1 : 0); ++ci) {",
         "fused_attention_residual_bwd_long_dw"),
+    "a key tile left out of the row sums (long backward)": (
+        BWD, "for (int kt = 0; kt < KT; ++kt) {   // the row sums' key tiles",
+        "for (int kt = 0; kt < KT - 1; ++kt) {",
+        "fused_attention_residual_bwd_long"),
+    "query rows at or past S taken into the key pass (long backward)": (
+        BWD, "if (klv[hr] && q < S)", "if (klv[hr])",
+        "fused_attention_residual_bwd_long"),
+    "dq from the first key tile only (long backward)": (
+        BWD, "for (int kt = 0; kt < KT; ++kt) {   // ds and dq's key tiles",
+        "for (int kt = 0; kt < 1; ++kt) {",
+        "fused_attention_residual_bwd_long"),
+    "the second key strip's dk not stored (long backward)": (
+        BWD, "store_tile(stg, dqkv + row + C + h * HD, 3 * C, klive, tid);",
+        "store_tile(stg, dqkv + row + C + h * HD, 3 * C, ks == 1 ? 0 : klive,"
+        " tid);", "fused_attention_residual_bwd_s86"),
     "last 128 output columns' product dropped at C=384 (attn proj)": (
         GEMM, "float y0 = acc[c8 * 4 + 2 * hr] + bb.x;",
         "float y0 = (g.N == 384 && n0 == 256 ? 0.f : acc[c8 * 4 + 2 * hr])"
@@ -302,12 +313,17 @@ FAULTS = {
         "    if (dw && ci + 1 < nchunks) {\n      GemmArgs w{",
         "fused_attention_residual_bwd_dw"),
     "p dropped for o and dv but dp not (s86 reg backward)": (
-        BWD86, "    drop_bits(dp, km, hdrop);   // dp dropped and rescaled "
-               "(reg form)\n", "",
+        BWD, "        dp[j] = (keep[j >> 5] >> (j & 31)) & 1u ? dp[j] * "
+             "drop.scale : 0.f;\n", "",
+        "fused_attention_residual_bwd_s86_reg"),
+    "the masks at segment-local tokens (s86 reg backward)": (
+        BWD, "tok0 + 64 * m + 16 * warp + g + 8 * ((j >> 1) & 1);\n"
+             "      const uint32_t kt = tok0 + 8",
+        "64 * m + 16 * warp + g + 8 * ((j >> 1) & 1);\n"
+        "      const uint32_t kt = 8",
         "fused_attention_residual_bwd_s86_reg"),
     "dwA from geff instead of gm (s86 reg dw form)": (
-        CHAIN, "const WgradProblem p1{attnc, gacc, dwA, C, C};",
-        "const WgradProblem p1{attnc, gsrc, dwA, C, C};",
+        BWD, "w, stream, attnc, gacc)));", "w, stream, attnc, gsrc)));",
         "fused_attention_residual_bwd_s86_reg_dw"),
     "key mask dropped (attn)": (
         A90, KEY_MASK, "sc[j] = __fmul_rn(sc[j], scale);",

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-1. Builds the sixteen CUDA kernel sources from the checkout (one nvcc
+1. Builds the fourteen CUDA kernel sources from the checkout (one nvcc
    each, started together) and prints each kernel's register and spill
    report.
 2. Holds every kernel form against its plain PyTorch version on the card:
@@ -72,8 +72,15 @@
    64 with short last units, with dq, dk and dv each held alone at S=6
    (6272 segments) and S=22 (3136) as attention_bwd_big_case holds them,
    and in its reg dw form with every flag over chunks of segments at S=6
-   (6273 segments, the last chunk ragged; fails in one chunk),
-   and each at one small odd shape:
+   (6273 segments, the last chunk ragged; fails in one chunk), the
+   backward at 65..197 tokens (the same chain's long core) at S=65, 86, 87
+   and 197 over 1, 2 and 7 segments, at C=256, 512 and 768, with dq, dk
+   and dv each held alone, on the first rows of inputs whose later rows
+   are NaN, over three chunks of segments with the scratch bound cut (a
+   spy on attention_bwd_seg_chunks; the reg forms with every flag and with
+   the attention dropout, the long dw form), the reg forms over two
+   segments, and its dw form twice at 6272 segments of 86 tokens, bit for
+   bit, and each at one small odd shape:
    kernel in bf16,
    plain version on the same inputs upcast to float32 (the int8 forms'
    plain versions take the same bf16 x and int8 weights, so both round at
@@ -401,26 +408,27 @@ SOURCES = {
     "fused_attention_residual_int8_s86_proj":
         CSRC + "fused_attention_residual_int8_s86.cu",
     "fused_attention_residual_bwd_s86":
-        CSRC + "fused_attention_residual_bwd_s86.cu",
+        CSRC + "attention_bwd_sm90.cu",
     "fused_attention_residual_bwd_s86_bare":
-        CSRC + "fused_attention_residual_bwd_s86.cu",
+        CSRC + "attention_bwd_sm90.cu",
     "fused_attention_residual_bwd_s86_dw":
-        CSRC + "fused_attention_residual_bwd_s86.cu",
+        CSRC + "attention_bwd_sm90.cu",
     "fused_attention_residual_bwd_s86_dw_bare":
-        CSRC + "fused_attention_residual_bwd_s86.cu",
+        CSRC + "attention_bwd_sm90.cu",
     "fused_attention_residual_long": CSRC + "attention_sm90.cu",
     "fused_attention_residual_long_bare": CSRC + "attention_sm90.cu",
-    "fused_attention_residual_bwd_long": CSRC + "attention_long.cu",
-    "fused_attention_residual_bwd_long_bare": CSRC + "attention_long.cu",
-    "fused_attention_residual_bwd_long_dw": CSRC + "attention_long.cu",
-    "fused_attention_residual_bwd_long_dw_bare": CSRC + "attention_long.cu",
+    "fused_attention_residual_bwd_long": CSRC + "attention_bwd_sm90.cu",
+    "fused_attention_residual_bwd_long_bare": CSRC + "attention_bwd_sm90.cu",
+    "fused_attention_residual_bwd_long_dw": CSRC + "attention_bwd_sm90.cu",
+    "fused_attention_residual_bwd_long_dw_bare":
+        CSRC + "attention_bwd_sm90.cu",
     "block_diag_attention_long": CSRC + "attention_sm90.cu",
     "fused_attention_residual_s86_reg": CSRC + "attention_sm90.cu",
     "fused_attention_residual_s86_proj_reg": CSRC + "attention_sm90.cu",
     "fused_attention_residual_bwd_s86_reg":
-        CSRC + "fused_attention_residual_bwd_s86.cu",
+        CSRC + "attention_bwd_sm90.cu",
     "fused_attention_residual_bwd_s86_reg_dw":
-        CSRC + "fused_attention_residual_bwd_s86.cu",
+        CSRC + "attention_bwd_sm90.cu",
     "fused_attention_residual_f32": CSRC + "fused_attention_residual_f32.cu",
     "fused_attention_residual_f32_bare":
         CSRC + "fused_attention_residual_f32.cu",
@@ -1213,6 +1221,68 @@ def mlp_bwd_chunks_case(torch, F, fa, gen, rows, c, hidden, timed,
     return res
 
 
+def attention_bwd_chunks_case(torch, F, fa, gen, n_seg, S, c, heads, bare,
+                               timed, chunk_segs, dw=False, reg=None):
+    """attention_bwd_big_case (dw, reg) with its wrapper's scratch bound cut
+    to the scratch of chunk_segs segments, so that its planner
+    (fa.attention_bwd_seg_chunks, read by a spy) takes the call in at least
+    three chunks of segments, the last one ragged: fails when it took fewer
+    or equal ones. With the reg flags the masks of every chunk but the
+    first count from a global token past 0."""
+    plan, bound_was, used = (fa.attention_bwd_seg_chunks,
+                             fa.ATTN_BWD_SCRATCH_BYTES, [])
+
+    def spy(*a, **kw):
+        used.append(plan(*a, **kw))
+        return used[-1]
+
+    fa.attention_bwd_seg_chunks = spy
+    fa.ATTN_BWD_SCRATCH_BYTES = fa.attention_bwd_scratch_bytes(
+        chunk_segs, S, c, dw, not bare, reg is not None,
+        dw and bool(reg and reg.get("proj_drop")))
+    try:
+        res = attention_bwd_big_case(torch, F, fa, gen, n_seg, S, c, heads,
+                                     bare, timed, dw=dw, reg=reg)
+    finally:
+        fa.attention_bwd_seg_chunks, fa.ATTN_BWD_SCRATCH_BYTES = (plan,
+                                                                  bound_was)
+    chunks = used[0] if used else []
+    res.update(chunks=len(chunks), ok=res["ok"] and len(chunks) >= 3
+               and chunks[-1][1] < chunks[0][1])
+    return res
+
+
+def attention_bwd_repeat_case(torch, F, fa, gen, n_seg, S, c, heads, bare,
+                              timed):
+    """The attention backward's dw form launched twice on the same inputs
+    (drawn on the card): every output, dwqkv and dwA included, bit for bit
+    the same and finite (no atomics: chunks, tiles and partial rows summed
+    in a fixed order). Its values are held by the other cases."""
+    dev, bf16 = "cuda", torch.bfloat16
+    cg = torch.Generator(device=dev).manual_seed(
+        int(torch.randint(0, 2 ** 31 - 1, (1,), generator=gen)))
+
+    def rnd(*shape, std=1.0, mean=0.0):
+        return torch.randn(*shape, generator=cg, device=dev) * std + mean
+
+    x, g = rnd(n_seg, S, c).to(bf16), rnd(n_seg, S, c).to(bf16)
+    lns, lnb = ((torch.zeros(c, device=dev),) * 2 if bare else
+                (rnd(c, std=0.1, mean=1.0), rnd(c, std=0.1)))
+    wqkv = rnd(c, 3 * c, std=QKV_STD * c ** -0.5).to(bf16)
+    bqkv = rnd(3 * c, std=0.01)
+    wproj = rnd(c, c, std=c ** -0.5).to(bf16)
+    args = (x, g, lns, lnb, wqkv, bqkv, wproj, heads, S, (c // heads) ** -0.5)
+    kw = dict(use_ln=not bare, use_residual=not bare, dw=True)
+    first = fa.fused_attention_residual_bwd(*args, **kw)
+    again = fa.fused_attention_residual_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(first, again))
+    finite = all(bool(torch.isfinite(a).all()) for a in first)
+    return dict(ok=same and finite, repeat_identical=same, finite=finite,
+                rel_err=0.0, max_abs_err=0.0, close=same,
+                branch_rms=first[0].float().pow(2).mean().sqrt().item())
+
+
 def attention_bwd_dw_case(torch, F, fa, gen, n_seg, S, c, heads, bare,
                           timed, reg=None):
     """The attention backward kernel's dw form: dx (less the residual g),
@@ -1356,7 +1426,7 @@ BWD_DW_NAMES = ("dx", "dlns", "dlnb", "dbqkv", "dbproj", "dwqkv", "dwA")
 
 def attention_bwd_big_case(torch, F, fa, gen, n_seg, S, c, heads, bare,
                            timed, dw=False, twin=False, upcast_bars=False,
-                           reg=None, split_qkv=False):
+                           reg=None, split_qkv=False, nan_tail=False):
     """The attention backward, dw=False or the dw form, at a 3- or 4-scale
     training step's size (the 65..86-token chain, or the S<=64 kernel at
     S=22), each plain version run over chunks of PLAIN_CHUNK_SEGS segments:
@@ -1379,10 +1449,12 @@ def attention_bwd_big_case(torch, F, fa, gen, n_seg, S, c, heads, bare,
     with the proj dropout dw=False also holds gm, and the dw form's dwA
     is held against attn^T gm of the dw=False route. split_qkv (dw=False):
     dq, dk and dv each held alone in place of dqkv (a wrong operand of one
-    product shows there even where the other two dilute it). Records the device
-    memory the call held beyond dx, the column sums and the weight
-    gradients (dw=False: ln, attn, dqkv, gm and any scratch; dw: the
-    scratch, the reg form's geff and gm included)."""
+    product shows there even where the other two dilute it). nan_tail: x
+    and g are the first n_seg segments of tensors whose next two are NaN
+    (a kernel reading past its rows turns its outputs NaN, which fail every
+    bar). Records the device memory the call held beyond dx, the column
+    sums and the weight gradients (dw=False: ln, attn, dqkv, gm and any
+    scratch; dw: the scratch, the reg form's geff and gm included)."""
     dev, bf16 = "cuda", torch.bfloat16
 
     def rnd(*shape, std=1.0, mean=0.0):
@@ -1390,6 +1462,13 @@ def attention_bwd_big_case(torch, F, fa, gen, n_seg, S, c, heads, bare,
 
     x = rnd(n_seg, S, c).to(dev, bf16)
     g = rnd(n_seg, S, c).to(dev, bf16)
+    if nan_tail:
+        tails = []
+        for t in (x, g):
+            tails.append(torch.full((n_seg + 2, S, c), float("nan"),
+                                    dtype=bf16, device=dev))
+            tails[-1][:n_seg] = t
+        x, g = (t[:n_seg] for t in tails)
     if bare:
         lns = torch.zeros(c, device=dev)
         lnb = torch.zeros(c, device=dev)
@@ -2579,6 +2658,65 @@ def _case_specs(torch, F, fa, timed):
          "rows=2817", 2817, C, HIDDEN, mlpb_chunks, False),
         ("fused_mlp_bwd twice, bit for bit, rows=37632", rows_t, C, HIDDEN,
          mlpb_again, False),
+    ]
+    # the backward at 65..197 tokens (csrc/attention_bwd_sm90.cu's long
+    # core): ragged segment counts at S=65, 86, 87 and 197, each C of
+    # SUPPORTED_C; dq, dk and dv each alone; inputs with a NaN tail; calls
+    # over three chunks of segments (the scratch bound cut), the reg forms
+    # with every flag over two segments and over chunks; the dw form twice
+    # at the 4-scale lean step's 6272 segments, bit for bit
+    longb_qkv = part(longb, split_qkv=True)
+    bwd_chunks = attention_bwd_chunks_case
+    specs += [
+        ("fused_attention_residual_bwd_s86 n_seg=1 S=65", 1, 65, C, HEADS,
+         False, s86b, False),
+        ("fused_attention_residual_bwd_s86_dw n_seg=2 S=65 C=256 H=4", 2, 65,
+         256, 4, False, s86dw, False),
+        ("fused_attention_residual_bwd_s86 n_seg=2 S=86 C=512 H=8", 2, 86,
+         512, 8, False, s86b, False),
+        ("fused_attention_residual_bwd_s86_dw_bare n_seg=1 S=86", 1, 86, C,
+         HEADS, True, s86dw, False),
+        ("fused_attention_residual_bwd_s86_bare n_seg=7 S=86 C=512 H=8", 7,
+         86, 512, 8, True, s86b, False),
+        ("fused_attention_residual_bwd_long n_seg=1 S=87 C=256 H=4", 1, 87,
+         256, 4, False, longb, False),
+        ("fused_attention_residual_bwd_long_dw n_seg=2 S=87", 2, 87, C, HEADS,
+         False, longdw, False),
+        ("fused_attention_residual_bwd_long_bare n_seg=7 S=87 C=512 H=8", 7,
+         87, 512, 8, True, longb, False),
+        ("fused_attention_residual_bwd_long_dw_bare n_seg=1 S=197 C=512 H=8",
+         1, S_V, 512, 8, True, longdw, False),
+        ("fused_attention_residual_bwd_long n_seg=2 S=197 C=256 H=4 (rounding "
+         "points)", 2, S_V, 256, 4, False, longb_twin, False),
+        ("fused_attention_residual_bwd_long_dw n_seg=7 S=197 C=256 H=4", 7,
+         S_V, 256, 4, False, longdw, False),
+        ("fused_attention_residual_bwd_s86 dq, dk, dv alone n_seg=7 S=86", 7,
+         86, C, HEADS, False, part(s86b, split_qkv=True), False),
+        ("fused_attention_residual_bwd_long dq, dk, dv alone n_seg=7 S=197",
+         7, S_V, C, HEADS, False, longb_qkv, False),
+        ("fused_attention_residual_bwd_s86 on the first rows of tensors whose "
+         "later rows are NaN, n_seg=7 S=86", 7, 86, C, HEADS, False,
+         part(s86b, nan_tail=True), False),
+        ("fused_attention_residual_bwd_long_dw on the first rows of tensors "
+         "whose later rows are NaN, n_seg=7 S=197", 7, S_V, C, HEADS, False,
+         part(longdw, nan_tail=True), False),
+        ("fused_attention_residual_bwd_s86_reg_dw all three over three chunks "
+         "of segments, the last ragged, n_seg=23 S=86", 23, 86, C, HEADS,
+         False, part(bwd_chunks, chunk_segs=8, dw=True, reg=both), False),
+        ("fused_attention_residual_bwd_s86_reg attention dropout + gamma over "
+         "three chunks of segments, the last ragged, n_seg=23 S=86", 23, 86,
+         C, HEADS, False,
+         part(bwd_chunks, chunk_segs=8, reg=dict(attn_drop=DROP)), False),
+        ("fused_attention_residual_bwd_long_dw over three chunks of segments, "
+         "the last ragged, n_seg=7 S=197", 7, S_V, C, HEADS, False,
+         part(bwd_chunks, chunk_segs=3, dw=True), False),
+        ("fused_attention_residual_bwd_s86_reg all three n_seg=2 S=86", 2, 86,
+         C, HEADS, False, s86b_all, False),
+        ("fused_attention_residual_bwd_s86_reg_dw all three n_seg=2 S=86 "
+         "C=256 H=4", 2, 86, 256, 4, False, s86dw_all, False),
+        ("fused_attention_residual_bwd_s86_dw twice, bit for bit, n_seg=6272 "
+         "S=86", B_TRAIN * 49, 86, C, HEADS, False, attention_bwd_repeat_case,
+         False),
     ]
     out = []
     for label, *args in specs:

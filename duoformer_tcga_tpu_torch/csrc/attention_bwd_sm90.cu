@@ -1,9 +1,9 @@
-// Backward of the attention branch at 1 to 64 tokens a segment, for Hopper
-// (sm_90a).
+// Backward of the attention branch at 1 to 197 tokens a segment, for
+// Hopper (sm_90a).
 //
 // The forward (csrc/attention_sm90.cu) is
 //     y = [x +] proj( block-diagonal softmax attention( qkv( [LN](x) ) ) ).
-// Given x and the upstream gradient g (both [n_seg, S, C] bf16, S <= 64),
+// Given x and the upstream gradient g (both [n_seg, S, C] bf16, S <= 197),
 // this backward recomputes LN, qkv and the softmax and writes
 //     dx   [n_seg, S, C] bf16   the input cotangent (LN backward, + g)
 //     ln   [rows, C]     bf16   the LN output (full form only: the bare
@@ -21,10 +21,12 @@
 //
 // Replaces: duoformer_tcga_tpu/ops/pallas_attention.py,
 // _fused_block_bwd_kernel (:723) with dw=False and with dw=True, driven by
-// _fused_block_bwd_impl (:921), at S <= 64: every ScaleBlock of the
-// release DuoFormer in training at S=6 (2 scales) and 22 (3 scales), full
-// form; every PatchBlock at S=50, bare form (use_ln = use_residual = 0);
-// the R50ViT hybrid's blocks at S=50, C=384. The reg forms (_far_reg_bwd,
+// _fused_block_bwd_impl (:921), at S <= 197: every ScaleBlock of the
+// release DuoFormer in training at S=6 (2 scales), 22 (3 scales) and 86 (4
+// scales, the R4r regions too), full form; every PatchBlock at S=50, bare
+// form (use_ln = use_residual = 0); the R50ViT hybrid's blocks at S=50,
+// C=384; the ViT-B/16's and R50-S/16 hybrid's at S=197. The reg forms
+// (up to 86 tokens; _far_reg_bwd,
 // :1228; :809-822, 848-870, 885-905) are runtime arguments of the same
 // chain: per chunk geff_kernel (csrc/reg_grad.cuh) forms geff = bf16(bf16(
 // g * proj mask / keep) * gamma), which dattn takes instead of g, and gm =
@@ -45,8 +47,8 @@
 //
 // Design. One C entry per call walks chunks of whole segments (the
 // wrapper's attention_bwd_seg_chunks: every chunk but the last a multiple
-// of G = 64 / S segments, the chunk's scratch within ATTN_SCRATCH_BYTES).
-// Per chunk it launches
+// of G = 64 / S segments up to 64 tokens, the chunk's scratch within
+// ATTN_BWD_SCRATCH_BYTES). Per chunk it launches
 //   1. geff_kernel (reg form with gamma or the proj dropout);
 //   2. ln_stats_kernel (csrc/chain_rows.cuh; full form): ln and each row's
 //      mean and 1/std;
@@ -70,7 +72,33 @@
 //      bit), their B operands q and do MN-major. o, dq, dk and dv are cast
 //      once, staged in shared memory and stored with 16-byte stores, rows
 //      past the group's G * S never; the unit's column sums of the rounded
-//      dq | dk | dv (its rows, in warp order) make one partial row;
+//      dq | dk | dv (its rows, in warp order) make one partial row.
+//      Past 64 tokens attention_bwd_core_long<NK> (NK = 96 up to 96
+//      tokens, 208 past: the forward core's key counts): a unit is one
+//      (segment, head), its m64 query strips and its m64 key strips (2 of
+//      each at 96, 4 at 208, rows and keys past S masked). The producer
+//      TMA-loads the unit's k and v (NK rows) and q and do (whole strips)
+//      into a ring (2 stages at 96, 1 at 208). Both consumers take every
+//      unit. First each takes its query strips (cw, cw + 2, ...): the
+//      scores over the row (wgmma m64nNKk16), the float32 softmax in
+//      registers, o = p v, dp = do v^T, the row sums sum(drop(dp) p) over
+//      every key, ds and dq = ds k. At 96 dp comes with the scores in one
+//      m64n96 chain; p and ds, cast to bf16, go to the unit's p and ds
+//      tiles in shared memory ([query, key], 64 x 64 boxes), P.V and dq
+//      read them K-major, and ds and dq run under P.V and o's store. At
+//      208 a thread's registers (168 beside the producer warpgroup) hold
+//      the row's 104 floats of p but not dp and dq beside them: dp runs a
+//      key tile of 64 at a time, once for the row sums and again, with
+//      the tile's scores, for ds and dq, and each row's max, 1 / sum and
+//      sum(dp p) go to shared memory. After a barrier of both consumers
+//      each takes its key strips: dk = ds^T q and dv = p^T do over the
+//      query strips, at 96 with ds and p read from the tiles M-major (A's
+//      transpose bit), at 208 with s^T = k q^T and dp^T = v do^T again and
+//      p^T and ds^T formed in registers from the row statistics. Both
+//      strips' outputs are cast once, staged and stored with 16-byte
+//      stores, rows past S never; their column sums by warp make, after a
+//      second barrier, the segment's partial row, each column summed over
+//      strips and warps in order;
 //   6. gemm_sm90<EPI_F32, BT>: dln = dqkv wqkv^T in float32;
 //   7. ln_bwd_rows_kernel: the LN backward by rows, + g, dx rounded once,
 //      and per-block column sums of dln * xhat, dln and g;
@@ -89,7 +117,11 @@
 // chunk's rows (0 * NaN is NaN). A query row r attends to the keys of its
 // own segment, [r / S * S, r / S * S + S), so a row past the group's live
 // rows reaches only keys past them, whose dk and dv are never stored; the
-// warps whose rows are all past them take p = 0.
+// warps whose rows are all past them take p = 0. In the long core the
+// keys at or past S are masked out of the scores and the query rows at or
+// past S take p = ds = 0 (their q and do finite), so neither reaches a
+// stored row; a key strip or tile reading past k's NK rows reads v's, and
+// past v's q's.
 //
 // What bounds it on this card. 2 R C (3C + C + 3C) flops of products
 // (qkv, dattn, dln; the dw form 4 R C^2 more for each of dwqkv's 3C and
@@ -97,10 +129,15 @@
 // + 1) bytes of activations in and out: compute bound. The chain moves
 // qkv, dattn, dln (and the dw form's ln, attn, dqkv) through device memory
 // (or L2, at the scratch's size), and the packed core's padding costs (64 -
-// G S) / 64 of its rows and all but S of each row's 64 keys. The old
-// design (one block of 48 rows doing the whole backward on mma.sync,
-// streaming wqkv twice and wproj once from L2, the dw form's products added
-// with float32 atomics) took 0.84-1.95x its library call (PERF.md §6).
+// G S) / 64 of its rows and all but S of each row's 64 keys; the long core
+// does 80 m64n64k16 products a unit at NK = 96 and 616 at 208, where 12 S^2
+// 64 flops need 43 and 227, and waits on its softmax's and stores'
+// arithmetic between them (two warpgroups). The old designs (up to 64
+// tokens one block of 48 rows doing the whole backward on warp-level m16n8
+// products, streaming wqkv twice and wproj once from L2, the dw form's
+// products added with float32 atomics; past 64 a chain of such products
+// from per-thread asynchronous copies around a core of m16 strips) took
+// 0.84-1.95x and 0.96-1.56x their library calls (PERF.md §6).
 
 #include "chain_rows.cuh"
 #include "gemm_sm90.cuh"
@@ -446,6 +483,568 @@ cudaError_t launch_bwd_core(const bf16* qkv, const bf16* dattn, bf16* attn,
   return cudaGetLastError();
 }
 
+// ---- the long core: one (segment, head) a unit, 65 to 197 tokens ----
+
+// A stage of the long core: the unit's k and v (NK rows each), then its q
+// and do (whole m64 strips, QP rows each). A key strip's or a key tile's
+// 64 rows past k's NK read on into v, and past v's into q: finite rows
+// whose keys are masked. At NK = 96 (TILES) the unit's bf16 p and ds,
+// [query, key] in 64 x 64 boxes of TMA's 128-byte swizzle (strip m's keys
+// 64b.. in box 2m + b), stay in shared memory for the key pass; past 96
+// they would not fit, and the key pass takes s^T and dp^T again from each
+// row's max, 1 / sum and sum(dp p) (STATS).
+template <int NK>
+struct LongShape {
+  static constexpr bool TILES = NK <= 96;
+  static constexpr int QS = (NK + 63) / 64;   // m64 strips: queries, keys
+  static constexpr int QP = 64 * QS;          // rows of q and do
+  static constexpr int NF = NK / 2;           // a row's score fragments
+  static constexpr int STAGE = 2 * NK * 128 + 2 * QP * 128;
+  static constexpr int PDS = TILES ? 2 * QS * QS * BOX : 0;   // p, ds
+  // each row's statistics for two units in turn; each strip's column
+  // sums of the rounded dq | dk | dv by warp, also for two units
+  static constexpr int STATS = TILES ? 0 : 2 * QP * 16;
+  static constexpr int RED = 3 * QS * 4 * HD;
+  static constexpr int FIXED = PDS + STATS + 2 * RED * 4 + 2 * BOX + 256;
+  static constexpr int STAGES = (SMEM_MAX - 1024 - FIXED) / STAGE;
+  static constexpr int SMEM = STAGES * STAGE + FIXED + 1024;
+};
+
+// ds of one (query, key): the softmax Jacobian on the undropped float32
+// p, drop(dp) less the row's sum(drop(dp) p), times the score scale.
+__device__ __forceinline__ float long_ds(float p, float d, float r,
+                                        float scale) {
+  return p * (d - r) * scale;
+}
+
+// Both consumer warpgroups of a long-core block.
+__device__ __forceinline__ void pair_sync() {
+  asm volatile("bar.sync 3, 256;\n" ::: "memory");
+}
+
+// keeps the compiler from reusing a wgmma's A fragments before it retired
+template <int KB>
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[KB][4]) {
+#pragma unroll
+  for (int kb = 0; kb < KB; ++kb)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[kb][i])::"memory");
+}
+
+// A row's bf16 pair (key, key + 1) of strip m into a [query, key] tile of
+// 64 x 64 boxes (key 64b.. in box 2m + b at tiles).
+__device__ __forceinline__ void st_pair(unsigned tiles, int m, int row,
+                                        int key, uint32_t v) {
+  st_shared(tiles + (2 * m + (key >> 6)) * BOX + swz(row, key & 63), v);
+}
+
+// dk, dv of key strip ks, cast once and staged, to dqkv (from the strip's
+// first key row; rows below klive), their column sums to red.
+template <int NK>
+__device__ __forceinline__ void long_store_kv(const float (&dk)[32],
+                                              const float (&dv)[32],
+                                              int ks, int klive,
+                                              bf16* dqkv, float* red,
+                                              unsigned stg, int C, int h,
+                                              int tid, int bar) {
+  typedef LongShape<NK> Sh;
+  const int warp = tid >> 5, lane = tid & 31;
+  const long row = (long)64 * ks * 3 * C;
+  stage_frags(dk, stg, warp, lane);
+  frag_colsums(dk, klive, red + (Sh::QS + ks) * 4 * HD, warp, lane);
+  named_sync(bar);
+  store_tile(stg, dqkv + row + C + h * HD, 3 * C, klive, tid);
+  named_sync(bar);
+  stage_frags(dv, stg, warp, lane);
+  frag_colsums(dv, klive, red + (2 * Sh::QS + ks) * 4 * HD, warp, lane);
+  named_sync(bar);
+  store_tile(stg, dqkv + row + 2 * C + h * HD, 3 * C, klive, tid);
+  named_sync(bar);
+}
+
+// Query strip m of a unit, by one consumer warpgroup: the scores over the
+// NK keys, the float32 softmax, o = p v (to attn), dp = do v^T, the row
+// sums sum(drop(dp) p), ds and dq = ds k (to dqkv), dq's column sums to
+// red. TILES: dp over the whole row with the scores, the bf16 p and ds
+// also to the unit's tiles pds (p, then ds), ds and dq under P.V; else dp
+// a key tile of 64 at a time, twice (the row sums, then ds and dq), and
+// the row's statistics to st. ka, va, qa, da: the stage's k, v, q and do;
+// live: the strip's rows below S; tok0: the segment's first global token;
+// attn, dqkv: the strip's first row there; stg: the consumer's staging
+// tile.
+template <int NK>
+__device__ __forceinline__ void long_query_strip(
+    unsigned ka, unsigned va, unsigned qa, unsigned da, int m, int S,
+    int live, float scale, Drop drop, uint32_t tok0, bf16* attn, bf16* dqkv,
+    unsigned pds, float4* st, float* red, unsigned stg, int C, int h,
+    int tid, int bar) {
+  typedef LongShape<NK> Sh;
+  constexpr int NF = Sh::NF, KT = Sh::QS, KB = NK / 16;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const unsigned sq = qa + m * BOX, sd = da + m * BOX;
+  const bool rlive[2] = {16 * warp + g < live, 16 * warp + g + 8 < live};
+  // ---- scores q k^T in float32 (TILES: and dp = do v^T): fragment j
+  // holds row 16 warp + g + 8 ((j >> 1) & 1), key 8 (j >> 2) + 2t + (j & 1)
+  float sc[NF], dp[Sh::TILES ? NF : 1];
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    wgmma_scores(sc, desc128(sq + kk * 32, 16, 1024),
+                 desc128(ka + kk * 32, 16, 1024), kk > 0);
+  if constexpr (Sh::TILES)
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_scores(dp, desc128(sd + kk * 32, 16, 1024),
+                   desc128(va + kk * 32, 16, 1024), kk > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(sc);
+  if constexpr (Sh::TILES) fence_regs(dp);
+  // ---- the softmax over the keys below S; p in float32, 0 on rows at or
+  // past S (the next segment's, or zeros) ----
+  float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+  for (int j = 0; j < NF; ++j) {
+    const int key = 8 * (j >> 2) + 2 * t + (j & 1);
+    sc[j] = key < S ? __fmul_rn(sc[j], scale) : -CUDART_INF_F;
+    mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], sc[j]);
+  }
+  mx[0] = quad_max(mx[0]);
+  mx[1] = quad_max(mx[1]);
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NF; ++j) {
+    sc[j] = exp_sfu(__fsub_rn(sc[j], mx[(j >> 1) & 1]));
+    sum[(j >> 1) & 1] += sc[j];
+  }
+  const float inv[2] = {1.f / quad_sum(sum[0]), 1.f / quad_sum(sum[1])};
+#pragma unroll
+  for (int j = 0; j < NF; ++j)
+    sc[j] = rlive[(j >> 1) & 1] ? __fmul_rn(sc[j], inv[(j >> 1) & 1]) : 0.f;
+  // the forward's attention mask (reg form, up to 86 tokens): bit j of
+  // keep
+  uint32_t keep[(NF + 31) / 32];
+#pragma unroll
+  for (int w = 0; w < (NF + 31) / 32; ++w) keep[w] = 0xffffffffu;
+  if (Sh::TILES && drop.on)
+#pragma unroll
+    for (int j = 0; j < NF; ++j) {
+      const uint32_t qt = tok0 + 64 * m + 16 * warp + g + 8 * ((j >> 1) & 1);
+      const uint32_t kt = tok0 + 8 * (j >> 2) + 2 * t + (j & 1);
+      if (!keep_mask(drop.seed_plus, qt, kt, drop.thr))
+        keep[j >> 5] &= ~(1u << (j & 31));
+    }
+  float acc[32], dq[32];
+  if constexpr (Sh::TILES) {
+    // ---- the bf16 (dropped) p into the p tile (keys past NK 0), o = p v
+    // from it; under P.V the row sums and ds in bf16 into the ds tile; dq
+    // = ds k from it under o's store ----
+#pragma unroll
+    for (int j = 0; j < 64 * KT / 2; j += 2) {
+      uint32_t v = 0u;
+      if (j < NF) {
+        float p0 = sc[j], p1 = sc[j + 1];
+        if (drop.on) {
+          p0 = (keep[j >> 5] >> (j & 31)) & 1u ? p0 * drop.scale : 0.f;
+          p1 = (keep[j >> 5] >> ((j + 1) & 31)) & 1u ? p1 * drop.scale : 0.f;
+        }
+        v = pack_bf16(p0, p1);
+      }
+      st_pair(pds, m, 16 * warp + g + 8 * ((j >> 1) & 1), 8 * (j >> 2) + 2 * t,
+              v);
+    }
+    // the p tile (generic writes) before the wgmma that read it
+    fence_proxy_async();
+    named_sync(bar);
+    wgmma_fence();
+#pragma unroll
+    for (int kb = 0; kb < KB; ++kb)
+      wgmma_ss<0, 1>(acc,
+                     desc128(pds + (2 * m + (kb >> 2)) * BOX + (kb & 3) * 32,
+                             16, 1024),
+                     desc128(va + kb * 2048, 8192, 1024), kb > 0);
+    wgmma_commit();
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NF; ++j) {
+      if (drop.on)
+        dp[j] = (keep[j >> 5] >> (j & 31)) & 1u ? dp[j] * drop.scale : 0.f;
+      rs[(j >> 1) & 1] += dp[j] * sc[j];
+    }
+    rs[0] = quad_sum(rs[0]);
+    rs[1] = quad_sum(rs[1]);
+    const unsigned dst = pds + 2 * Sh::QS * BOX;
+#pragma unroll
+    for (int j = 0; j < 64 * KT / 2; j += 2) {
+      const int hr = (j >> 1) & 1;
+      uint32_t v = 0u;
+      if (j < NF)
+        v = pack_bf16(long_ds(sc[j], dp[j], rs[hr], scale),
+                      long_ds(sc[j + 1], dp[j + 1], rs[hr], scale));
+      st_pair(dst, m, 16 * warp + g + 8 * hr, 8 * (j >> 2) + 2 * t, v);
+    }
+    fence_proxy_async();
+    named_sync(bar);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kb = 0; kb < KB; ++kb)
+      wgmma_ss<0, 1>(dq,
+                     desc128(dst + (2 * m + (kb >> 2)) * BOX + (kb & 3) * 32,
+                             16, 1024),
+                     desc128(ka + kb * 2048, 8192, 1024), kb > 0);
+    wgmma_commit();
+    stage_frags(acc, stg, warp, lane);
+    named_sync(bar);
+    store_tile(stg, attn + h * HD, C, live, tid);
+    named_sync(bar);
+    wgmma_wait<0>();
+    fence_regs(dq);
+  } else {
+    // ---- o = p v, the bf16 p from registers ----
+    {
+      uint32_t pa[KB][4];
+#pragma unroll
+      for (int j = 0; j < NF; j += 2)
+        pa[j >> 3][(j >> 1) & 3] = pack_bf16(sc[j], sc[j + 1]);
+      wgmma_fence();
+#pragma unroll
+      for (int kb = 0; kb < KB; ++kb)
+        wgmma_pv(acc, pa[kb], desc128(va + kb * 2048, 8192, 1024), kb > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_frags(pa);
+    }
+    stage_frags(acc, stg, warp, lane);
+    named_sync(bar);
+    store_tile(stg, attn + h * HD, C, live, tid);
+    named_sync(bar);
+    // ---- the row sums sum(dp p) over every key, dp = do v^T a key tile
+    // of 64 at a time ----
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt) {   // the row sums' key tiles
+      float dpt[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_ss<0, 0>(dpt, desc128(sd + kk * 32, 16, 1024),
+                       desc128(va + kt * BOX + kk * 32, 16, 1024), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dpt);
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+        if (32 * kt + j < NF) rs[(j >> 1) & 1] += dpt[j] * sc[32 * kt + j];
+    }
+    rs[0] = quad_sum(rs[0]);
+    rs[1] = quad_sum(rs[1]);
+    if (t == 0)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr)
+        st[64 * m + 16 * warp + g + 8 * hr] =
+            make_float4(mx[hr], inv[hr], rs[hr], 0.f);
+    // ---- ds = p (dp - rowsum) * scale in bf16, and dq = ds k, a key
+    // tile at a time (dp, the tile's scores and p again, from the row's
+    // max and 1 / sum: the whole row of p beside dp and dq would not fit
+    // in a thread's 168 registers) ----
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt) {   // ds and dq's key tiles
+      float dpt[32], s2[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_ss<0, 0>(s2, desc128(sq + kk * 32, 16, 1024),
+                       desc128(ka + kt * BOX + kk * 32, 16, 1024), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_ss<0, 0>(dpt, desc128(sd + kk * 32, 16, 1024),
+                       desc128(va + kt * BOX + kk * 32, 16, 1024), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s2);
+      fence_regs(dpt);
+      uint32_t dsa[4][4];
+#pragma unroll
+      for (int j = 0; j < 32; j += 2) {
+        const int hr = (j >> 1) & 1;
+        float p[2] = {0.f, 0.f};
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (rlive[hr] && 64 * kt + 8 * (j >> 2) + 2 * t + e < S)
+            p[e] = __fmul_rn(
+                exp_sfu(__fsub_rn(__fmul_rn(s2[j + e], scale), mx[hr])),
+                inv[hr]);
+        dsa[j >> 3][(j >> 1) & 3] =
+            pack_bf16(long_ds(p[0], dpt[j], rs[hr], scale),
+                      long_ds(p[1], dpt[j + 1], rs[hr], scale));
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kb = 0; kb < 4; ++kb)
+        wgmma_pv(dq, dsa[kb], desc128(ka + kt * BOX + kb * 2048, 8192, 1024),
+                 kt > 0 || kb > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq);
+      fence_frags(dsa);
+    }
+  }
+  stage_frags(dq, stg, warp, lane);
+  frag_colsums(dq, live, red + m * 4 * HD, warp, lane);
+  named_sync(bar);
+  store_tile(stg, dqkv + h * HD, 3 * C, live, tid);
+  named_sync(bar);
+}
+
+// Key strip ks of a unit at NK = 96, by one consumer warpgroup: dk = ds^T
+// q and dv = p^T do over the query strips, ds and p from the unit's tiles
+// pds read M-major (A's transpose bit), q and do MN-major.
+template <int NK>
+__device__ __forceinline__ void long_key_strip_tiles(
+    unsigned qa, unsigned da, int ks, int klive, int ql, bf16* dqkv,
+    unsigned pds, float* red, unsigned stg, int C, int h, int tid, int bar) {
+  typedef LongShape<NK> Sh;
+  float dk[32], dv[32];
+  wgmma_fence();
+  for (int qs = 0; qs < ql; ++qs)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss<1, 1>(dk,
+                     desc128(pds + (2 * Sh::QS + 2 * qs + ks) * BOX +
+                                 kk * 2048, 8192, 1024),
+                     desc128(qa + qs * BOX + kk * 2048, 8192, 1024),
+                     qs > 0 || kk > 0);
+  for (int qs = 0; qs < ql; ++qs)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss<1, 1>(dv,
+                     desc128(pds + (2 * qs + ks) * BOX + kk * 2048, 8192,
+                             1024),
+                     desc128(da + qs * BOX + kk * 2048, 8192, 1024),
+                     qs > 0 || kk > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(dk);
+  fence_regs(dv);
+  long_store_kv<NK>(dk, dv, ks, klive, dqkv, red, stg, C, h, tid, bar);
+}
+
+// Key strip ks of a unit past 96 keys (no reg form: its flags stop at 86
+// tokens), by one consumer warpgroup: dk = ds^T q and dv = p^T do over the
+// query strips below S, s^T = k q^T and dp^T = v do^T again, p^T and ds^T
+// from the row statistics st, both from registers; klive: the strip's
+// keys below S; ql: the query strips with a row below S.
+template <int NK>
+__device__ __forceinline__ void long_key_strip(
+    unsigned ka, unsigned va, unsigned qa, unsigned da, int ks, int S,
+    int klive, int ql, float scale, bf16* dqkv, const float4* st,
+    float* red, unsigned stg, int C, int h, int tid, int bar) {
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const unsigned sk = ka + ks * BOX, sv = va + ks * BOX;
+  const bool klv[2] = {16 * warp + g < klive, 16 * warp + g + 8 < klive};
+  // fragment j: key 64 ks + 16 warp + g + 8 ((j >> 1) & 1), query 64 qs +
+  // 8 (j >> 2) + 2t + (j & 1)
+  float dk[32], dv[32];
+  for (int qs = 0; qs < ql; ++qs) {
+    float sT[32], dpT[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss<0, 0>(sT, desc128(sk + kk * 32, 16, 1024),
+                     desc128(qa + qs * BOX + kk * 32, 16, 1024), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss<0, 0>(dpT, desc128(sv + kk * 32, 16, 1024),
+                     desc128(da + qs * BOX + kk * 32, 16, 1024), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sT);
+    fence_regs(dpT);
+    uint32_t pa[4][4], dsa[4][4];
+#pragma unroll
+    for (int j = 0; j < 32; j += 2) {
+      const int hr = (j >> 1) & 1;
+      float p[2], ds[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int q = 64 * qs + 8 * (j >> 2) + 2 * t + e;
+        const float4 r = st[q];
+        p[e] = 0.f;
+        if (klv[hr] && q < S)
+          p[e] = __fmul_rn(
+              exp_sfu(__fsub_rn(__fmul_rn(sT[j + e], scale), r.x)), r.y);
+        ds[e] = long_ds(p[e], dpT[j + e], r.z, scale);
+      }
+      pa[j >> 3][(j >> 1) & 3] = pack_bf16(p[0], p[1]);
+      dsa[j >> 3][(j >> 1) & 3] = pack_bf16(ds[0], ds[1]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kb = 0; kb < 4; ++kb)
+      wgmma_pv(dk, dsa[kb], desc128(qa + qs * BOX + kb * 2048, 8192, 1024),
+               qs > 0 || kb > 0);
+#pragma unroll
+    for (int kb = 0; kb < 4; ++kb)
+      wgmma_pv(dv, pa[kb], desc128(da + qs * BOX + kb * 2048, 8192, 1024),
+               qs > 0 || kb > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dk);
+    fence_regs(dv);
+    fence_frags(pa);
+    fence_frags(dsa);
+  }
+  long_store_kv<NK>(dk, dv, ks, klive, dqkv, red, stg, C, h, tid, bar);
+}
+
+// attn [n_seg * S, C] and dqkv [n_seg * S, 3C] of a chunk from its qkv and
+// dattn (tm_kv: qkv in boxes of NK rows; tm_q, tm_do: qkv and dattn in
+// boxes of QP rows; each over exactly n_seg * S rows); part [n_seg, 3C]:
+// each segment's column sums of dq | dk | dv. One (segment, head) a unit;
+// both consumers take every unit: its query strips cw, cw + 2, ..., then,
+// once both have written the unit's p and ds tiles or its rows'
+// statistics, its key strips cw, cw + 2, .... adrop, tok_base: as
+// attention_bwd_core's.
+template <int NK>
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+attention_bwd_core_long(const __grid_constant__ CUtensorMap tm_kv,
+                        const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_do,
+                        bf16* __restrict__ attn, bf16* __restrict__ dqkv,
+                        float* __restrict__ part, int n_seg, int H, int S,
+                        float scale, Drop adrop, uint32_t tok_base) {
+  typedef LongShape<NK> Sh;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* pds = smem + Sh::STAGES * Sh::STAGE;             // p, ds tiles
+  uint8_t* stg = pds + Sh::PDS;                             // 2 tiles
+  float4* stats = reinterpret_cast<float4*>(stg + 2 * BOX);  // [2][QP]
+  float* red = reinterpret_cast<float*>(stg + 2 * BOX + Sh::STATS);
+  uint64_t* full = reinterpret_cast<uint64_t*>(red + 2 * Sh::RED);
+  uint64_t* empty = full + Sh::STAGES;
+  const int C = H * HD;
+  const int units = n_seg * H;
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < Sh::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);   // every thread of both consumers
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer: one thread loads the block's units in order ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      int i = 0;
+      for (int u = blockIdx.x; u < units; u += gridDim.x, ++i) {
+        const int s = i % Sh::STAGES;
+        mbar_wait(&empty[s], ((i / Sh::STAGES) & 1) ^ 1);
+        uint8_t* st = smem + s * Sh::STAGE;
+        const int r0 = u / H * S, col = u % H * HD;
+        mbar_expect_tx(&full[s], Sh::STAGE);
+        tma_load(st, &tm_kv, C + col, r0, &full[s]);
+        tma_load(st + NK * 128, &tm_kv, 2 * C + col, r0, &full[s]);
+        tma_load(st + 2 * NK * 128, &tm_q, col, r0, &full[s]);
+        tma_load(st + 2 * NK * 128 + Sh::QP * 128, &tm_do, col, r0,
+                 &full[s]);
+      }
+    }
+  } else {
+    // ---- consumers ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int cw = wg - 1, tid = threadIdx.x - 128 * wg;
+    const unsigned my_stg = smem_addr(stg + cw * BOX);
+    const unsigned tiles = smem_addr(pds);
+    const int ql = (S + 63) / 64;        // strips with a row below S
+    int i = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x, ++i) {
+      const int s = i % Sh::STAGES;
+      const int seg = u / H, h = u % H;
+      const long row0 = (long)seg * S;
+      mbar_wait(&full[s], (i / Sh::STAGES) & 1);
+      const unsigned ka = smem_addr(smem + s * Sh::STAGE);
+      const unsigned va = ka + NK * 128, qa = va + NK * 128;
+      const unsigned da = qa + Sh::QP * 128;
+      Drop hdrop = adrop;                   // head h's site
+      hdrop.seed_plus = site_seed(adrop.seed_plus, SITE_ATTN + 4 * h);
+      const uint32_t tok0 = tok_base + (uint32_t)row0;
+      float4* st = stats + (i & 1) * Sh::QP;
+      float* rd = red + (i & 1) * Sh::RED;
+      for (int m = cw; m < ql; m += 2)
+        long_query_strip<NK>(ka, va, qa, da, m, S, min(64, S - 64 * m),
+                             scale, hdrop, tok0, attn + (row0 + 64 * m) * C,
+                             dqkv + (row0 + 64 * m) * 3 * C, tiles, st, rd,
+                             my_stg, C, h, tid, 1 + cw);
+      // the p and ds tiles (generic writes) before the wgmma that read them
+      if (Sh::TILES) fence_proxy_async();
+      pair_sync();   // every row's tiles or statistics written
+      for (int ks = cw; ks < ql; ks += 2) {
+        if constexpr (Sh::TILES)
+          long_key_strip_tiles<NK>(qa, da, ks, min(64, S - 64 * ks), ql,
+                                   dqkv + row0 * 3 * C, tiles, rd, my_stg, C,
+                                   h, tid, 1 + cw);
+        else
+          long_key_strip<NK>(ka, va, qa, da, ks, S, min(64, S - 64 * ks), ql,
+                             scale, dqkv + row0 * 3 * C, st, rd, my_stg, C,
+                             h, tid, 1 + cw);
+      }
+      mbar_arrive(&empty[s]);
+      pair_sync();   // every strip's column sums written, the tiles read
+      // the unit's partial row: each column's strips and warps in order
+      for (int c = threadIdx.x - 128; c < 3 * HD; c += 256) {
+        const int kind = c / HD;
+        float v = 0.f;
+        for (int m = 0; m < ql; ++m) {
+          const float* r = rd + (kind * Sh::QS + m) * 4 * HD + c % HD;
+          v += ((r[0] + r[HD]) + r[2 * HD]) + r[3 * HD];
+        }
+        part[(long)seg * 3 * C + kind * C + h * HD + c % HD] = v;
+      }
+    }
+  }
+}
+
+template <int NK>
+cudaError_t launch_bwd_long_nk(const bf16* qkv, const bf16* dattn,
+                               bf16* attn, bf16* dqkv, float* part,
+                               int n_seg, int H, int S, float scale,
+                               Drop adrop, uint32_t tok_base,
+                               cudaStream_t stream) {
+  typedef LongShape<NK> Sh;
+  static_assert(Sh::STAGES >= 1, "the long core's shared memory");
+  const int C = H * HD, rows = n_seg * S;
+  CUtensorMap mkv, mq, md;
+  if (!tensor_map(&mkv, qkv, 3 * C, rows, NK) ||
+      !tensor_map(&mq, qkv, 3 * C, rows, Sh::QP) ||
+      !tensor_map(&md, dattn, C, rows, Sh::QP))
+    return cudaErrorInvalidValue;
+  const int dev = current_device();
+  if (dev < 0) return cudaErrorInvalidDevice;
+  static bool sized[MAX_DEVICES] = {};   // the shared-memory attribute set
+  if (!sized[dev]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        attention_bwd_core_long<NK>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, Sh::SMEM);
+    if (err != cudaSuccess) return err;
+    sized[dev] = true;
+  }
+  attention_bwd_core_long<NK>
+      <<<std::min(n_seg * H, sm_count(dev)), BWD_THREADS, Sh::SMEM,
+         stream>>>(
+          mkv, mq, md, attn, dqkv, part, n_seg, H, S, scale, adrop,
+          tok_base);
+  return cudaGetLastError();
+}
+
 // The scratch of one call, carved from one buffer in the order of the
 // wrapper's attention_bwd_scratch_bytes (each piece 256-byte aligned), for
 // chunks of at most chunk_segs segments: per chunk qkv, dattn, dln, the
@@ -497,7 +1096,7 @@ cudaError_t backward(const bf16* x, const bf16* g, const float* lns,
                      char* scratch, size_t scratch_bytes, int n_seg, int S,
                      int chunk_segs, float scale, float eps, int use_ln,
                      int use_residual, ChainReg reg, cudaStream_t stream) {
-  const int H = C / HD, G = 64 / S;
+  const int H = C / HD, G = S <= 64 ? 64 / S : 1;
   const bool dw = dwqkv != nullptr;
   const bool geff = reg.gamma != nullptr || reg.pdrop.on;
   const BwdScratch sc(scratch, n_seg, chunk_segs, S, C, G, dw, use_ln, geff,
@@ -535,9 +1134,18 @@ cudaError_t backward(const bf16* x, const bf16* g, const float* lns,
     GemmArgs d{rows, C, C, nullptr};
     CHAIN_CHECK((run_gemm<EPI_BIAS, false, true>(gsrc, wproj, sc.dattn,
                                                  nullptr, d, stream)));
-    CHAIN_CHECK(launch_bwd_core(sc.qkv, sc.dattn, attnc, dqkvc, sc.part_q,
-                                ns, H, S, G, scale, reg.adrop, (uint32_t)r0,
-                                stream));
+    if (S <= 64)
+      CHAIN_CHECK(launch_bwd_core(sc.qkv, sc.dattn, attnc, dqkvc, sc.part_q,
+                                  ns, H, S, G, scale, reg.adrop,
+                                  (uint32_t)r0, stream));
+    else if (S <= 96)
+      CHAIN_CHECK(launch_bwd_long_nk<96>(sc.qkv, sc.dattn, attnc, dqkvc,
+                                         sc.part_q, ns, H, S, scale,
+                                         reg.adrop, (uint32_t)r0, stream));
+    else
+      CHAIN_CHECK(launch_bwd_long_nk<208>(sc.qkv, sc.dattn, attnc, dqkvc,
+                                          sc.part_q, ns, H, S, scale,
+                                          reg.adrop, (uint32_t)r0, stream));
     GemmArgs l{rows, C, 3 * C, nullptr};
     l.out = sc.dln;
     CHAIN_CHECK((run_gemm<EPI_F32, false, true>(dqkvc, wqkv, nullptr,
@@ -599,8 +1207,10 @@ int launch_attention_bwd_sm90(
   const ChainReg reg{(const float*)gamma,
                 make_drop(seed, SITE_ATTN, attn_thr, attn_scale),
                 make_drop(seed, SITE_PROJ, proj_thr, proj_scale), (bf16*)gm};
-  if (S < 1 || S > 64 || C != num_heads * HD || n_seg < 1 ||
-      chunk_segs < 1 || (chunk_segs < n_seg && chunk_segs % (64 / S) != 0) ||
+  if (S < 1 || S > 197 || C != num_heads * HD || n_seg < 1 ||
+      (S > 86 && (gamma != nullptr || reg.adrop.on || reg.pdrop.on)) ||
+      chunk_segs < 1 ||
+      (chunk_segs < n_seg && S <= 64 && chunk_segs % (64 / S) != 0) ||
       (dwqkv == nullptr) != (dwA == nullptr) ||
       (!dw && (attn == nullptr || dqkv == nullptr ||
                (use_ln && ln == nullptr))) ||

@@ -1,6 +1,6 @@
-// The row launches the attention backward chains share (sm_90a): the
-// 65..197-token chains of csrc/attention_chain.cuh and the chain of
-// csrc/attention_bwd_sm90.cu up to 64 tokens:
+// The row launches the backward chains share (sm_90a): the attention
+// backward's (csrc/attention_bwd_sm90.cu) and the MLP backward's
+// (csrc/fused_mlp_bwd.cu):
 //   ln_stats_kernel      ln = bf16(LN(x)) and each row's mean and 1/std;
 //   ln_bwd_rows_kernel   the LN backward by whole rows, + g, dx rounded once,
 //                        and per-block column sums;

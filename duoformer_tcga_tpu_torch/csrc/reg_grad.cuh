@@ -1,6 +1,6 @@
-// The reg backwards' upstream gradients (sm_90a), shared by the attention
-// backward at up to 64 tokens a segment (csrc/fused_attention_residual_bwd
-// .cu) and the 65..86-token chain (csrc/attention_chain.cuh): from g, the
+// The reg backward's upstream gradients (sm_90a), for the attention
+// backward's chain at up to 86 tokens a segment (csrc/attention_bwd_sm90
+// .cu): from g, the
 // proj-masked gm = bf16(g * proj mask / keep) and geff = bf16(bf16(gm or
 // g) * gamma), the cotangent the proj's transpose takes
 // (pallas_attention.py:809-822). One elementwise pass in bf16 pairs; the

@@ -1,8 +1,8 @@
-// One warp's share of block-diagonal attention for the 86-token kernels
-// (csrc/fused_attention_residual_s86.cu, fused_attention_residual_int8_s86
-// .cu): softmax(q k^T * scale) v for one m16 strip of query rows of one
-// head, with the strip's scores and probabilities held in registers
-// (FlashAttention-2's layout) instead of in shared memory.
+// One warp's share of block-diagonal attention for the int8 86-token
+// kernel (csrc/fused_attention_residual_int8_s86.cu): softmax(q k^T *
+// scale) v for one m16 strip of query rows of one head, with the strip's
+// scores and probabilities held in registers (FlashAttention-2's layout)
+// instead of in shared memory.
 //
 // The block's shared tile sQKV [RT, ld] holds one segment of S live rows
 // from row 0, its q | k | v in columns [0, D), [D, 2D), [2D, 3D) (bf16);
@@ -14,12 +14,7 @@
 // fragments of P.V (an m16n8 accumulator pair is an m16k16 A fragment).
 // Rounding points are the TPU kernel's: scores in float32 times scale,
 // float32 softmax (exp(s - max) / sum), the probabilities cast to bf16,
-// P.V accumulated in float32 and the head's output cast to bf16. The reg
-// form drops the float32 probabilities before their cast
-// (pallas_attention.py:378-383): the head's mask of csrc/dropout_hash.cuh
-// at the global token indices of query and key, tok0 + row and tok0 +
-// column, tok0 the segment's first token (never the block row: rows
-// S..RT-1 of the tile are padding).
+// P.V accumulated in float32 and the head's output cast to bf16.
 
 #pragma once
 
@@ -45,13 +40,11 @@ __device__ __forceinline__ float quad_sum(float v) {
 // Strip m (rows 16m .. 16m + 15) of the head in sQKV; the head's output
 // [16, D] in bf16 overwrites the strip's own q columns, which no other
 // warp reads. The caller synchronises the block before (sQKV complete)
-// and after (before sQKV is rewritten). drop: the head's attention-dropout
-// site (its salt folded in; off in the inert forms), tok0: the global
-// token index of row 0.
+// and after (before sQKV is rewritten).
 template <int RT>
-__device__ __forceinline__ void strip_attention(
-    bf16* sQKV, int ld, int m, int S, float scale, int lane,
-    Drop drop = Drop{0u, 0u, 1.f, 0}, uint32_t tok0 = 0) {
+__device__ __forceinline__ void strip_attention(bf16* sQKV, int ld, int m,
+                                                int S, float scale,
+                                                int lane) {
   constexpr int D = 64;
   constexpr int NT = RT / 8;        // n8 tiles of scores
   const int g = lane >> 2, t = lane & 3;
@@ -96,16 +89,11 @@ __device__ __forceinline__ void strip_attention(
     }
   sum[0] = quad_sum(sum[0]);
   sum[1] = quad_sum(sum[1]);
-  // ---- the probabilities in float32, dropped in the reg form ----
+  // ---- the probabilities in float32 ----
 #pragma unroll
   for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      c[j][q] = c[j][q] / sum[q >> 1];
-      if (drop.on)
-        c[j][q] = drop.apply(c[j][q], tok0 + m * 16 + g + 8 * (q >> 1),
-                             tok0 + 8 * j + 2 * t + (q & 1));
-    }
+    for (int q = 0; q < 4; ++q) c[j][q] = c[j][q] / sum[q >> 1];
   // ---- P V: probabilities cast to bf16 as A fragments ----
   float o[D / 8][4];
 #pragma unroll

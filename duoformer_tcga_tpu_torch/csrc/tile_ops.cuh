@@ -78,18 +78,6 @@ __device__ __forceinline__ void ldsm_bt2(unsigned (&b)[4], const bf16* p,
                : "r"(smem_addr(q)));
 }
 
-// A fragment of a 16x16 tile of A = M^T for a row-major [K, ld] matrix M
-// at p (k16 rows of M, m16 columns).
-__device__ __forceinline__ void ldsm_at(unsigned (&a)[4], const bf16* p,
-                                        int ld, int lane) {
-  const bf16* q = p + ((lane & 7) + ((lane >> 4) << 3)) * ld +
-                  ((lane >> 3) & 1) * 8;
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-      : "r"(smem_addr(q)));
-}
-
 __device__ __forceinline__ void mma16816(float (&d)[4], const unsigned (&a)[4],
                                          unsigned b0, unsigned b1) {
   asm volatile(

@@ -32,7 +32,6 @@ KERNELS = ("attention_bwd_sm90", "fused_mlp_residual", "mlp_dz",
            "fused_attention_residual_int8", "fused_mlp_residual_int8",
            "drop_ew", "fused_mlp_bwd", "layernorm", "attention_sm90",
            "fused_attention_residual_int8_s86",
-           "fused_attention_residual_bwd_s86", "attention_long",
            "fused_attention_residual_f32", "fused_mlp_residual_f32",
            "fused_attention_residual_bwd_f32", "mlp_dz_f32")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

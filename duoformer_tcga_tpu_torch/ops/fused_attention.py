@@ -15,16 +15,13 @@ and the drop_ew kernel are in ops/fused_reg.py).
     197 (the 4-scale model's 86, the ViT's 197) two wrapper calls,
     attention_core_s86 or attention_core_long, then attention_proj
   fused_attention_residual_bwd: its backward (dx, ln, attn, dqkv and the
-    column sums dlns, dlnb, dbqkv, dbproj), recomputing the forward; a
-    chain of launches over chunks of segments (LN, the qkv and dattn
-    products, the attention backward core, the dln product, the LN
-    backward; in the dw form the weight-gradient products): up to 64
-    tokens csrc/attention_bwd_sm90.cu (one C entry a call, the products
-    on csrc/gemm_sm90.cuh, the core on packed units of unit_segments(S)
-    whole segments, chunks from attention_bwd_seg_chunks); for 65 to 86
-    csrc/fused_attention_residual_bwd_s86.cu; for 87 to 197 the same chain
-    around csrc/attention_long.cu's backward core (both chains' launches
-    in csrc/attention_chain.cuh)
+    column sums dlns, dlnb, dbqkv, dbproj), recomputing the forward; at 1
+    to 197 tokens csrc/attention_bwd_sm90.cu, one C entry a call: a chain
+    of launches over chunks of segments (attention_bwd_seg_chunks: LN, the
+    qkv and dattn products on csrc/gemm_sm90.cuh, the wgmma backward core,
+    the dln product, the LN backward; in the dw form the weight-gradient
+    products); the core's units pack unit_segments(S) whole segments up
+    to 64 tokens and take one (segment, head) past
   fused_mlp_residual:       y = [x +] fc2(gelu_erf(fc1(LN x))), and with
     return_hidden=True also the pre-GELU hidden z
     kernel: csrc/fused_mlp_residual.cu (per chunk of rows, mlp_row_chunks:
@@ -102,13 +99,13 @@ from .nn import layernorm
 # csrc/attention_bwd_sm90.cu), and both take C in SHORT_C
 ATTN_MAX_SEG_LEN = 64
 # the forward, bf16 and int8, and the backward in both forms also take
-# 65..86 tokens (the bf16 forward csrc/attention_sm90.cu, the others one
-# 96-row block a segment, csrc/*_s86.cu); so do the reg flags, which stop
-# there
+# 65..86 tokens (csrc/attention_sm90.cu, csrc/attention_bwd_sm90.cu; int8
+# one 96-row block a segment, csrc/fused_attention_residual_int8_s86.cu);
+# so do the reg flags, which stop there
 ATTN_SERVE_MAX_SEG_LEN = 86
 # the bf16 forward, the backward in both forms and block_diag_attention
 # take up to 197 tokens (ViT-B/16 at 224^2: 196 patches + CLS;
-# csrc/attention_sm90.cu, csrc/attention_long.cu); int8 stops at
+# csrc/attention_sm90.cu, csrc/attention_bwd_sm90.cu); int8 stops at
 # ATTN_SERVE_MAX_SEG_LEN
 ATTN_LONG_MAX_SEG_LEN = 197
 HEAD_DIM = 64                 # the attention kernel's head width
@@ -134,6 +131,13 @@ MLP_BWD_SCRATCH_BYTES = 192 << 20
 # were slower on the card at 86 and 197 tokens (more launches and tails;
 # PERF.md §6)
 ATTN_SCRATCH_BYTES = 192 << 20
+# the attention backward's chain holds a scratch for a chunk of whole
+# segments (attention_bwd_scratch_bytes: qkv, dattn, the float32 dln, the
+# statistics and partial rows; the dw form's ln, attn and dqkv) within this
+# many bytes (csrc/attention_bwd_sm90.cu). Each chunk costs its ten
+# launches' ramps and tails: at 86 tokens over 6272 segments 384 MiB (24
+# chunks in the dw form) beat 192 (47) by about 3 ms (PERF.md §6)
+ATTN_BWD_SCRATCH_BYTES = 384 << 20
 
 
 def reset_launch_counts():
@@ -684,7 +688,7 @@ def attention_seg_plan(n_seg, S, C, use_ln=True):
 
 def attention_bwd_scratch_bytes(segs, S, C, dw, use_ln=True, geff=False,
                                 gm=False):
-    """The bytes of the backward chain's scratch up to 64 tokens
+    """The bytes of the backward chain's scratch
     (csrc/attention_bwd_sm90.cu's BwdScratch, in its order, each piece
     rounded up to 256 bytes) for a chunk of `segs` segments: qkv, dattn,
     the float32 dln, the LN statistics (full form), the LN backward's and
@@ -710,10 +714,10 @@ def attention_bwd_scratch_bytes(segs, S, C, dw, use_ln=True, geff=False,
 
 def attention_bwd_seg_chunks(n_seg, S, C, dw, use_ln=True, geff=False,
                              gm=False):
-    """The segment chunks of one backward call up to 64 tokens on the
-    card: [(first segment, segments)], whole segments tiling [0, n_seg) in
+    """The segment chunks of one backward call on the card: [(first
+    segment, segments)], whole segments tiling [0, n_seg) in
     order, as few as keep each chunk's scratch (attention_bwd_scratch_bytes
-    with dw, use_ln, geff, gm) within ATTN_SCRATCH_BYTES, of equal size but
+    with dw, use_ln, geff, gm) within ATTN_BWD_SCRATCH_BYTES, of equal size but
     the last, that size a multiple of unit_segments(S): a unit's group of
     segments never spans two chunks, and only the last chunk's last group
     may be short. A chunk's first segment is global: the dropout masks
@@ -726,7 +730,7 @@ def attention_bwd_seg_chunks(n_seg, S, C, dw, use_ln=True, geff=False,
     lo, hi = 1, -(-n_seg // G)      # the most groups a chunk can hold
     while lo < hi:
         mid = (lo + hi + 1) // 2
-        lo, hi = (mid, hi) if need(mid * G) <= ATTN_SCRATCH_BYTES else (
+        lo, hi = (mid, hi) if need(mid * G) <= ATTN_BWD_SCRATCH_BYTES else (
             lo, mid - 1)
     most = lo * G
     n = -(-n_seg // most)
@@ -1035,10 +1039,9 @@ def fused_attention_residual_bwd(x, g, ln_scale, ln_bias, wqkv, bqkv, wproj,
     without atomics: bit-reproducible) and no row-space tensor returned;
     dwA = attn^T gm (g without the proj dropout: no gamma). A chain runs
     over chunks of segments and the dw form's row-space tensors (and the
-    reg form's geff and gm) live in per-chunk scratch (up to 64 tokens
-    csrc/attention_bwd_sm90.cu, one C entry a call; 65..86
-    csrc/fused_attention_residual_bwd_s86.cu, both with the reg flags;
-    87..197 csrc/attention_long.cu, inert forms only)."""
+    reg form's geff and gm) live in per-chunk scratch
+    (csrc/attention_bwd_sm90.cu, one C entry a call; the reg flags up to
+    86 tokens)."""
     reg = dict(gamma=gamma, seed=seed, attn_drop=attn_drop,
                proj_drop=proj_drop)
     what = "fused_attention_residual_bwd" + (" (dw form)" if dw else "")
@@ -1092,11 +1095,9 @@ def fused_attention_residual_bwd(x, g, ln_scale, ln_bias, wqkv, bqkv, wproj,
     if n_seg == 0:
         sums.zero_()
         return out
-    chain = (_attention_bwd_chain if S > ATTN_MAX_SEG_LEN
-             else _attention_bwd_sm90)
-    return chain(x, g, ln_scale, ln_bias, wqkv, bqkv, wproj, out, sums, n_seg,
-                 S, C, num_heads, scale, ln_eps, use_ln, use_residual, dw, gm,
-                 **reg)
+    return _attention_bwd_sm90(x, g, ln_scale, ln_bias, wqkv, bqkv, wproj, out,
+                               sums, n_seg, S, C, num_heads, scale, ln_eps,
+                               use_ln, use_residual, dw, gm, **reg)
 
 
 # launch_attention_bwd_sm90's arguments: x, g, lns, lnb, wqkv, bqkv, wproj,
@@ -1115,8 +1116,8 @@ def _attention_bwd_sm90(x, g, ln_scale, ln_bias, wqkv, bqkv, wproj, out,
                         sums, n_seg, S, C, num_heads, scale, ln_eps, use_ln,
                         use_residual, dw, gm=None, gamma=None, seed=0,
                         attn_drop=0.0, proj_drop=0.0):
-    """fused_attention_residual_bwd up to 64 tokens on the card: one call
-    of csrc/attention_bwd_sm90.cu's chain over the chunks of
+    """fused_attention_residual_bwd on the card: one call of
+    csrc/attention_bwd_sm90.cu's chain over the chunks of
     attention_bwd_seg_chunks, into the outputs `out` and the float32 [6C]
     column sums `sums` (checked and allocated by the caller; gm: the
     caller's proj-masked g where dw=False has the proj dropout), through
@@ -1155,8 +1156,12 @@ def _attention_bwd_sm90(x, g, ln_scale, ln_bias, wqkv, bqkv, wproj, out,
         int(bool(use_residual)), ptr(gamma), ptr(gm), int32_seed(seed),
         a_thr, a_scale, p_thr, p_scale, _stream(dev))
     _build.check("attention_bwd_sm90", status, "fused_attention_residual_bwd")
-    name = _reg_name("fused_attention_residual_bwd", gamma, attn_drop,
-                     proj_drop) + ("_dw" if dw else "")
+    # the launch name: up to 64 tokens ..._bwd, 65..86 ..._bwd_s86, past
+    # that ..._bwd_long; then _reg, _dw, _bare
+    name = "fused_attention_residual_bwd" + (
+        "" if S <= ATTN_MAX_SEG_LEN else
+        "_s86" if S <= ATTN_SERVE_MAX_SEG_LEN else "_long")
+    name = _reg_name(name, gamma, attn_drop, proj_drop) + ("_dw" if dw else "")
     count_launch(name if use_ln else name + "_bare", C)
     return out
 
@@ -1216,69 +1221,6 @@ def _fused_attention_residual_bwd_f32(x, g, ln_scale, ln_bias, wqkv, bqkv,
                     int(bool(use_residual)), _stream(dev))
     _build.check(lib, status, name)
     count_launch(name if use_ln else name + "_bare", C)
-    return out
-
-
-def _attention_bwd_chain(x, g, ln_scale, ln_bias, wqkv, bqkv, wproj, out,
-                         sums, n_seg, S, C, num_heads, scale, ln_eps, use_ln,
-                         use_residual, dw, gm=None, gamma=None, seed=0,
-                         attn_drop=0.0, proj_drop=0.0):
-    """fused_attention_residual_bwd at 65..197 tokens on the card: the
-    chain of csrc/fused_attention_residual_bwd_s86.cu (S <= 86, with the
-    reg flags gamma, seed, attn_drop, proj_drop, and gm the caller's
-    proj-masked g where dw=False has the proj dropout) or
-    csrc/attention_long.cu (inert) into the outputs `out` and the float32
-    [6C] column sums `sums` (checked and allocated by the caller), with a
-    scratch buffer of the size the library names (bounded by its chunk of
-    segments)."""
-    dev = x.device
-    if dw:
-        dx, dwqkv, dwA = out[0], out[5], out[6]
-        ln = attn = dqkv = None
-    else:
-        dx, ln, attn, dqkv = out[:4]
-        dwqkv = dwA = None
-    short = S <= ATTN_SERVE_MAX_SEG_LEN
-    tag = "s86" if short else "long"
-    lib = _build.load_library("fused_attention_residual_bwd_s86" if short
-                              else "attention_long")
-    size = getattr(lib, f"attention_bwd_{tag}_scratch_bytes")
-    reg_args = []
-    size_args = [n_seg, S, C, int(dw), int(bool(use_ln))]
-    if short:
-        a_thr, a_scale = drop_args(attn_drop)
-        p_thr, p_scale = drop_args(proj_drop)
-        reg_args = [None if gamma is None else _ptr(gamma),
-                    None if gm is None else _ptr(gm), int32_seed(seed),
-                    a_thr, a_scale, p_thr, p_scale]
-        size_args += [int(gamma is not None or proj_drop > 0.0),
-                      int(proj_drop > 0.0)]
-    size.argtypes = [ctypes.c_int] * len(size_args)
-    size.restype = ctypes.c_longlong
-    scratch = torch.empty(size(*size_args), dtype=torch.uint8, device=dev)
-    fn = getattr(lib, f"launch_attention_bwd_{tag}")
-    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + \
-        [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + \
-        ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 +
-         [ctypes.c_float, ctypes.c_int, ctypes.c_float] if short else []) + \
-        [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-
-    def opt(t):
-        return None if t is None else _ptr(t)
-
-    with torch.cuda.device(dev):
-        status = fn(_ptr(x), _ptr(g), _ptr(ln_scale), _ptr(ln_bias),
-                    _ptr(wqkv), _ptr(bqkv), _ptr(wproj), _ptr(dx),
-                    opt(ln) if use_ln else None, opt(attn), opt(dqkv),
-                    _ptr(sums), opt(dwqkv), opt(dwA), _ptr(scratch), n_seg,
-                    S, C, num_heads, float(scale), float(ln_eps),
-                    int(bool(use_ln)), int(bool(use_residual)), *reg_args,
-                    _stream(dev))
-    name = f"fused_attention_residual_bwd_{tag}"
-    _build.check(lib, status, name)
-    name = _reg_name(name, gamma, attn_drop, proj_drop) + ("_dw" if dw else "")
-    launch_counts[name if use_ln else name + "_bare"] += 1
     return out
 
 

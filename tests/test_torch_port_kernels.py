@@ -218,16 +218,17 @@ def test_attention_seg_plan_packs_whole_segments_within_each_chunk(
             assert n % G == 0
 
 
-@pytest.mark.parametrize("S", [1, 6, 21, 22, 50, 64])
-@pytest.mark.parametrize("C", [384, 768])
+@pytest.mark.parametrize("S", [1, 6, 21, 22, 50, 64, 65, 86, 87, 197])
+@pytest.mark.parametrize("C", [256, 384, 768])
 def test_attention_bwd_seg_chunks_tile_whole_groups_within_the_scratch(S, C):
-    """The card's backward up to 64 tokens runs its chain over these
-    chunks (csrc/attention_bwd_sm90.cu): whole segments tiling [0, n_seg)
-    in order from global first segments (the dropout masks count from
-    them), every chunk but the last a multiple of G = 64 // S (a unit's
-    group never spans two chunks), equal chunks but the last, each
-    chunk's scratch within ATTN_SCRATCH_BYTES for dw False and True,
-    inert and reg, and no more chunks than that bound forces."""
+    """The card's backward runs its chain over these chunks
+    (csrc/attention_bwd_sm90.cu, at 1..197 tokens): whole segments tiling
+    [0, n_seg) in order from global first segments (the dropout masks
+    count from them), every chunk but the last a multiple of G =
+    unit_segments(S) (64 // S up to 64 tokens, so a unit's group never
+    spans two chunks; 1 past), equal chunks but the last, each chunk's
+    scratch within ATTN_BWD_SCRATCH_BYTES for dw False and True, inert and
+    reg, and no more chunks than that bound forces."""
     G = fa.unit_segments(S)
     for n_seg in (1, G + 1, 6273):
         for dw, use_ln, reg in itertools.product((False, True), repeat=3):
@@ -243,19 +244,20 @@ def test_attention_bwd_seg_chunks_tile_whole_groups_within_the_scratch(S, C):
             assert chunks[-1][1] <= chunks[0][1]
             for _, n in chunks:
                 assert fa.attention_bwd_scratch_bytes(
-                    n, S, C, **flags) <= fa.ATTN_SCRATCH_BYTES
+                    n, S, C, **flags) <= fa.ATTN_BWD_SCRATCH_BYTES
             k = 1           # the most whole groups a chunk's scratch holds
             while k * G < n_seg and fa.attention_bwd_scratch_bytes(
-                    (k + 1) * G, S, C, **flags) <= fa.ATTN_SCRATCH_BYTES:
+                    (k + 1) * G, S, C, **flags) <= fa.ATTN_BWD_SCRATCH_BYTES:
                 k += 1
             assert len(chunks) == -(-n_seg // (k * G))
 
 
 def test_attention_bwd_scratch_bytes_counts_each_piece():
     """The scratch of a chunk of 10 segments at S=6, C=256 (60 rows, one
-    unit group): qkv, dattn, dln, the LN statistics, the partial rows; the
-    dw form's ln, attn, dqkv and gm; the reg form's geff; each rounded up
-    to 256 bytes, as csrc/attention_bwd_sm90.cu carves them."""
+    unit group), and of 7 at S=86, C=768: qkv, dattn, dln, the LN
+    statistics, the partial rows; the dw form's ln, attn, dqkv and gm; the
+    reg form's geff; each rounded up to 256 bytes, as
+    csrc/attention_bwd_sm90.cu carves them."""
     C, rows = 256, 60
     base = [2 * rows * 3 * C, 2 * rows * C, 4 * rows * C, 8 * rows,
             4 * 1 * 3 * C, 4 * 1 * 3 * C]
@@ -270,6 +272,16 @@ def test_attention_bwd_scratch_bytes_counts_each_piece():
         10, 6, C, True, geff=True, gm=True) == rounded(base + dw + geff)
     assert fa.attention_bwd_scratch_bytes(
         10, 6, C, False, use_ln=False) == rounded(base[:3] + base[4:])
+    # past 64 tokens a unit is one segment: 7 segments of 86 tokens at
+    # C=768 (602 rows) have 7 partial rows of the core's column sums
+    C, rows = 768, 7 * 86
+    base = [2 * rows * 3 * C, 2 * rows * C, 4 * rows * C, 8 * rows,
+            4 * 10 * 3 * C, 4 * 7 * 3 * C]
+    dw = [2 * rows * C, 2 * rows * C, 2 * rows * 3 * C, 2 * rows * C]
+    assert fa.attention_bwd_scratch_bytes(7, 86, C, False) == rounded(base)
+    assert fa.attention_bwd_scratch_bytes(
+        7, 86, C, True, geff=True, gm=True) == rounded(base + dw + [
+            2 * rows * C])
 
 
 def test_build_entry_binds_a_signature_once(monkeypatch):
@@ -368,6 +380,11 @@ def test_every_loaded_kernel_library_is_built_from_its_source():
             names.update(re.findall(r'"([a-z0-9_]+)"', call))
         names.update(re.findall(r'\bentry\(\s*"([a-z0-9_]+)"', text))
     assert "attention_bwd_sm90" in names and "layernorm" in names
+    # the 65..197-token backward is attention_bwd_sm90's too
+    assert not names & {"fused_attention_residual_bwd_s86", "attention_long"}
+    assert not {"fused_attention_residual_bwd_s86", "attention_long"} & set(
+        _build.KERNELS)
+    assert not (_build.CSRC_DIR / "attention_chain.cuh").exists()
     assert names and names <= set(_build.KERNELS), names - set(_build.KERNELS)
     for name in _build.KERNELS:
         assert (_build.CSRC_DIR / f"{name}.cu").is_file(), name
