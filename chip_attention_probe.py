@@ -2,7 +2,7 @@
 """Where the attention branch's time goes on the card, forward and
 backward, and the LayerNorm kernel's host and device time.
 
-    python3 chip_attention_probe.py [bwd] [sweep]
+    python3 chip_attention_probe.py [bwd] [sweep] [f32]
 
 Without arguments: builds csrc/attention_sm90.cu,
 csrc/attention_bwd_sm90.cu and csrc/layernorm.cu (nvcc's time, ptxas's
@@ -49,6 +49,17 @@ products' and core's TFLOP/s (the core at its 12 R S C flops); with
 `sweep` also the call's time with ATTN_BWD_SCRATCH_BYTES from 64 to 448
 MiB (two rounds of opposite order) at S=86 (dw False and True) and
 S=197.
+
+With `f32`: only the float32 forward (#1f, fused_attention_residual on
+float32 tensors, csrc/fused_attention_residual_f32.cu) at PERF.md §6's
+#1f rows (S=6 and 22 over 3136 segments, bare S=50 over 64 and 128): the
+call's time as chip_smoke.py times it, its host ms (one call on an idle
+card, median of 20), its launches' device ms a call in the order they run
+(the weights' split, where there is one; the LayerNorm, or x's split in
+the bare form; the qkv product; the core; the proj product) with the
+products' and the core's TFLOP/s (the core at its 4 R S C flops), and
+the wrapper's host µs a call (200 calls of the bare form over 3
+segments, which the card finishes first).
 Needs one CUDA device and nvcc; imports nothing of JAX.
 """
 
@@ -99,6 +110,9 @@ BWD_SHAPES = (("bwd", 6272, 86, False, {}), ("bwd_dw", 6272, 86, False, {}),
 BWD_SCRATCH_MIB = (64, 128, 192, 256, 384, 448)
 # (kind, n_seg, S) of the backward's scratch sweep
 BWD_SWEEP = (("bwd", 6272, 86), ("bwd_dw", 6272, 86), ("bwd_dw", 128, 197))
+# #1f: (n_seg, S, bare)
+F32_SHAPES = ((3136, 6, False), (3136, 22, False), (64, 50, True),
+              (128, 50, True))
 
 
 # a profiler kernel name's part -> its launch, and how many a call makes
@@ -190,6 +204,83 @@ def make_call(fa, kind, t, n_seg, S, bare, drop):
     kw = dict(seed=cs.DROP_SEED, attn_drop=drop) if drop else {}
     return lambda: core(t["x"], t["lns"], t["lnb"], t["wqkv"], t["bqkv"],
                         HEADS, S, scale, use_ln=not bare, **kw)
+
+
+def f32_launch(key, prev):
+    """A float32 forward's profiler kernel name -> its launch, given the
+    launch before it: a product after the core is the proj's."""
+    if "split_weights" in key:
+        return "w_split"
+    if "ln_" in key or "split_rows" in key:
+        return "ln"
+    if "attention_core" in key:
+        return "core"
+    if "gemm" in key:
+        return "proj" if prev == "core" else "qkv"
+    return None
+
+
+def probe_f32(torch, fa):
+    """#1f at F32_SHAPES (see the docstring)."""
+    results = []
+    for i, (n_seg, S, bare) in enumerate(F32_SHAPES):
+        t = inputs(torch, torch.Generator().manual_seed(cs.SEED + 300 + i),
+                   n_seg, S, bare, qkv=False)
+        t = {k: None if v is None else v.float() for k, v in t.items()}
+        call = make_call(fa, "branch", t, n_seg, S, bare, 0.0)
+        ms = cs.median_ms(call, torch)
+        enqueue = []           # the wrapper's host time, the card idle
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            enqueue.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                call()
+            torch.cuda.synchronize()
+        kernels = sorted(
+            (e for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA),
+            key=lambda e: e.time_range.start)
+        total, counts, prev = {}, {}, None
+        for e in kernels:
+            name = f32_launch(e.name, prev)
+            if name is None:
+                continue
+            total[name] = total.get(name, 0.0) + e.time_range.elapsed_us()
+            counts[name] = counts.get(name, 0) + 1
+            prev = name
+        # one launch of each a call
+        split = {k: v / counts[k] / 1e3 for k, v in total.items()}
+        R, c = n_seg * S, C
+        flops = dict(qkv=2 * R * c * 3 * c, proj=2 * R * c * c,
+                     core=4 * R * S * c)
+        res = dict(kind="f32", n_seg=n_seg, S=S, C=c, bare=bare, ms=ms,
+                   host_ms=sorted(enqueue)[10], launch_ms=split,
+                   device_ms=sum(split.values()),
+                   tflops={k: f / split[k] / 1e9 for k, f in flops.items()
+                           if split.get(k)},
+                   launches_profiled=counts)
+        results.append(res)
+        print(json.dumps(res), flush=True)
+        del t, call
+        torch.cuda.empty_cache()
+    t = inputs(torch, torch.Generator().manual_seed(cs.SEED), 3, 50, True,
+               qkv=False)
+    t = {k: None if v is None else v.float() for k, v in t.items()}
+    call = make_call(fa, "branch", t, 3, 50, True, 0.0)
+    for _ in range(10):
+        call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        call()
+    host_us = (time.perf_counter() - t0) / 200 * 1e6
+    torch.cuda.synchronize()
+    return results, host_us
 
 
 def profile_split(torch, call, chunks):
@@ -287,6 +378,16 @@ def main() -> int:
 
     print(cs.card_line(), flush=True)
     t = time.perf_counter()
+    if "f32" in sys.argv[1:]:
+        logs = _build.build_all(["fused_attention_residual_f32"])
+        print(f"nvcc: {time.perf_counter() - t:.1f} s", flush=True)
+        for line in logs["fused_attention_residual_f32"].splitlines():
+            if "registers" in line or "spill" in line:
+                print("  " + line.strip()[-150:], flush=True)
+        results, host_us = probe_f32(torch, fa)
+        print(json.dumps({"f32_shapes": len(results),
+                          "host_us_a_call bare S=50 n_seg=3": host_us}))
+        return 0
     if "bwd" in sys.argv[1:]:
         logs = _build.build_all([n for n in _build.KERNELS if n in (
             "attention_bwd_sm90", "fused_attention_residual_bwd_s86",

@@ -106,8 +106,9 @@ FAULTS = {
         "                          gelu(acc[c8 * 4 + 2 * hr + 1] + bb.y))",
         "fused_mlp_residual_z"),
     "last k-tile of the TMA ring skipped (mlp)": (
-        GEMM, "  const int ktiles = (g.K + BK - 1) / BK;",
-        "  const int ktiles = (g.K + BK - 1) / BK - 1;", "fused_mlp_residual"),
+        GEMM, "  const int ktiles = (g.K + R::KT - 1) / R::KT;",
+        "  const int ktiles = (g.K + R::KT - 1) / R::KT - 1;",
+        "fused_mlp_residual"),
     "second row chunk's masks from chunk-local rows (mlp)": (
         MLP, "make_drop(seed, SITE_MLP_HID, drop_thr, drop_scale),\n"
              "                    (uint32_t)row0};",
@@ -132,10 +133,9 @@ FAULTS = {
         "  for (int w = 0; w < 3 * (h != C / HD - 1); ++w)\n    store_tile(",
         "fused_attention_residual_bwd"),
     "gelu for gelu'": (
-        DZ, "const float d0 = p0 + zf.x * (INV_SQRT_2PI * expf(-0.5f * zf.x "
-            "* zf.x));\n        const float d1 = p1 + zf.y * (INV_SQRT_2PI "
-            "* expf(-0.5f * zf.y * zf.y));",
-        "const float d0 = zf.x * p0;\n        const float d1 = zf.y * p1;",
+        GEMM, "  return 0.5f * (1.f + erff(z * 0.70710678118654752f)) +\n"
+              "         z * (0.39894228040143268f * expf(-0.5f * z * z));",
+        "  return 0.5f * z * (1.f + erff(z * 0.70710678118654752f));",
         "mlp_dz"),
     "o row scale from the first head's columns": (
         ATTN8, "        amax = fmaxf(amax, fmaxf(fabsf(v[i].x), fabsf(v[i].y)));",
@@ -287,8 +287,8 @@ FAULTS = {
         "float y0 = (g.N == 384 && n0 == 256 ? 0.f : acc[c8 * 4 + 2 * hr])"
         " + bb.x;", "fused_attention_residual_c384"),
     "last 128 input columns skipped at C=384 (mlp fc1)": (
-        GEMM, "  const int ktiles = (g.K + BK - 1) / BK;",
-        "  const int ktiles = (g.K + BK - 1) / BK - (EPI == EPI_GELU && "
+        GEMM, "  const int ktiles = (g.K + R::KT - 1) / R::KT;",
+        "  const int ktiles = (g.K + R::KT - 1) / R::KT - (EPI == EPI_GELU && "
         "g.K == 384 ? 2 : 0);",
         "fused_mlp_residual_c384"),
     "last head's dwqkv dropped at C=384 (dw form)": (
@@ -379,14 +379,43 @@ FAULTS = {
         "            if (false) {\n              y0 = __fmul_rn",
         "fused_attention_residual_s86_proj_reg"),
     "single-pass TF32 in the scores product (f32)": (
-        F32, "      a = fmaf(sq[r * ATT_LD + d], sk[j * ATT_LD + d], a);",
-        "      a = fmaf(__uint_as_float(__float_as_uint(sq[r * ATT_LD + d]) "
-        "& 0xffffe000u),\n               __uint_as_float(__float_as_uint("
-        "sk[j * ATT_LD + d]) & 0xffffe000u), a);",
+        F32, "        k[i] = *reinterpret_cast<const float4*>(kg + (j0 + i) * "
+             "TL_LD + d);",
+        "        k[i] = *reinterpret_cast<const float4*>(kg + (j0 + i) * "
+        "TL_LD + d);\n"
+        "        for (int u = 0; u < 4; ++u) {\n"
+        "          float* qu = reinterpret_cast<float*>(&q[i]) + u;\n"
+        "          float* ku = reinterpret_cast<float*>(&k[i]) + u;\n"
+        "          *qu = __uint_as_float(__float_as_uint(*qu) & 0xffffe000u);\n"
+        "          *ku = __uint_as_float(__float_as_uint(*ku) & 0xffffe000u);\n"
+        "        }",
         "fused_attention_residual_f32"),
     "the full form without its LayerNorm (f32)": (
         ATTN32, "  if (use_ln) {", "  if (false) {",
         "fused_attention_residual_f32"),
+    "the hi-lo term dropped (f32)": (
+        GEMM, "            wgmma_tf32(part, ahi, blo, kk > 0);\n"
+              "            wgmma_tf32(part, alo, bhi, 1);",
+        "            wgmma_tf32(part, alo, bhi, kk > 0);",
+        "fused_attention_residual_f32"),
+    "the weights' lo plane left out (f32)": (
+        ATTN32, "    j.lo[at] = lo;", "    j.lo[at] = 0.f;",
+        "fused_attention_residual_f32"),
+    "the last k-step skipped in the float32 product (f32)": (
+        GEMM, "for (int kk = 0; kk < R::KT / 8; ++kk) {",
+        "for (int kk = 0; kk < R::KT / 8 - 1; ++kk) {",
+        "fused_attention_residual_f32"),
+    "z read from the next column tile (mlp_dz)": (
+        GEMM, "&tmZ, n0, mt0, &zfull[cw]);\n"
+              "          tma_load(const_cast<uint8_t*>(tile) + 8192, &tmZ, "
+              "n0 + 64, mt0,",
+        "&tmZ, n0 + BN, mt0, &zfull[cw]);\n"
+        "          tma_load(const_cast<uint8_t*>(tile) + 8192, &tmZ, "
+        "n0 + BN + 64, mt0,", "mlp_dz"),
+    "the last row tile's db1 partial left out (mlp_dz)": (
+        DZ, "for (int b = 0; b < nb; ++b) s += part[(long)b * width + j];",
+        "for (int b = 0; b < nb - 1; ++b) s += part[(long)b * width + j];",
+        "mlp_dz"),
     "db1 without the ragged last chunk of rows (f32 mlp_dz)": (
         F32, "const long r1 = r0 + COLSUM_ROWS < rows ? r0 + COLSUM_ROWS : "
              "rows;",

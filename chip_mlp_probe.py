@@ -2,9 +2,9 @@
 """Where the bf16 MLP forward's and recompute-from-x backward's time goes
 on the card.
 
-    python3 chip_mlp_probe.py [fwd] [bwd]
+    python3 chip_mlp_probe.py [fwd] [bwd] [dz]
 
-(both without arguments). Builds csrc/fused_mlp_residual.cu (fwd) and
+(fwd and bwd without arguments). Builds csrc/fused_mlp_residual.cu (fwd) and
 csrc/fused_mlp_bwd.cu (bwd) (nvcc's time, ptxas's registers and spills;
 "already built" when a library is there). For fused_mlp_residual at the
 shapes of PERF.md §6's #2 and #3 rows, and fused_mlp_bwd at #5's: the
@@ -22,6 +22,14 @@ call at 128 rows (the C entry a no-op) and the call's time with
 MLP_BWD_SCRATCH_BYTES at 24, 48, 96 and 192 MiB. Prints the
 card's name and power limit first and one JSON object last. Needs one
 CUDA device and nvcc; imports nothing of JAX.
+
+With `dz`: the save-hidden backward's dz pass (mlp_dz, csrc/mlp_dz.cu) at
+#6's rows (37,632 x 768 x 3072, 6400 x 384 x 1536): the call's time as
+chip_smoke.py times it, its host ms (one call on an idle card, median of
+20), its launches' device ms a call (the product with the gelu' epilogue,
+the partial sums of db1) and the product's TFLOP/s, the two halves of its
+library yardstick alone (torch.matmul of g w2^T, aten.gelu_backward), and
+the wrapper's host µs a call at 128 rows.
 """
 
 from __future__ import annotations
@@ -51,6 +59,10 @@ FWD_LAUNCHES = (("ln_kernel", "ln"), ("gemm_sm90<0>", "fc1"),
 BWD_LAUNCHES = (("ln_stats_kernel", "ln"), ("dgelu_sm90", "z/dh"),
                 ("gemm_sm90", "dln"), ("ln_bwd_rows_kernel", "ln_bwd"),
                 ("sum_rows_kernel", "sums"))
+# mlp_dz: (rows, C, hidden) of PERF.md §6's #6 rows, and its launches
+DZ_SHAPES = ((37632, 768, 3072), (6400, 384, 1536))
+DZ_LAUNCHES = (("sum_partials", "sums"), ("mlp_dz_kernel", "product"),
+               ("gemm_sm90", "product"))
 
 
 def build(_build, name):
@@ -172,6 +184,70 @@ def probe_bwd(torch, fa, _build):
     return results
 
 
+def probe_dz(torch, fa):
+    """mlp_dz at DZ_SHAPES: call ms, host ms, device ms by launch, the
+    product's TFLOP/s, its library yardstick's halves; its host µs a call
+    at 128 rows."""
+    results = []
+    for i, (rows, c, hidden) in enumerate(DZ_SHAPES):
+        gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 50 + i)
+
+        def rnd(*shape, std=1.0):
+            return torch.randn(*shape, generator=gen, device="cuda") * std
+
+        g, z = rnd(rows, c).bfloat16(), rnd(rows, hidden).bfloat16()
+        w2 = rnd(hidden, c, std=hidden ** -0.5).bfloat16()
+
+        def call():
+            return fa.mlp_dz(g, z, w2)
+
+        ms = cs.median_ms(call, torch)
+        enqueue = []           # the wrapper's host time, the card idle
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            call()
+            enqueue.append((time.perf_counter() - t) * 1e3)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                call()
+            torch.cuda.synchronize()
+        split = split_by_launch(torch, prof, DZ_LAUNCHES,
+                                {"product": 1, "sums": 1})
+        dh = g @ w2.t()
+        res = dict(kernel="mlp_dz", rows=rows, C=c, hidden=hidden, ms=ms,
+                   host_ms=sorted(enqueue)[10], launch_ms=split,
+                   device_ms=sum(split.values()),
+                   product_tflops=(2 * rows * c * hidden
+                                   / split.get("product", float("nan"))
+                                   / 1e9),
+                   matmul_ms=cs.median_ms(lambda: g @ w2.t(), torch),
+                   gelu_backward_ms=cs.median_ms(
+                       lambda: torch.ops.aten.gelu_backward(dh, z), torch))
+        results.append(res)
+        print(json.dumps(res), flush=True)
+        del g, z, w2, dh
+        torch.cuda.empty_cache()
+    gen = torch.Generator().manual_seed(cs.SEED)
+    g = torch.randn(128, 768, generator=gen).to("cuda", torch.bfloat16)
+    z = torch.randn(128, 3072, generator=gen).to("cuda", torch.bfloat16)
+    w2 = (torch.randn(3072, 768, generator=gen) * 0.018).to(
+        "cuda", torch.bfloat16)
+    for _ in range(10):
+        fa.mlp_dz(g, z, w2)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(200):
+        fa.mlp_dz(g, z, w2)
+    host_us = (time.perf_counter() - t) / 200 * 1e6
+    torch.cuda.synchronize()
+    print(json.dumps({"kernel": "mlp_dz",
+                      "host_us_per_call_at_128_rows": host_us}), flush=True)
+    return results
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -182,12 +258,15 @@ def main() -> int:
 
     parts = sys.argv[1:] or ["fwd", "bwd"]
     print(cs.card_line(), flush=True)
-    bwd = []
+    bwd, dz = [], []
+    if "dz" in parts:
+        build(_build, "mlp_dz")
+        dz = probe_dz(torch, fa)
     if "bwd" in parts:
         build(_build, "fused_mlp_bwd")
         bwd = probe_bwd(torch, fa, _build)
     if "fwd" not in parts:
-        print(json.dumps({"bwd_shapes": len(bwd)}))
+        print(json.dumps({"bwd_shapes": len(bwd), "dz_shapes": len(dz)}))
         return 0
     build(_build, "fused_mlp_residual")
     results = []

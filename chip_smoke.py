@@ -80,7 +80,9 @@
    spy on attention_bwd_seg_chunks; the reg forms with every flag and with
    the attention dropout, the long dw form), the reg forms over two
    segments, and its dw form twice at 6272 segments of 86 tokens, bit for
-   bit, and each at one small odd shape:
+   bit, the dz pass (csrc/mlp_dz.cu on gemm_sm90.cuh's EPI_DZ) at 1, 127
+   and 129 rows, at C=384 over 1000 rows and twice at 37,632 rows, dz and
+   db1 bit for bit, and each at one small odd shape:
    kernel in bf16,
    plain version on the same inputs upcast to float32 (the int8 forms'
    plain versions take the same bf16 x and int8 weights, so both round at
@@ -278,7 +280,10 @@
    sqrt(n)), at the path's shapes (S=6 and 22 over 3136 segments and
    bare S=50 over 64 and 128; 18,816 and 37,632 rows; the backward at S=6
    and 22 over 6272 and bare over 128) and small ragged ones at C=256,
-   512 and 768. R2f, the release model at depth 12 in float32, served at
+   512 and 768 (the attention forward also at S=64 at C=256 and 512); the
+   attention forward's 3xTF32 products (csrc/fused_attention_residual_f32
+   .cu on gemm_sm90.cuh's EPI_X3) twice at each path shape, bit for bit,
+   and its weight split against tf32_split_plain, bit for bit. R2f, the release model at depth 12 in float32, served at
    B=64 through Predictor(dtype=float32) (3 forwards counted: exactly the
    launches of F32_SERVE, no bf16 form; embed() on 2 tiles against the
    port's CPU float32 run, relative L2 <= F32_EMBED_REL_TOL; tiles/s in 7
@@ -779,10 +784,10 @@ def reg_scale(flags):
 
 
 def attention_case(torch, F, fa, gen, n_seg, S, c, heads, bare, timed,
-                   reg=None, dtype=None):
+                   reg=None, dtype=None, repeat=False):
     """The attention kernel; reg: the reg form's flags (gamma, attn_drop,
     proj_drop; see reg_flags); dtype float32: its float32 form (else
-    bf16)."""
+    bf16); repeat: a second launch must give the same bits."""
     dev, dt = "cuda", dtype or torch.bfloat16
     f32 = dt == torch.float32
 
@@ -814,8 +819,11 @@ def attention_case(torch, F, fa, gen, n_seg, S, c, heads, bare, timed,
             up[0], lns, lnb, up[1], bqkv, up[2], bproj, heads, S, scale,
             **flags)
 
-    res = compare(torch, kernel(), plain(), None if bare else x,
+    out = kernel()
+    res = compare(torch, out, plain(), None if bare else x,
                   scale=reg_scale(flags), f32=f32)
+    if repeat:
+        check_repeat(torch, res, out, kernel)
     if not timed:
         return res
     wqkv_t, wproj_t = wqkv.t().contiguous(), wproj.t().contiguous()
@@ -1007,9 +1015,10 @@ def attention_bwd_case(torch, F, fa, gen, n_seg, S, c, heads, bare, timed,
     return res
 
 
-def mlp_dz_case(torch, F, fa, gen, rows, c, hidden, timed, dtype=None):
+def mlp_dz_case(torch, F, fa, gen, rows, c, hidden, timed, dtype=None,
+                repeat=False):
     """The dz kernel: dz and db1; dtype float32: its float32 form (else
-    bf16)."""
+    bf16); repeat: a second launch must give the same bits of both."""
     dev, dt = "cuda", dtype or torch.bfloat16
     f32 = dt == torch.float32
 
@@ -1031,6 +1040,10 @@ def mlp_dz_case(torch, F, fa, gen, rows, c, hidden, timed, dtype=None):
     (dz, db1), (dzr, db1r) = kernel(), plain()
     res = compare_all(torch, {"dz": (dz, dzr, None),
                               "db1": (db1, db1r, None, rows)}, f32=f32)
+    if repeat:
+        dz2, db12 = kernel()
+        same = bool(torch.equal(dz, dz2) and torch.equal(db1, db12))
+        res.update(repeat_identical=same, ok=res["ok"] and same)
     if not timed:
         return res
     w2_t = w2.t()
@@ -1047,6 +1060,37 @@ def mlp_dz_case(torch, F, fa, gen, rows, c, hidden, timed, dtype=None):
                library_ms=median_ms(library, torch), bound_ms=bound_ms,
                bound_by=bound_by, flops=flops, bytes=nbytes)
     return res
+
+
+def tf32_split_case(torch, F, fa, gen, k, n, timed):
+    """The float32 attention forward's weight split (its C entry's first
+    launch, alone: fa.tf32_split_weight) against tf32_split_plain, bit for
+    bit: a weight [k, n] at the path's scale with a tenth of its entries
+    tiny (1e-30 times), negated, exact ties of the rounding (low 13 bits
+    0x1000), zeros of both signs, 3e38 and the least normal."""
+    w = torch.randn(k, n, generator=gen) * k ** -0.5
+    flat = w.view(-1)
+    m = flat.numel()
+    pick = torch.randperm(m, generator=gen)
+    tenth = m // 10
+    flat[pick[:tenth]] *= 1e-30
+    flat[pick[tenth:2 * tenth]] *= -1.0
+    ties = pick[2 * tenth:3 * tenth]
+    flat[ties] = ((flat[ties].view(torch.int32) & -0x2000) | 0x1000).view(
+        torch.float32)
+    flat[pick[3 * tenth:3 * tenth + 4]] = torch.tensor(
+        [0.0, -0.0, 3.0e38, -1.1754943508222875e-38])
+    w = w.cuda()
+    hi, lo = fa.tf32_split_weight(w)
+    rh, rl = fa.tf32_split_plain(w.t().contiguous())
+    torch.cuda.synchronize()
+    bits = [t.view(torch.int32) for t in (hi, lo, rh, rl)]
+    same = bool(torch.equal(bits[0], bits[2]) and torch.equal(bits[1], bits[3]))
+    diff = torch.maximum((hi - rh).abs().max(), (lo - rl).abs().max())
+    return dict(ok=same, close=same, rel_err=0.0 if same else float("inf"),
+                max_abs_err=diff.item(), branch_rms=w.pow(2).mean().sqrt()
+                .item(), bits_identical=same,
+                hi_low_bits_zero=bool((bits[0] & 0x1FFF).eq(0).all()))
 
 
 def attention_mask_case(torch, F, fa, gen, n_seg, S, c, heads, bare, timed,
@@ -2717,6 +2761,37 @@ def _case_specs(torch, F, fa, timed):
         ("fused_attention_residual_bwd_s86_dw twice, bit for bit, n_seg=6272 "
          "S=86", B_TRAIN * 49, 86, C, HEADS, False, attention_bwd_repeat_case,
          False),
+    ]
+    # the float32 forward's 3xTF32 products (csrc/fused_attention_residual
+    # _f32.cu on gemm_sm90.cuh's EPI_X3): each path form twice, bit for bit;
+    # the weight split against its plain twin, bit for bit; S=64 at C=256
+    # and 512. The dz pass on gemm_sm90.cuh's EPI_DZ: rows around its
+    # 128-row tiles, C=384 at ragged rows, the main path's rows twice, bit
+    # for bit
+    att_f2 = part(att_f, repeat=True)
+    specs += [
+        ("fused_attention_residual_f32 twice, bit for bit, n_seg=3136 S=6",
+         B * 49, 6, C, HEADS, False, att_f2, False),
+        ("fused_attention_residual_f32 twice, bit for bit, n_seg=3136 S=22",
+         B * 49, 22, C, HEADS, False, att_f2, False),
+        ("fused_attention_residual_f32_bare twice, bit for bit, n_seg=64 "
+         "S=50", B, 50, C, HEADS, True, att_f2, False),
+        ("fused_attention_residual_f32_bare twice, bit for bit, n_seg=128 "
+         "S=50", B_TRAIN, 50, C, HEADS, True, att_f2, False),
+        ("fused_attention_residual_f32 weight split vs tf32_split_plain, bit "
+         "for bit, wqkv C=768", C, 3 * C, tf32_split_case, False),
+        ("fused_attention_residual_f32 weight split vs tf32_split_plain, bit "
+         "for bit, wproj C=256", 256, 256, tf32_split_case, False),
+        ("fused_attention_residual_f32 C=256 n_seg=3 S=64", 3, 64, 256, 4,
+         False, att_f, False),
+        ("fused_attention_residual_f32_bare C=512 n_seg=5 S=64", 5, 64, 512,
+         8, True, att_f, False),
+        ("mlp_dz rows=1", 1, C, HIDDEN, dz, False),
+        ("mlp_dz rows=127", 127, C, HIDDEN, dz, False),
+        ("mlp_dz rows=129", 129, C, HIDDEN, dz, False),
+        ("mlp_dz_c384 rows=1000", 1000, c4, hid4, dz, False),
+        ("mlp_dz twice, bit for bit, rows=37632", rows_t, C, HIDDEN,
+         part(dz, repeat=True), False),
     ]
     out = []
     for label, *args in specs:

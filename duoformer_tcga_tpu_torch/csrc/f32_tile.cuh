@@ -1,19 +1,23 @@
 // Float32 building blocks of the port's float32 kernel forms (sm_90a): a
 // tiled product with fused epilogues, the row LayerNorm forward and
-// backward, the block-diagonal attention core and its backward, and
-// deterministic column sums. The float32 forms of the fused kernels
-// (csrc/*_f32.cu) are chains of these launches.
+// backward, the block-diagonal attention core and its backward,
+// deterministic column sums, and the TF32 split (tf32_split) of the
+// operands of the 3xTF32 products. The float32 forms of the fused kernels
+// (csrc/*_f32.cu) are chains of these launches; the attention forward's
+// (csrc/fused_attention_residual_f32.cu) runs its two products on
+// gemm_sm90.cuh's EPI_X3 instead of the FMA tile.
 //
-// Products. Every product is float32 FMA on the CUDA cores: a 128 x 128
+// Products. The FMA product is float32 on the CUDA cores: a 128 x 128
 // output tile per block of 256 threads, each thread an 8 x 8 register
 // micro-tile, K streamed through shared memory 8 at a time (two buffers,
 // the next slab prefetched into registers while the current one is
-// multiplied). Why not the tensor cores: their only float32 input is TF32
-// (10 mantissa bits, ~3e-4 relative error a product), which the float32
-// forms must not round to; 3xTF32 (each operand split into a TF32 high
-// part and a TF32 remainder, three mma.sync products into one float32
-// accumulator) would keep float32 accuracy at up to ~3x the FMA rate, and
-// is the next step once these forms are right. FMA has no rounding point
+// multiplied). The tensor cores' only float32 input is TF32 (10 mantissa
+// bits, ~3e-4 relative error a product), which the float32 forms must not
+// round to; 3xTF32 (each operand split into a TF32 high part and a
+// remainder, three TF32 products into one float32 accumulator) keeps
+// float32 accuracy at up to ~3x the FMA rate: the attention forward's
+// products run so; the MLP's, the backward's and the dz pass's stay on
+// this tile until theirs move too. FMA has no rounding point
 // below float32 and its sums run in one fixed order.
 //
 // What bounds these products on this card: 67 TFLOP/s of float32 FMA, not
@@ -34,8 +38,8 @@ constexpr int GEMM_THREADS = 256;
 constexpr int COLSUM_ROWS = 256;   // rows a column-sum block adds
 constexpr int LN_ROWS = 32;        // rows a LayerNorm-backward warp adds
 constexpr int LN_WARPS = 8;
-constexpr int ATT_THREADS = 128;   // attention core: 4 warps
-constexpr int ATT_LD = 65;         // q, k, v, do rows in shared memory
+constexpr int ATT_THREADS = 128;   // the attention core's backward: 4 warps
+constexpr int ATT_LD = 65;         // its q, k, v, do rows in shared memory
 constexpr float SQRT1_2 = 0.70710678118654752f;
 constexpr float INV_SQRT_2PI = 0.39894228040143268f;
 
@@ -50,6 +54,22 @@ __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// The TF32 split of a float32 a: hi its rounding to TF32 (to nearest,
+// ties away from zero, as cvt.rna.tf32.f32: the low 13 mantissa bits
+// zero), lo = a - hi exactly (|lo| <= 2^-11 |a|); a non-finite a gives
+// hi = a, lo = 0. hi lo as wgmma reads lo (its low 13 bits dropped) add
+// up to a within 2^-22 |a|. ops/fused_attention.tf32_split_plain is its
+// plain twin, bit for bit.
+__device__ __forceinline__ void tf32_split(float a, float& hi, float& lo) {
+  if (isfinite(a)) {
+    hi = __uint_as_float((__float_as_uint(a) + 0x1000u) & 0xffffe000u);
+    lo = __fsub_rn(a, hi);
+  } else {
+    hi = a;
+    lo = 0.f;
+  }
 }
 
 // ---- epilogues: (row, col, columns col..col+3 of the product) ----
@@ -226,12 +246,14 @@ cudaError_t gemm(const float* A, const float* B, int M, int N, int K,
 // ---- LayerNorm forward: one warp per row ----
 // ln = (x - mean) * rsqrt(var + eps) * scale + bias, mean and the
 // two-pass variance in float32; stats (when given) keeps each row's mean
-// and 1/sqrt(var + eps) for the backward.
-template <int C>
+// and 1/sqrt(var + eps) for the backward. SPLIT: ln's TF32 split instead,
+// hi into ln and lo into lo (tf32_split).
+template <int C, bool SPLIT = false>
 __global__ void __launch_bounds__(LN_WARPS * 32)
 ln_fwd_kernel(const float* __restrict__ x, const float* __restrict__ lns,
               const float* __restrict__ lnb, float eps, float* __restrict__ ln,
-              float* __restrict__ stats, int rows) {
+              float* __restrict__ stats, int rows,
+              float* __restrict__ lo = nullptr) {
   constexpr int NT = C / 32;
   const int lane = threadIdx.x & 31;
   const long r = (long)blockIdx.x * LN_WARPS + (threadIdx.x >> 5);
@@ -256,7 +278,11 @@ ln_fwd_kernel(const float* __restrict__ x, const float* __restrict__ lns,
 #pragma unroll
   for (int i = 0; i < NT; ++i) {
     const int c = lane + 32 * i;
-    lr[c] = (v[i] - mean) * inv * lns[c] + lnb[c];
+    const float y = (v[i] - mean) * inv * lns[c] + lnb[c];
+    if (SPLIT)
+      tf32_split(y, lr[c], lo[r * C + c]);
+    else
+      lr[c] = y;
   }
   if (stats != nullptr && lane == 0) {
     stats[2 * r] = mean;
@@ -271,6 +297,18 @@ cudaError_t ln_fwd(const float* x, const float* lns, const float* lnb,
   if (rows == 0) return cudaSuccess;
   ln_fwd_kernel<C><<<(rows + LN_WARPS - 1) / LN_WARPS, LN_WARPS * 32, 0,
                      stream>>>(x, lns, lnb, eps, ln, stats, rows);
+  return cudaGetLastError();
+}
+
+// The LayerNorm's TF32 split: hi [rows, C], lo [rows, C].
+template <int C>
+cudaError_t ln_fwd_split(const float* x, const float* lns, const float* lnb,
+                         float eps, float* hi, float* lo, int rows,
+                         cudaStream_t stream) {
+  if (rows == 0) return cudaSuccess;
+  ln_fwd_kernel<C, true><<<(rows + LN_WARPS - 1) / LN_WARPS, LN_WARPS * 32,
+                           0, stream>>>(x, lns, lnb, eps, hi, nullptr, rows,
+                                        lo);
   return cudaGetLastError();
 }
 
@@ -379,13 +417,10 @@ inline cudaError_t colsum(const float* a, int rows, int N, float* part,
   return sum_parts(part, nparts, N, out, stream);
 }
 
-// ---- the block-diagonal attention core: one block per (segment, head) ----
-// Shared memory of the forward: q, k, v [S][ATT_LD] and the scores
-// [S][S + 1]; of the backward also do [S][ATT_LD], dp [S][S + 1] and each
-// row's 1 / sum of its exponentials.
-inline size_t att_fwd_smem(int S) {
-  return sizeof(float) * (3 * S * ATT_LD + S * (S + 1));
-}
+// ---- the block-diagonal attention core and its backward ----
+// Shared memory of the backward, one block per (segment, head): q, k, v
+// and do [S][ATT_LD], the scores and dp [S][S + 1] and each row's 1 / sum
+// of its exponentials.
 inline size_t att_bwd_smem(int S) {
   return sizeof(float) * (4 * S * ATT_LD + 2 * S * (S + 1) + S);
 }
@@ -418,46 +453,148 @@ __device__ __forceinline__ void scores(const float* sq, const float* sk,
   }
 }
 
-// o = softmax(q k^T * scale) v within the segment: qkv [rows, 3C] -> o
-// [rows, C] (head h in columns h*64..).
-__global__ void __launch_bounds__(ATT_THREADS)
+// o = softmax(q k^T * scale) v within each segment: qkv [rows, 3C] -> o
+// [rows, C] (head h in columns h*64..) as its TF32 split, hi into o and
+// lo into o_lo (tf32_split): the operand of the proj's 3xTF32 product.
+// One block per G whole segments and one head, on 4 x 4 register tiles
+// of a segment's scores and of its o (16-byte vectors of q, k, p and v: a
+// quarter of a shared-memory load a multiply-add); P = S rounded up to 4,
+// G = 64 / P segments (at least 1), so that a short segment's few tiles
+// do not leave the block's 256 threads idle. Shared memory: q, k, v
+// [G P][TL_LD] and the scores [G P][P + 4] (rows and keys past S zero).
+// The sums run over d, then over the keys, in order.
+constexpr int TL_THREADS = 256;
+constexpr int TL_LD = 68;
+
+inline int att_fwd_pad(int S) { return (S + 3) / 4 * 4; }
+inline int att_fwd_group(int S) {
+  const int g = 64 / att_fwd_pad(S);
+  return g > 1 ? g : 1;
+}
+inline size_t att_fwd_smem(int S) {
+  const int P = att_fwd_pad(S), R = att_fwd_group(S) * P;
+  return sizeof(float) * (3 * R * TL_LD + R * (P + 4));
+}
+
+__global__ void __launch_bounds__(TL_THREADS)
 attention_core_kernel(const float* __restrict__ qkv, float* __restrict__ o,
-                      int S, int C, float scale) {
+                      float* __restrict__ o_lo, int n_seg, int S, int C,
+                      float scale) {
   extern __shared__ __align__(16) float smem[];
-  const int SL = S + 1;
+  const int P = (S + 3) / 4 * 4, T = P / 4, SL = P + 4;
+  const int G = max(1, 64 / P), R = G * P;
   float* sq = smem;
-  float* sk = sq + S * ATT_LD;
-  float* sv = sk + S * ATT_LD;
-  float* ss = sv + S * ATT_LD;
-  const long row0 = (long)blockIdx.x * S;
+  float* sk = sq + R * TL_LD;
+  float* sv = sk + R * TL_LD;
+  float* ss = sv + R * TL_LD;
+  const int seg0 = blockIdx.x * G;
   const int h = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  load_qkv(qkv, row0, S, C, h, sq, sk, sv);
+  // block row g P + r: token r of segment seg0 + g
+  for (int i = threadIdx.x; i < R * 16; i += TL_THREADS) {
+    const int row = i >> 4, c = (i & 15) * 4;
+    const int g = row / P, r = row % P;
+    float4 q = make_float4(0.f, 0.f, 0.f, 0.f), k = q, v = q;
+    if (r < S && seg0 + g < n_seg) {
+      const float* src =
+          qkv + ((long)(seg0 + g) * S + r) * 3 * C + h * 64 + c;
+      q = *reinterpret_cast<const float4*>(src);
+      k = *reinterpret_cast<const float4*>(src + C);
+      v = *reinterpret_cast<const float4*>(src + 2 * C);
+    }
+    *reinterpret_cast<float4*>(sq + row * TL_LD + c) = q;
+    *reinterpret_cast<float4*>(sk + row * TL_LD + c) = k;
+    *reinterpret_cast<float4*>(sv + row * TL_LD + c) = v;
+  }
   __syncthreads();
-  scores(sq, sk, ss, S, scale);
+  // scores: segment g's rows 4 tr.., keys 4 tj.. (ss's columns: the
+  // segment's keys)
+  for (int t = threadIdx.x; t < G * T * T; t += TL_THREADS) {
+    const int g = t / (T * T), u = t % (T * T);
+    const int r0 = g * P + u / T * 4, j0 = u % T * 4;
+    const float* kg = sk + g * P * TL_LD;
+    float a[4][4] = {};
+    for (int d = 0; d < 64; d += 4) {
+      float4 q[4], k[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        q[i] = *reinterpret_cast<const float4*>(sq + (r0 + i) * TL_LD + d);
+        k[i] = *reinterpret_cast<const float4*>(kg + (j0 + i) * TL_LD + d);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          a[i][j] = fmaf(q[i].x, k[j].x, a[i][j]);
+          a[i][j] = fmaf(q[i].y, k[j].y, a[i][j]);
+          a[i][j] = fmaf(q[i].z, k[j].z, a[i][j]);
+          a[i][j] = fmaf(q[i].w, k[j].w, a[i][j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      *reinterpret_cast<float4*>(ss + (r0 + i) * SL + j0) =
+          make_float4(a[i][0] * scale, a[i][1] * scale, a[i][2] * scale,
+                      a[i][3] * scale);
+  }
   __syncthreads();
-  // softmax of each row: p = e / sum(e), e = exp(s - max)
-  for (int r = warp; r < S; r += ATT_THREADS / 32) {
+  // softmax of each row: p = e / sum(e), e = exp(s - max); keys S..P-1
+  // p = 0
+  for (int r = warp; r < R; r += TL_THREADS / 32) {
     const float s0 = lane < S ? ss[r * SL + lane] : -CUDART_INF_F;
     const float s1 = lane + 32 < S ? ss[r * SL + lane + 32] : -CUDART_INF_F;
     const float mx = warp_max(fmaxf(s0, s1));
     const float e0 = lane < S ? expf(s0 - mx) : 0.f;
     const float e1 = lane + 32 < S ? expf(s1 - mx) : 0.f;
     const float sum = warp_sum(e0 + e1);
-    if (lane < S) ss[r * SL + lane] = e0 / sum;
-    if (lane + 32 < S) ss[r * SL + lane + 32] = e1 / sum;
+    if (lane < P) ss[r * SL + lane] = e0 / sum;
+    if (lane + 32 < P) ss[r * SL + lane + 32] = e1 / sum;
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < S * 64; i += ATT_THREADS) {
-    const int r = i >> 6, d = i & 63;
-    float a = 0.f;
-    for (int j = 0; j < S; ++j) a = fmaf(ss[r * SL + j], sv[j * ATT_LD + d], a);
-    o[(row0 + r) * C + h * 64 + d] = a;
+  // o = p v: segment g's rows 4 tr.., columns 4 tc..
+  for (int t = threadIdx.x; t < G * T * 16; t += TL_THREADS) {
+    const int g = t / (T * 16), u = t % (T * 16);
+    const int r0 = g * P + u / 16 * 4, c0 = u % 16 * 4;
+    const float* vg = sv + g * P * TL_LD;
+    float a[4][4] = {};
+    for (int j = 0; j < P; j += 4) {
+      float4 p[4], v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        p[i] = *reinterpret_cast<const float4*>(ss + (r0 + i) * SL + j);
+        v[i] = *reinterpret_cast<const float4*>(vg + (j + i) * TL_LD + c0);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float pi[4] = {p[i].x, p[i].y, p[i].z, p[i].w};
+#pragma unroll
+        for (int u2 = 0; u2 < 4; ++u2) {
+          a[i][0] = fmaf(pi[u2], v[u2].x, a[i][0]);
+          a[i][1] = fmaf(pi[u2], v[u2].y, a[i][1]);
+          a[i][2] = fmaf(pi[u2], v[u2].z, a[i][2]);
+          a[i][3] = fmaf(pi[u2], v[u2].w, a[i][3]);
+        }
+      }
+    }
+    if (seg0 + g >= n_seg) continue;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = r0 + i - g * P;
+      if (r >= S) break;
+      const long at = ((long)(seg0 + g) * S + r) * C + h * 64 + c0;
+      float4 hi, lo;
+      tf32_split(a[i][0], hi.x, lo.x);
+      tf32_split(a[i][1], hi.y, lo.y);
+      tf32_split(a[i][2], hi.z, lo.z);
+      tf32_split(a[i][3], hi.w, lo.w);
+      *reinterpret_cast<float4*>(o + at) = hi;
+      *reinterpret_cast<float4*>(o_lo + at) = lo;
+    }
   }
 }
 
-inline cudaError_t attention_core(const float* qkv, float* o, int n_seg,
-                                  int S, int C, float scale,
+inline cudaError_t attention_core(const float* qkv, float* o, float* o_lo,
+                                  int n_seg, int S, int C, float scale,
                                   cudaStream_t stream) {
   if (n_seg == 0) return cudaSuccess;
   const size_t smem = att_fwd_smem(S);
@@ -465,8 +602,9 @@ inline cudaError_t attention_core(const float* qkv, float* o, int n_seg,
       attention_core_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  attention_core_kernel<<<dim3(n_seg, C / 64), ATT_THREADS, smem, stream>>>(
-      qkv, o, S, C, scale);
+  const int G = att_fwd_group(S);
+  attention_core_kernel<<<dim3((n_seg + G - 1) / G, C / 64), TL_THREADS,
+                          smem, stream>>>(qkv, o, o_lo, n_seg, S, C, scale);
   return cudaGetLastError();
 }
 

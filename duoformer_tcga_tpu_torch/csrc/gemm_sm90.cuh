@@ -1,15 +1,16 @@
-// The persistent TMA-fed wgmma product the port's bf16 kernels share on
-// Hopper (sm_90a), with its LayerNorm row pass and the PTX wrappers
-// (mbarrier, TMA, wgmma) and attention helpers the attention cores use too:
+// The persistent TMA-fed wgmma product the port's bf16 kernels and the
+// float32 attention forward share on Hopper (sm_90a), with its LayerNorm
+// row pass and the PTX wrappers (mbarrier, TMA, wgmma) and attention
+// helpers the attention cores use too:
 //
 //     D [M, N] = epilogue(A [M, K] B [K, N])
 //
-// A and D row-major bf16, B the weight as stored, (in, out), bf16. Two
-// template flags read an operand the other way round, as it lies in
-// device memory: AT, A given as [K, M] (M-major: the weight gradients'
-// ln^T and attn^T); BT, B given as [N, K] (K-major: a product with a
-// weight's transpose, g wproj^T and dqkv wqkv^T). The epilogue is a
-// template argument too:
+// A and D row-major bf16, B the weight as stored, (in, out), bf16 (EPI_X3:
+// float32 in TF32 planes, below). Two template flags read an operand the
+// other way round, as it lies in device memory: AT, A given as [K, M]
+// (M-major: the weight gradients' ln^T and attn^T); BT, B given as [N, K]
+// (K-major: a product with a weight's transpose, g wproj^T and dqkv
+// wqkv^T). The epilogue is a template argument too:
 //   EPI_GELU (the MLP's fc1, csrc/fused_mlp_residual.cu): h = drop(gelu(
 //     acc + bias)), the dropout at site 2; with store_z also z = acc +
 //     bias; both cast to bf16;
@@ -24,7 +25,22 @@
 //     second, A2 B2 into out2, follow the first's), so that dwqkv's 108
 //     tiles and dwA's 36 at C = 768 share the 132 SMs. Each output tile is
 //     one block's, and successive launches run in stream order, so the
-//     sums over a caller's chunks are bit-reproducible.
+//     sums over a caller's chunks are bit-reproducible;
+//   EPI_X3 (the float32 attention forward's qkv and proj, csrc/
+//     fused_attention_residual_f32.cu): A and B float32, K-major (BT),
+//     each given as two planes, its TF32 high part (A, B) and the
+//     remainder (A2, B2; f32_tile.cuh's tf32_split); out = acc [+ bias]
+//     [+ xf] in float32 from three TF32 products a k-step, hi·lo, lo·hi,
+//     hi·hi, in that order, a stage's into a fresh accumulator added into
+//     acc in float32 (3xTF32: float32 accuracy, ~1e-6 relative, where one
+//     TF32 pass reads ~3e-4);
+//   EPI_DZ (the save-hidden MLP backward's dz pass, csrc/mlp_dz.cu, BT:
+//     dh = g w2^T): dz = bf16(acc gelu'(z)), z [M, N] bf16 TMA-loaded into
+//     the consumer's staging tile while its products run, dz written over
+//     it and TMA-stored; and each column's sum of the rounded dz over the
+//     tile's 128 rows (rows past M add nothing) into out [row tile, N] in
+//     float32, the pair's eight warps added in one fixed order (no
+//     atomics): a caller adds the row tiles' partials in order.
 // Every mask counts from the global row (g.row0 + the chunk's row) and
 // the column (csrc/dropout_hash.cuh).
 //
@@ -52,11 +68,20 @@
 // from device memory with its rows masked. Tiles of 128 x 256 (the two
 // warpgroups splitting one tile, the epilogue not overlapped) and one pair
 // taking 128-row tiles alone (ping-pong) were slower on the card (PERF.md
-// §6).
+// §6). EPI_X3's stage is 32 floats of K (128 bytes, the swizzle's row)
+// in four 16 KB planes, A hi, A lo, B hi, B lo; wgmma takes 32-bit
+// operands K-major only, so B is the weight's transpose, split and
+// transposed once a call by the caller; three stages fit, the float32
+// epilogue stages nothing. EPI_DZ keeps four stages beside its column
+// sums' buffer.
 //
 // What bounds it on this card: 2 M N K flops against the bytes of A, B
-// and D; at the port's shapes the products are compute bound. Every row
-// tile reads its weight slabs from L2 again (no cluster multicast yet).
+// and D; at the port's shapes the products are compute bound (EPI_X3 at
+// three TF32 products a multiply-add: 495 / 3 TFLOP/s of float32 work).
+// Every row tile reads its weight slabs from L2 again (no cluster
+// multicast yet); EPI_X3 moves 64 KB a stage for 3 x 2 x 128 x 128 x 32
+// flops, 48 flops a byte, so L2's rate may bound it before the tensor
+// cores do.
 
 #pragma once
 
@@ -72,7 +97,6 @@ namespace {
 constexpr int BM = 128;          // rows of an output tile
 constexpr int BN = 128;          // columns of an output tile
 constexpr int BK = 64;           // depth of a ring stage (128 bytes of bf16)
-constexpr int THREADS = 640;     // producer warpgroup + 2 pairs of consumers
 constexpr int SMEM_MAX = 232448;
 constexpr int LN_ROWS = 32;      // rows of an ln_kernel block (8 warps)
 
@@ -81,10 +105,30 @@ constexpr int LN_ROWS = 32;      // rows of an ln_kernel block (8 warps)
 constexpr int A_BYTES = BM * BK * 2;
 constexpr int STAGE = A_BYTES + BK * BN * 2;
 constexpr int OUT = 64 * BN * 2;
-constexpr int STAGES = (SMEM_MAX - 4 * OUT - 2048) / STAGE;   // 5
-constexpr int SMEM = STAGES * STAGE + 4 * OUT + 2048;
+constexpr int X3_PLANE = BM * 32 * 4;   // EPI_X3: 128 rows x 32 floats
 
-enum Epi { EPI_GELU, EPI_OUT, EPI_BIAS, EPI_F32, EPI_ACC };
+enum Epi { EPI_GELU, EPI_OUT, EPI_BIAS, EPI_F32, EPI_ACC, EPI_X3, EPI_DZ };
+
+// A product's shape by epilogue: its consumer pairs (EPI_X3: one, whose
+// warpgroups hold two accumulators, below) and their registers; its
+// shared memory: the ring (bf16: 5 stages of 32 KB; EPI_DZ 4, beside its
+// column sums; EPI_X3: 3 of 64 KB), the consumers' staged outputs (none
+// for EPI_X3), EPI_DZ's column sums (two buffers a pair: [q][warp][BN]
+// floats), then the mbarriers and the alignment's slack.
+template <int EPI>
+struct Ring {
+  static constexpr bool X3 = EPI == EPI_X3;
+  static constexpr int PAIRS = X3 ? 1 : 2;
+  static constexpr int THREADS = 128 * (1 + 2 * PAIRS);
+  static constexpr int PRODUCER_REGS = X3 ? 40 : 24;
+  static constexpr int CONSUMER_REGS = X3 ? 232 : 112;
+  static constexpr int KT = X3 ? 32 : BK;          // K a stage
+  static constexpr int STAGE_BYTES = X3 ? 4 * X3_PLANE : STAGE;
+  static constexpr int OUTS = X3 ? 0 : 4 * OUT;
+  static constexpr int RED = EPI == EPI_DZ ? 2 * 2 * 2 * 4 * BN * 4 : 0;
+  static constexpr int STAGES = (SMEM_MAX - OUTS - RED - 2048) / STAGE_BYTES;
+  static constexpr int SMEM = STAGES * STAGE_BYTES + OUTS + RED + 2048;
+};
 
 // ---- PTX wrappers: mbarrier, TMA, wgmma, fences ----
 
@@ -160,6 +204,17 @@ __device__ __forceinline__ void named_sync(int id) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
 }
 
+// a named barrier over a consumer pair's 256 threads
+__device__ __forceinline__ void named_sync_pair(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ uint32_t ld_shared(unsigned addr) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
+  return v;
+}
+
 __device__ __forceinline__ void st_shared(unsigned addr, uint32_t v) {
   asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
 }
@@ -213,6 +268,23 @@ __device__ __forceinline__ void wgmma(float (&d)[64], uint64_t da,
       "%64, %65, p, 1, 1, %67, %68;\n}\n"
       : F8(0), F8(8), F8(16), F8(24), F8(32), F8(40), F8(48), F8(56)
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// d[64 x 128] (+)= A[64 x 8] B[8 x 128], TF32 from shared memory, both
+// K-major (32-bit operands have no transpose bit): EPI_X3's products.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n}\n"
+      : F8(0), F8(8), F8(16), F8(24), F8(32), F8(40), F8(48), F8(56)
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 // d[64 x 64] (+)= A[64 x 16] B[16 x 64], both from shared memory, the
@@ -381,16 +453,18 @@ cudaError_t run_layernorm(const bf16* x, const float* lns, const float* lnb,
 
 struct GemmArgs {
   int M, N, K;                // the chunk's rows; output width; depth
-  const float* bias;          // [N] (EPI_BIAS: or null)
+  const float* bias;          // [N] (EPI_BIAS, EPI_X3: or null)
   const bf16* x;              // EPI_OUT: the residual [M, N]
   const float* gamma;         // EPI_OUT: LayerScale [N] or null
   int use_residual;           // EPI_OUT
   int store_z;                // EPI_GELU: also z (tmZ)
   Drop drop;                  // EPI_GELU: site 2; EPI_OUT: site 3 or 1
   uint32_t row0;              // the chunk's first global row
-  float* out;                 // EPI_F32, EPI_ACC: float32 [M, N]
+  float* out;                 // EPI_F32, EPI_ACC, EPI_X3: float32 [M, N];
+                              // EPI_DZ: the column sums [row tiles, N]
   int M2, N2;                 // EPI_ACC: the second problem (M2 = 0: none)
   float* out2;                //   its float32 [M2, N2], same K
+  const float* xf;            // EPI_X3: a float32 residual [M, N] or null
 };
 
 // The first global row, column and problem of output tile t (the first
@@ -471,44 +545,98 @@ __device__ __forceinline__ void stage_bias_cast(const float (&acc)[BN / 2],
   }
 }
 
+// gelu'(z) = Phi(z) + z phi(z), with CUDA's erff and expf: EPI_DZ's
+// rounding points are the TPU kernel's (pallas_attention.py:1727-1748).
+__device__ __forceinline__ float gelu_grad_erf(float z) {
+  return 0.5f * (1.f + erff(z * 0.70710678118654752f)) +
+         z * (0.39894228040143268f * expf(-0.5f * z * z));
+}
+
+// EPI_DZ's epilogue for a consumer's 64 rows: z from the staged tile,
+// dz = bf16(acc gelu'(z)) written over it, and the column sums of the
+// rounded dz over the consumer's rows below M (the warp's 16 rows by
+// shuffles, then one float a warp and column into red [warp][BN]).
+__device__ __forceinline__ void dz_tile(const float (&acc)[BN / 2],
+                                       unsigned tile_addr, int live_rows,
+                                       float* red, int warp, int lane) {
+#pragma unroll
+  for (int c8 = 0; c8 < BN / 8; ++c8) {
+    const int col = c8 * 8 + 2 * (lane & 3);
+    float c0 = 0.f, c1 = 0.f;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = warp * 16 + (lane >> 2) + 8 * hr;
+      const unsigned at = tile_addr + out_offset(r, col);
+      const uint32_t zz = ld_shared(at);
+      const float2 z = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&zz));
+      const uint32_t v = pack_bf16(acc[c8 * 4 + 2 * hr] * gelu_grad_erf(z.x),
+                                   acc[c8 * 4 + 2 * hr + 1] *
+                                       gelu_grad_erf(z.y));
+      st_shared(at, v);
+      if (r < live_rows) {
+        const float2 d = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&v));
+        c0 += d.x;
+        c1 += d.y;
+      }
+    }
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1) {
+      c0 += __shfl_xor_sync(0xffffffffu, c0, o);
+      c1 += __shfl_xor_sync(0xffffffffu, c1, o);
+    }
+    if (lane < 4) {
+      red[warp * BN + col] = c0;
+      red[warp * BN + col + 1] = c1;
+    }
+  }
+}
+
 template <int EPI, bool AT, bool BT>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(Ring<EPI>::THREADS, 1)
 gemm_sm90(const __grid_constant__ CUtensorMap tmA,
           const __grid_constant__ CUtensorMap tmB,
           const __grid_constant__ CUtensorMap tmD,
           const __grid_constant__ CUtensorMap tmZ,
           const __grid_constant__ CUtensorMap tmA2,
           const __grid_constant__ CUtensorMap tmB2, const GemmArgs g) {
+  using R = Ring<EPI>;
+  constexpr bool X3 = R::X3;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  uint8_t* out_tiles = smem + STAGES * STAGE;
-  uint64_t* full = reinterpret_cast<uint64_t*>(out_tiles + 4 * OUT);
-  uint64_t* empty = full + STAGES;
+  uint8_t* out_tiles = smem + R::STAGES * R::STAGE_BYTES;
+  float* red = reinterpret_cast<float*>(out_tiles + R::OUTS);   // EPI_DZ
+  uint64_t* full = reinterpret_cast<uint64_t*>(out_tiles + R::OUTS + R::RED);
+  uint64_t* empty = full + R::STAGES;
   // order[p] completes a phase when the other pair has waited for every
   // stage of its tile, so that pair p waits on a stage at most one phase
   // ahead of the producer (a parity wait cannot tell two phases apart)
-  uint64_t* order = empty + STAGES;
+  uint64_t* order = empty + R::STAGES;
+  uint64_t* zfull = order + 2;      // EPI_DZ: each consumer's z tile
 
   const int tiles0 = (g.M + BM - 1) / BM * (g.N / BN);
   const int total =
       tiles0 + (g.M2 > 0 ? (g.M2 + BM - 1) / BM * (g.N2 / BN) : 0);
-  const int ktiles = (g.K + BK - 1) / BK;
+  const int ktiles = (g.K + R::KT - 1) / R::KT;
   const int wg = threadIdx.x / 128;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < R::STAGES; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 256);   // every thread of the pair
     }
     mbar_init(&order[0], 256);
     mbar_init(&order[1], 256);
+    for (int c = 0; c < 4; ++c) mbar_init(&zfull[c], 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   if (wg == 0) {
     // ---- producer: one thread keeps the ring full, in tile order ----
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        R::PRODUCER_REGS));
     if (threadIdx.x == 0) {
       int pos = 0;
       for (int t = blockIdx.x; t < total; t += gridDim.x) {
@@ -517,10 +645,17 @@ gemm_sm90(const __grid_constant__ CUtensorMap tmA,
         const CUtensorMap* ma = second ? &tmA2 : &tmA;
         const CUtensorMap* mb = second ? &tmB2 : &tmB;
         for (int kt = 0; kt < ktiles; ++kt, ++pos) {
-          const int s = pos % STAGES;
-          mbar_wait(&empty[s], ((pos / STAGES) & 1) ^ 1);
-          uint8_t* st = smem + s * STAGE;
-          mbar_expect_tx(&full[s], STAGE);
+          const int s = pos % R::STAGES;
+          mbar_wait(&empty[s], ((pos / R::STAGES) & 1) ^ 1);
+          uint8_t* st = smem + s * R::STAGE_BYTES;
+          mbar_expect_tx(&full[s], R::STAGE_BYTES);
+          if constexpr (X3) {   // A hi, A lo, B hi, B lo: 128 rows x 32 K
+            tma_load(st, &tmA, kt * 32, m0, &full[s]);
+            tma_load(st + X3_PLANE, &tmA2, kt * 32, m0, &full[s]);
+            tma_load(st + 2 * X3_PLANE, &tmB, kt * 32, n0, &full[s]);
+            tma_load(st + 3 * X3_PLANE, &tmB2, kt * 32, n0, &full[s]);
+            continue;
+          }
           if (AT) {        // two boxes of 64 columns of M, 64 rows of K
             tma_load(st, ma, m0, kt * BK, &full[s]);
             tma_load(st + 8192, ma, m0 + 64, kt * BK, &full[s]);
@@ -539,7 +674,8 @@ gemm_sm90(const __grid_constant__ CUtensorMap tmA,
   } else {
     // ---- consumers: pair p takes the block's tiles p, p + 2, ...; its
     // warpgroup q the tile's rows 64 q.. ----
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 112;\n");
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        R::CONSUMER_REGS));
     const int cw = wg - 1, p = cw >> 1, q = cw & 1;
     const int tid = threadIdx.x - 128 * wg;
     const int warp = tid >> 5, lane = tid & 31;
@@ -548,52 +684,105 @@ gemm_sm90(const __grid_constant__ CUtensorMap tmA,
     const unsigned tile_addr = smem_addr(tile);
     float acc[BN / 2];
 
-    for (int i = p; blockIdx.x + (long)i * gridDim.x < total; i += 2) {
+    for (int i = p; blockIdx.x + (long)i * gridDim.x < total;
+         i += R::PAIRS) {
       const int t = blockIdx.x + i * gridDim.x;
       int second, m0, n0;
       tile_at(g, t, tiles0, second, m0, n0);
-      // ---- mainloop, after tile i - 1's ----
-      if (i > 0) mbar_wait(&order[p], ((i - 1) >> 1) & 1);
-      int prev = 0;
-      for (int kt = 0; kt < ktiles; ++kt) {
-        const int pos = i * ktiles + kt, s = pos % STAGES;
-        mbar_wait(&full[s], (pos / STAGES) & 1);
-        // warpgroup q's A: rows 64 q.. of the K-major tile, or box q of
-        // the M-major one (both 8192 q bytes in)
-        const unsigned a = smem_addr(smem + s * STAGE) + q * 8192;
-        const unsigned b = smem_addr(smem + s * STAGE + A_BYTES);
-        fence_regs(acc);
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk)
-          wgmma<AT, !BT>(acc,
-                        AT ? desc128(a + kk * 2048, 8192, 1024)
-                           : desc128(a + kk * 32, 16, 1024),
-                        BT ? desc128(b + kk * 32, 16, 1024)
-                           : desc128(b + kk * 2048, 8192, 1024),
-                        kt > 0 || kk > 0);
-        wgmma_commit();
-        fence_regs(acc);
-        if (kt > 0) {
-          wgmma_wait<1>();
-          mbar_arrive(&empty[prev]);
+      const int mt0 = m0 + 64 * q;   // the consumer's first chunk row
+      if constexpr (EPI == EPI_DZ) {
+        // the tile's z into the staging tile, under the products
+        staging_free(tid, bar);
+        if (tid == 0) {
+          mbar_expect_tx(&zfull[cw], 2 * 8192);
+          tma_load(const_cast<uint8_t*>(tile), &tmZ, n0, mt0, &zfull[cw]);
+          tma_load(const_cast<uint8_t*>(tile) + 8192, &tmZ, n0 + 64, mt0,
+                   &zfull[cw]);
         }
-        prev = s;
       }
-      mbar_arrive(&order[p ^ 1]);
-      wgmma_wait<0>();
-      fence_regs(acc);
-      mbar_arrive(&empty[prev]);
+      // ---- mainloop, after tile i - 1's ----
+      if (R::PAIRS == 2 && i > 0) mbar_wait(&order[p], ((i - 1) >> 1) & 1);
+      if constexpr (X3) {
+        // each stage's twelve products into a fresh accumulator, added
+        // into acc in float32 once they have retired: the tensor cores'
+        // float32 sums round toward zero, and the 3 K / 8 sums of one
+        // accumulator over the whole K drift by ~1.4e-5 at K = 768
+        // (against F32_REL_TOL's 1e-5), 12 a stage by ~1e-6. Two stage
+        // accumulators in turn, to keep the next stage's products issued
+        // while one is added, spilled registers and ran ~10% slower.
+        float part[BN / 2];
+#pragma unroll
+        for (int j = 0; j < BN / 2; ++j) acc[j] = 0.f;
+        for (int kt = 0; kt < ktiles; ++kt) {
+          const int pos = i * ktiles + kt, s = pos % R::STAGES;
+          mbar_wait(&full[s], (pos / R::STAGES) & 1);
+          // warpgroup q's A: rows 64 q.. of each A plane
+          const unsigned st = smem_addr(smem + s * R::STAGE_BYTES);
+          const unsigned a = st + q * 8192, b = st + 2 * X3_PLANE;
+          fence_regs(part);
+          wgmma_fence();
+          // hi·lo, lo·hi, hi·hi a k-step of 8, in that order
+#pragma unroll
+          for (int kk = 0; kk < R::KT / 8; ++kk) {
+            const uint64_t ahi = desc128(a + kk * 32, 16, 1024);
+            const uint64_t alo = desc128(a + X3_PLANE + kk * 32, 16, 1024);
+            const uint64_t bhi = desc128(b + kk * 32, 16, 1024);
+            const uint64_t blo = desc128(b + X3_PLANE + kk * 32, 16, 1024);
+            wgmma_tf32(part, ahi, blo, kk > 0);
+            wgmma_tf32(part, alo, bhi, 1);
+            wgmma_tf32(part, ahi, bhi, 1);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(part);
+          mbar_arrive(&empty[s]);
+#pragma unroll
+          for (int j = 0; j < BN / 2; ++j) acc[j] += part[j];
+        }
+      } else {
+        int prev = 0;
+        for (int kt = 0; kt < ktiles; ++kt) {
+          const int pos = i * ktiles + kt, s = pos % R::STAGES;
+          mbar_wait(&full[s], (pos / R::STAGES) & 1);
+          // warpgroup q's A: rows 64 q.. of the K-major tile, or box q of
+          // the M-major one (both 8192 q bytes in)
+          const unsigned a = smem_addr(smem + s * R::STAGE_BYTES) + q * 8192;
+          const unsigned b = smem_addr(smem + s * R::STAGE_BYTES + A_BYTES);
+          fence_regs(acc);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk)
+            wgmma<AT, !BT>(acc,
+                          AT ? desc128(a + kk * 2048, 8192, 1024)
+                             : desc128(a + kk * 32, 16, 1024),
+                          BT ? desc128(b + kk * 32, 16, 1024)
+                             : desc128(b + kk * 2048, 8192, 1024),
+                          kt > 0 || kk > 0);
+          wgmma_commit();
+          fence_regs(acc);
+          if (kt > 0) {
+            wgmma_wait<1>();
+            mbar_arrive(&empty[prev]);
+          }
+          prev = s;
+        }
+        mbar_arrive(&order[p ^ 1]);
+        wgmma_wait<0>();
+        fence_regs(acc);
+        mbar_arrive(&empty[prev]);
+      }
 
       // ---- epilogue: fragment j holds row 16 warp + lane/4 + 8 (j%4 >=
       // 2), column 8 (j/4) + 2 (lane%4) + j%2 ----
-      const int mt0 = m0 + 64 * q;   // the consumer's first chunk row
-      if constexpr (EPI == EPI_F32 || EPI == EPI_ACC) {
+      if constexpr (EPI == EPI_F32 || EPI == EPI_ACC || EPI == EPI_X3) {
         float* out = second ? g.out2 : g.out;
         const int M = second ? g.M2 : g.M, N = second ? g.N2 : g.N;
 #pragma unroll
         for (int c8 = 0; c8 < BN / 8; ++c8) {
           const int col = n0 + c8 * 8 + 2 * (lane & 3);
+          float2 bb = make_float2(0.f, 0.f);
+          if (EPI == EPI_X3 && g.bias != nullptr)
+            bb = *reinterpret_cast<const float2*>(g.bias + col);
 #pragma unroll
           for (int hr = 0; hr < 2; ++hr) {
             const int row = mt0 + warp * 16 + (lane >> 2) + 8 * hr;
@@ -606,10 +795,35 @@ gemm_sm90(const __grid_constant__ CUtensorMap tmA,
               v.x += was.x;
               v.y += was.y;
             }
+            if (EPI == EPI_X3) {
+              v.x += bb.x;
+              v.y += bb.y;
+              if (g.xf != nullptr) {
+                const float2 r2 = *reinterpret_cast<const float2*>(
+                    g.xf + (long)row * N + col);
+                v.x += r2.x;
+                v.y += r2.y;
+              }
+            }
             *o = v;
           }
         }
         continue;   // nothing staged
+      } else if constexpr (EPI == EPI_DZ) {
+        // red: two buffers a pair, tile by tile, so that the next tile's
+        // sums never meet this one's reads (a pair barrier between)
+        float* pr = red + ((((i >> 1) & 1) * 2 + p) * 2) * 4 * BN;
+        mbar_wait(&zfull[cw], (i >> 1) & 1);
+        dz_tile(acc, tile_addr, g.M - mt0, pr + q * 4 * BN, warp, lane);
+        store_staged(&tmD, tile, n0, mt0, tid, bar);
+        named_sync_pair(5 + p);   // both warpgroups' column sums written
+        if (q == 0) {            // column n0 + tid: the eight warps in order
+          float sum = 0.f;
+#pragma unroll
+          for (int w = 0; w < 8; ++w) sum += pr[w * BN + tid];
+          g.out[(long)(m0 / BM) * g.N + n0 + tid] = sum;
+        }
+        continue;   // staged and stored
       } else if constexpr (EPI == EPI_BIAS) {
         staging_free(tid, bar);
         stage_bias_cast(acc, g.bias, n0, tile_addr, warp, lane);
@@ -708,15 +922,17 @@ EncodeFn encoder() {
   return fn;
 }
 
-// A row-major bf16 [outer, inner] matrix at `base`, read or written in
-// boxes of box_outer rows x 64 columns with the 128-byte swizzle; reads
-// past `outer` give zeros, writes there are dropped. The last maps made are kept: a call meets the same weights, and
+// A row-major [outer, inner] matrix at `base`, bf16 (f32: float32), read
+// or written in boxes of box_outer rows x 128 bytes of columns with the
+// 128-byte swizzle; reads past `outer` give zeros, writes there are
+// dropped. The last maps made are kept: a call meets the same weights, and
 // mostly the same scratch and activation addresses, as the one before.
 bool tensor_map(CUtensorMap* map, const void* base, int inner, int outer,
-                int box_outer) {
+                int box_outer, bool f32 = false) {
   struct Entry {
     const void* base;
     int inner, outer, box_outer;
+    bool f32;
     CUtensorMap map;
   };
   constexpr int CACHED = 32;
@@ -727,23 +943,26 @@ bool tensor_map(CUtensorMap* map, const void* base, int inner, int outer,
   for (int i = 0; i < used; ++i) {
     const Entry& e = cache[i];
     if (e.base == base && e.inner == inner && e.outer == outer &&
-        e.box_outer == box_outer) {
+        e.box_outer == box_outer && e.f32 == f32) {
       *map = e.map;
       return true;
     }
   }
   EncodeFn enc = encoder();
   if (enc == nullptr) return false;
+  const int elem_bytes = f32 ? 4 : 2;
   cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-  cuuint64_t strides[1] = {(cuuint64_t)inner * sizeof(bf16)};
-  cuuint32_t box[2] = {64, (cuuint32_t)box_outer};
+  cuuint64_t strides[1] = {(cuuint64_t)inner * elem_bytes};
+  cuuint32_t box[2] = {(cuuint32_t)(128 / elem_bytes), (cuuint32_t)box_outer};
   cuuint32_t elem[2] = {1, 1};
-  if (enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
-          dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  if (enc(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                   : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+          2, const_cast<void*>(base), dims, strides, box, elem,
+          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return false;
-  cache[next] = Entry{base, inner, outer, box_outer, *map};
+  cache[next] = Entry{base, inner, outer, box_outer, f32, *map};
   next = (next + 1) % CACHED;
   used = std::max(used, next == 0 ? CACHED : next);
   return true;
@@ -767,23 +986,34 @@ int current_device() {
 
 // D [M, N] = epilogue(A [M, K] B [K, N]) on tiles of 128 x 128 (A as
 // [K, M] with AT, B as [N, K] with BT). N a multiple of 128, K of 64 but
-// with AT; Z: EPI_GELU's z (or null). EPI_F32 and EPI_ACC write g.out
-// (D, Z null); EPI_ACC's second problem (g.M2 > 0) reads A2 and B2.
+// with AT; Z: EPI_GELU's z (or null), EPI_DZ's z. EPI_F32 and EPI_ACC
+// write g.out (D, Z null); EPI_ACC's second problem (g.M2 > 0) reads A2
+// and B2. EPI_X3: A, B and their lo planes A2, B2 float32, BT, K a
+// multiple of 32, into g.out (D, Z null). EPI_DZ: BT, D the bf16 dz,
+// g.out ceil(M / 128) x N floats of column sums.
 template <int EPI, bool AT = false, bool BT = false>
-cudaError_t run_gemm(const bf16* A, const bf16* B, bf16* D, bf16* Z,
+cudaError_t run_gemm(const void* A, const void* B, void* D, const void* Z,
                      const GemmArgs& g, cudaStream_t stream,
-                     const bf16* A2 = nullptr, const bf16* B2 = nullptr) {
-  constexpr bool F32 = EPI == EPI_F32 || EPI == EPI_ACC;
-  if (g.M < 1 || g.N % BN != 0 || g.K < 1 || (!AT && g.K % BK != 0) ||
-      (F32 && g.out == nullptr) ||
+                     const void* A2 = nullptr, const void* B2 = nullptr) {
+  using R = Ring<EPI>;
+  constexpr bool X3 = R::X3;
+  constexpr bool F32 = EPI == EPI_F32 || EPI == EPI_ACC || X3;
+  static_assert(!X3 || (BT && !AT), "EPI_X3 reads A and B K-major");
+  static_assert(EPI != EPI_DZ || (BT && !AT), "EPI_DZ reads w2 K-major");
+  if (g.M < 1 || g.N % BN != 0 || g.K < 1 || (!AT && g.K % R::KT != 0) ||
+      ((F32 || EPI == EPI_DZ) && g.out == nullptr) ||
+      (X3 && (A2 == nullptr || B2 == nullptr)) ||
+      (EPI == EPI_DZ && Z == nullptr) ||
       (g.M2 > 0 && (EPI != EPI_ACC || g.N2 % BN != 0 || g.out2 == nullptr ||
                     A2 == nullptr || B2 == nullptr)))
     return cudaErrorInvalidValue;
-  auto map_a = [&](CUtensorMap* m, const bf16* a, int M) {
-    return AT ? tensor_map(m, a, M, g.K, 64) : tensor_map(m, a, g.K, M, BM);
+  auto map_a = [&](CUtensorMap* m, const void* a, int M) {
+    return AT ? tensor_map(m, a, M, g.K, 64)
+              : tensor_map(m, a, g.K, M, BM, X3);
   };
-  auto map_b = [&](CUtensorMap* m, const bf16* b, int N) {
-    return BT ? tensor_map(m, b, g.K, N, BN) : tensor_map(m, b, N, g.K, BK);
+  auto map_b = [&](CUtensorMap* m, const void* b, int N) {
+    return BT ? tensor_map(m, b, g.K, N, BN, X3)
+              : tensor_map(m, b, N, g.K, BK);
   };
   CUtensorMap ma, mb, md, mz, ma2, mb2;
   if (!map_a(&ma, A, g.M) || !map_b(&mb, B, g.N))
@@ -793,7 +1023,8 @@ cudaError_t run_gemm(const bf16* A, const bf16* B, bf16* D, bf16* Z,
   if (!F32 && (!tensor_map(&md, D, g.N, g.M, 64) ||
                !tensor_map(&mz, Z != nullptr ? Z : D, g.N, g.M, 64)))
     return cudaErrorInvalidValue;
-  if (g.M2 > 0 && (!map_a(&ma2, A2, g.M2) || !map_b(&mb2, B2, g.N2)))
+  if ((X3 || g.M2 > 0) &&
+      (!map_a(&ma2, A2, X3 ? g.M : g.M2) || !map_b(&mb2, B2, X3 ? g.N : g.N2)))
     return cudaErrorInvalidValue;
   const int dev = current_device();
   if (dev < 0) return cudaErrorInvalidDevice;
@@ -801,14 +1032,14 @@ cudaError_t run_gemm(const bf16* A, const bf16* B, bf16* D, bf16* Z,
   if (!sized[dev]) {
     const cudaError_t err = cudaFuncSetAttribute(
         gemm_sm90<EPI, AT, BT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        SMEM);
+        R::SMEM);
     if (err != cudaSuccess) return err;
     sized[dev] = true;
   }
   const int tiles = (g.M + BM - 1) / BM * (g.N / BN) +
                     (g.M2 > 0 ? (g.M2 + BM - 1) / BM * (g.N2 / BN) : 0);
-  gemm_sm90<EPI, AT, BT><<<std::min(tiles, sm_count(dev)), THREADS, SMEM,
-                           stream>>>(ma, mb, md, mz, ma2, mb2, g);
+  gemm_sm90<EPI, AT, BT><<<std::min(tiles, sm_count(dev)), R::THREADS,
+                           R::SMEM, stream>>>(ma, mb, md, mz, ma2, mb2, g);
   return cudaGetLastError();
 }
 

@@ -28,7 +28,9 @@ and the drop_ew kernel are in ops/fused_reg.py).
     a LayerNorm pass, then fc1 with GELU and fc2 with the residual, each
     csrc/gemm_sm90.cuh's TMA-fed wgmma product, through a bf16 scratch)
   mlp_dz:                   dz = (g w2^T) * gelu'(z), db1 = colsum(dz)
-    kernel: csrc/mlp_dz.cu
+    kernel: csrc/mlp_dz.cu (one C entry a call: csrc/gemm_sm90.cuh's
+    wgmma product with gelu'(z) and the column sums in its epilogue, then
+    the row tiles' partial sums added in order)
   fused_mlp_bwd:            the MLP backward from x (no saved hidden): dx,
     ln, h, dz and the column sums dlns, dlnb
     kernel: csrc/fused_mlp_bwd.cu (one C entry a call, per chunk of rows,
@@ -65,7 +67,9 @@ float32 CUDA tensor reaching fused_attention_residual,
 fused_attention_residual_bwd (dw=False), fused_mlp_residual (both forms)
 or mlp_dz launches its float32 form, every operand float32, inert, at up
 to 64 tokens a segment and C in F32_C (csrc/*_f32.cu, chains of the
-float32 FMA tiles of csrc/f32_tile.cuh); its launch counts under the
+float32 FMA tiles of csrc/f32_tile.cuh; the attention forward's two
+products are 3xTF32 wgmma products on csrc/gemm_sm90.cuh, their operands
+split by tf32_split_plain's kernel twin); its launch counts under the
 form's name + "_f32" (the bare forms then + "_bare"). Every other form
 raises NotImplementedError from _build.f32_form; nothing falls back to the
 plain version.
@@ -539,14 +543,47 @@ def _f32_scratch(*shape, device):
     return torch.empty(*shape, dtype=torch.float32, device=device)
 
 
+def tf32_split_plain(w):
+    """Plain twin of the kernels' TF32 split (csrc/f32_tile.cuh's
+    tf32_split), elementwise, bit for bit: a float32 w -> (hi, lo), hi
+    w rounded to TF32 (to nearest, ties away from zero, as
+    cvt.rna.tf32.f32: its low 13 mantissa bits zero) and lo = w - hi
+    exactly; where w is not finite, hi = w and lo = 0."""
+    bits = w.contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    finite = torch.isfinite(w)
+    hi = torch.where(finite, hi, w)
+    return hi, torch.where(finite, w - hi, torch.zeros_like(w))
+
+
+def attention_f32_scratch_floats(rows, C):
+    """The float32 scratch of #1f's C entry (csrc/fused_attention_residual
+    _f32.cu), in floats: the weights' hi and lo planes (8 C^2), A's hi and
+    lo planes [rows, C] (the LayerNorm or x, then o) and qkv [rows, 3C]."""
+    return 8 * C * C + 5 * rows * C
+
+
+# launch_fused_attention_residual_f32's arguments: x, lns, lnb, wqkv, bqkv,
+# wproj, bproj, out, scratch; n_seg, S, C, num_heads; scale, eps; use_ln,
+# use_residual; stream
+_ATTN_F32_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+                  + [ctypes.c_float] * 2 + [ctypes.c_int] * 2
+                  + [ctypes.c_void_p])
+# launch_tf32_split_weight's: w, hi, lo; K, N; stream
+_TF32_SPLIT_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
+    ctypes.c_void_p]
+
+
 def _fused_attention_residual_f32(x, ln_scale, ln_bias, wqkv, bqkv, wproj,
                                   bproj, num_heads, seg_len, scale, ln_eps,
                                   use_ln, use_residual, reg):
     """fused_attention_residual's float32 form on the card
-    (csrc/fused_attention_residual_f32.cu: LN, the qkv product, the
-    attention core, the proj product with bias and residual, into float32
-    scratch): every operand float32, inert, seg_len <= 64, C in F32_C;
-    anything else raises NotImplementedError (f32_form)."""
+    (csrc/fused_attention_residual_f32.cu, one C entry a call: the
+    weights' TF32 split, LN (or x's split), the qkv product, the attention
+    core, the proj product with bias and residual, the products 3xTF32
+    wgmma, into one float32 scratch): every operand float32, inert,
+    seg_len <= 64, C in F32_C; anything else raises NotImplementedError
+    (f32_form)."""
     name = f32_form("fused_attention_residual", seg_len, x.shape[-1], reg)
     n_seg, S, C = _check_attention_x(x, seg_len, num_heads, name,
                                      ATTN_MAX_SEG_LEN, F32_C)
@@ -560,24 +597,41 @@ def _fused_attention_residual_f32(x, ln_scale, ln_bias, wqkv, bqkv, wproj,
     out = torch.empty_like(x)
     if n_seg == 0:
         return out
-    rows = n_seg * S
-    ln = _f32_scratch(rows, C, device=dev) if use_ln else None
-    qkv = _f32_scratch(rows, 3 * C, device=dev)
-    o = _f32_scratch(rows, C, device=dev)
-    lib = _build.load_library("fused_attention_residual_f32")
-    fn = lib.launch_fused_attention_residual_f32
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + \
-        [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        status = fn(_ptr(x), _ptr(ln_scale), _ptr(ln_bias), _ptr(wqkv),
-                    _ptr(bqkv), _ptr(wproj), _ptr(bproj), _ptr(out),
-                    None if ln is None else _ptr(ln), _ptr(qkv), _ptr(o),
-                    n_seg, S, C, num_heads, float(scale), float(ln_eps),
-                    int(bool(use_ln)), int(bool(use_residual)), _stream(dev))
-    _build.check(lib, status, name)
+    scratch = _f32_scratch(attention_f32_scratch_floats(n_seg * S, C),
+                           device=dev)
+    fn = _build.entry("fused_attention_residual_f32",
+                      "launch_fused_attention_residual_f32", _ATTN_F32_ARGS)
+    status = _build.call_on(
+        dev, fn, x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
+        wqkv.data_ptr(), bqkv.data_ptr(), wproj.data_ptr(),
+        bproj.data_ptr(), out.data_ptr(), scratch.data_ptr(), n_seg, S, C,
+        num_heads, float(scale), float(ln_eps), int(bool(use_ln)),
+        int(bool(use_residual)), _stream(dev))
+    _build.check("fused_attention_residual_f32", status, name)
     count_launch(name if use_ln else name + "_bare", C)
     return out
+
+
+def tf32_split_weight(w):
+    """The K-major TF32 planes of a float32 weight w [K, N] (in, out), as
+    #1f's C entry makes them for its products: (hi, lo), each [N, K], the
+    split (tf32_split_plain) of w^T. On the card the entry's split kernel
+    alone, for the checks (the main path runs it inside #1f's call,
+    counted there); K and N multiples of 32. On the CPU the plain twin."""
+    if w.device.type == "cpu":
+        return tf32_split_plain(w.t().contiguous())
+    K, N = w.shape
+    _require(K % 32 == 0 and N % 32 == 0 and K > 0 and N > 0,
+             f"w {tuple(w.shape)}: both sides must be multiples of 32")
+    _check_tensor("w", w, w.device, torch.float32, (K, N))
+    hi = _f32_scratch(N, K, device=w.device)
+    lo = _f32_scratch(N, K, device=w.device)
+    fn = _build.entry("fused_attention_residual_f32",
+                      "launch_tf32_split_weight", _TF32_SPLIT_ARGS)
+    status = _build.call_on(w.device, fn, w.data_ptr(), hi.data_ptr(),
+                            lo.data_ptr(), K, N, _stream(w.device))
+    _build.check("fused_attention_residual_f32", status, "tf32_split_weight")
+    return hi, lo
 
 
 def attention_core_s86(x, ln_scale, ln_bias, wqkv, bqkv, num_heads, seg_len,
@@ -1224,12 +1278,24 @@ def _fused_attention_residual_bwd_f32(x, g, ln_scale, ln_bias, wqkv, bqkv,
     return out
 
 
+def mlp_dz_part_floats(rows, hidden):
+    """mlp_dz's float32 workspace on the card, in floats: one column-sum
+    partial per 128-row tile of dz (csrc/mlp_dz.cu) and column."""
+    return -(-rows // MLP_ROW_TILE) * hidden
+
+
+# launch_mlp_dz's arguments: g, z, w2, dz, db1, part; rows, C, hidden;
+# stream
+_MLP_DZ_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+
 def mlp_dz(g2, z, w2):
     """dz = (g2 w2^T) * gelu'(z) and db1 = colsum(dz) (_mlp_dz_impl,
     emit_h=False, pallas_attention.py:1751-1789): g2 [rows, C], z [rows,
     hidden], w2 [hidden, C] -> (dz [rows, hidden], db1 [hidden] float32).
     On the card: bf16 g2, z and w2, C a multiple of 64, hidden a multiple
-    of 128; or all three float32, the float32 form (C in F32_C)."""
+    of 128, one C entry a call (csrc/mlp_dz.cu); or all three float32,
+    the float32 form (C in F32_C)."""
     if g2.device.type == "cpu":
         return mlp_dz_plain(g2, z, w2)
     if g2.device.type != "cuda":
@@ -1249,20 +1315,15 @@ def mlp_dz(g2, z, w2):
     _check_tensor("z", z, dev, bf16, (rows, hidden))
     _check_tensor("w2", w2, dev, bf16, (hidden, C))
     dz = torch.empty_like(z)
-    db1 = torch.zeros(hidden, dtype=torch.float32, device=dev)
     if rows == 0:
-        return dz, db1
-    part = torch.empty(-(-rows // 128) * hidden, dtype=torch.float32,
-                       device=dev)
-    lib = _build.load_library("mlp_dz")
-    fn = lib.launch_mlp_dz
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + \
-        [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        status = fn(_ptr(g2), _ptr(z), _ptr(w2), _ptr(dz), _ptr(db1),
-                    _ptr(part), rows, C, hidden, _stream(dev))
-    _build.check(lib, status, "mlp_dz")
+        return dz, torch.zeros(hidden, dtype=torch.float32, device=dev)
+    db1 = torch.empty(hidden, dtype=torch.float32, device=dev)
+    part = _f32_scratch(mlp_dz_part_floats(rows, hidden), device=dev)
+    fn = _build.entry("mlp_dz", "launch_mlp_dz", _MLP_DZ_ARGS)
+    status = _build.call_on(dev, fn, g2.data_ptr(), z.data_ptr(),
+                            w2.data_ptr(), dz.data_ptr(), db1.data_ptr(),
+                            part.data_ptr(), rows, C, hidden, _stream(dev))
+    _build.check("mlp_dz", status, "mlp_dz")
     count_launch("mlp_dz", C)
     return dz, db1
 

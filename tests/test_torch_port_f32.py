@@ -19,7 +19,9 @@ Here: (a) #1 and #4 at S=22 (the 3-scale release model's segments), full
 form, at a segment count ragged against the JAX kernels' float32 row
 tiles (_f32_shrink: 2 segments a tile forward, 4 backward), at 3e-5 as
 the kernels file holds them; (b) the float32 entry points' TF32 scope;
-(c) the refusal helper ops/_build.f32_form, which needs no tensor.
+(c) the refusal helper ops/_build.f32_form, which needs no tensor; (d)
+the TF32 split of #1's float32 products (tf32_split_plain, the plain twin
+of the kernels' split) and the 3xTF32 product it feeds, emulated.
 """
 
 import copy
@@ -207,3 +209,65 @@ def test_float32_wrappers_on_the_cpu_run_the_plain_versions():
                                                 dw=True)
     for o, r in zip(out, ref):
         torch.testing.assert_close(o, r, rtol=0, atol=0)
+
+
+# chip_smoke.py's F32_REL_TOL: the float32 forms' relative L2 bar on the
+# card
+F32_REL_TOL = 1e-5
+
+
+def _tf32_trunc(t):
+    """t with its low 13 mantissa bits dropped, as wgmma reads a float32
+    operand as TF32."""
+    return (t.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+@pytest.mark.parametrize("kind", ["normal", "tiny", "signed"])
+def test_tf32_split_plain_is_exact_and_rounds_to_tf32(kind):
+    """hi + lo == w exactly, hi has its low 13 mantissa bits zero (a TF32
+    value), |lo| <= 2^-11 |w| (rounded to nearest), ties away from zero;
+    over normal values, tiny ones (1e-30 times, and the least normal) and
+    negative ones. tf32_split_weight on the CPU is the split of w^T."""
+    rng = np.random.default_rng(40)
+    w = _randn(rng, 64, 96)
+    if kind == "tiny":
+        w = w * np.float32(1e-30)
+        w[0, :2] = (np.finfo(np.float32).tiny, -np.finfo(np.float32).tiny)
+    elif kind == "signed":
+        w = -np.abs(w)
+        # exact ties: the dropped bits are half a TF32 unit
+        w[1] = ((w[1].view(np.int32) & -0x2000) | 0x1000).view(np.float32)
+    wt = torch.from_numpy(w)
+    hi, lo = fa.tf32_split_plain(wt)
+    assert torch.equal(hi + lo, wt)
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    assert bool((lo.abs() <= 2.0 ** -11 * wt.abs()).all())
+    if kind == "signed":
+        away = hi[1].abs() > wt[1].abs()
+        assert bool(away.all())       # a tie rounds away from zero
+    hi_t, lo_t = fa.tf32_split_weight(wt)
+    assert torch.equal(hi_t, hi.t()) and torch.equal(lo_t, lo.t())
+
+
+def test_3xtf32_product_holds_the_float32_bar_where_one_pass_misses_it():
+    """#1's float32 products on the card (csrc/gemm_sm90.cuh's EPI_X3),
+    emulated at K=768: the three products hi·lo + lo·hi + hi·hi of the
+    split operands, lo truncated to TF32 as the tensor core reads it, each
+    exact in float32 (11 x 11 bits) and summed in float32, stay within
+    F32_REL_TOL of the float64 product; one TF32 pass (hi·hi) misses it,
+    so the bar tells the two apart."""
+    rng = np.random.default_rng(41)
+    K = 768
+    a = torch.from_numpy(_randn(rng, 64, K))
+    b = torch.from_numpy(_randn(rng, K, 128, std=1.5 * K ** -0.5))
+    ah, al = fa.tf32_split_plain(a)
+    bh, bl = fa.tf32_split_plain(b)
+    three = ah @ _tf32_trunc(bl) + _tf32_trunc(al) @ bh + ah @ bh
+    one = ah @ bh
+    ref = a.double() @ b.double()
+
+    def rel(out):
+        return ((out.double() - ref).norm() / ref.norm()).item()
+
+    assert rel(three) <= F32_REL_TOL, rel(three)
+    assert rel(one) > F32_REL_TOL * 10, rel(one)

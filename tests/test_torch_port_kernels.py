@@ -322,23 +322,24 @@ def test_build_entry_binds_a_signature_once(monkeypatch):
     assert first.argtypes == args and first.restype is ctypes.c_int
 
 
-def test_mlp_bwd_entry_binds_its_c_signature_once(monkeypatch):
-    """fused_mlp_bwd's ctypes signature is csrc/fused_mlp_bwd.cu's C entry,
-    argument by argument (a pointer c_void_p, long long c_longlong, int
-    c_int, float c_float: a pointer passed as int would be cut), and
-    _build.entry binds it once (a stand-in library on the CPU)."""
+def _entry_binds_its_c_signature_once(monkeypatch, lib_name, fn_name,
+                                      args):
+    """fn_name of csrc/<lib_name>.cu against its wrapper's ctypes
+    signature `args`, argument by argument (a pointer c_void_p, long long
+    c_longlong, int c_int, float c_float: a pointer passed as int would be
+    cut), and _build.entry binding it once (a stand-in library on the
+    CPU)."""
     import ctypes
     import re
 
     from duoformer_tcga_tpu_torch.ops import _build
-    src = (_build.CSRC_DIR / "fused_mlp_bwd.cu").read_text()
-    params = re.search(r"int launch_fused_mlp_bwd\((.*?)\)", src,
-                       re.S).group(1)
+    src = (_build.CSRC_DIR / f"{lib_name}.cu").read_text()
+    params = re.search(rf"int {fn_name}\((.*?)\)", src, re.S).group(1)
     kinds = {"void*": ctypes.c_void_p, "long long": ctypes.c_longlong,
              "int": ctypes.c_int, "float": ctypes.c_float}
     want = [kinds["void*" if "*" in p else " ".join(p.split()[:-1])]
             for p in params.split(",")]
-    assert list(fa._MLP_BWD_ARGS) == want
+    assert list(args) == want
 
     class Fn:
         binds = 0
@@ -353,16 +354,50 @@ def test_mlp_bwd_entry_binds_its_c_signature_once(monkeypatch):
 
         def __init__(self):
             Lib.loads += 1
-            self.launch_fused_mlp_bwd = Fn()
+            setattr(self, fn_name, Fn())
 
     monkeypatch.setattr(_build, "load_library", lambda name: Lib())
     monkeypatch.setattr(_build, "_entries", {})
-    first = _build.entry("fused_mlp_bwd", "launch_fused_mlp_bwd",
-                         fa._MLP_BWD_ARGS)
-    again = _build.entry("fused_mlp_bwd", "launch_fused_mlp_bwd",
-                         fa._MLP_BWD_ARGS)
+    first = _build.entry(lib_name, fn_name, args)
+    again = _build.entry(lib_name, fn_name, args)
     assert again is first and Lib.loads == 1 and Fn.binds == 1
-    assert first.argtypes == list(fa._MLP_BWD_ARGS)
+    assert first.argtypes == list(args)
+
+
+def test_mlp_bwd_entry_binds_its_c_signature_once(monkeypatch):
+    """fused_mlp_bwd's ctypes signature is csrc/fused_mlp_bwd.cu's C entry,
+    argument by argument, and _build.entry binds it once."""
+    _entry_binds_its_c_signature_once(monkeypatch, "fused_mlp_bwd",
+                                      "launch_fused_mlp_bwd",
+                                      fa._MLP_BWD_ARGS)
+
+
+@pytest.mark.parametrize("lib_name, fn_name, args_name", [
+    ("fused_attention_residual_f32", "launch_fused_attention_residual_f32",
+     "_ATTN_F32_ARGS"),
+    ("fused_attention_residual_f32", "launch_tf32_split_weight",
+     "_TF32_SPLIT_ARGS"),
+    ("mlp_dz", "launch_mlp_dz", "_MLP_DZ_ARGS"),
+])
+def test_c_entries_bind_their_signature_once(monkeypatch, lib_name, fn_name,
+                                            args_name):
+    """#1f's C entries (csrc/fused_attention_residual_f32.cu: the forward
+    and its weight split alone) and #6's (csrc/mlp_dz.cu), as
+    fused_mlp_bwd's."""
+    _entry_binds_its_c_signature_once(monkeypatch, lib_name, fn_name,
+                                      getattr(fa, args_name))
+
+
+@pytest.mark.parametrize("rows, tiles", [(1, 1), (127, 1), (128, 1),
+                                         (129, 2), (37632, 294),
+                                         (539392, 4214)])
+def test_mlp_dz_workspace_holds_a_partial_per_row_tile(rows, tiles):
+    """mlp_dz's workspace on the card: one float32 column-sum partial per
+    128-row tile of dz (the last one ragged) and hidden column; #1f's
+    float32 scratch: the weights' planes, A's two planes and qkv."""
+    assert fa.mlp_dz_part_floats(rows, 3072) == tiles * 3072
+    assert fa.attention_f32_scratch_floats(rows, 768) == (
+        8 * 768 * 768 + 5 * rows * 768)
 
 
 def test_every_loaded_kernel_library_is_built_from_its_source():
